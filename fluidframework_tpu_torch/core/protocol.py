@@ -1,0 +1,45 @@
+"""Wire/op message types (reference: ``@fluidframework/protocol-definitions``).
+
+Host-side representation used by the sequencer and the serving engine. The
+device never sees these objects: ops are packed into int32 planes with
+variable-length payloads kept in host tables and referenced by handle.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, Optional
+
+
+class MessageType(enum.IntEnum):
+    """Op type at the protocol layer."""
+
+    OP = 0            # runtime-level operation
+    NOOP = 1          # heartbeat carrying referenceSequenceNumber (advances MSN)
+    CLIENT_JOIN = 2
+    CLIENT_LEAVE = 3
+    PROPOSAL = 4
+    SUMMARIZE = 5
+    SUMMARY_ACK = 6
+    SUMMARY_NACK = 7
+    REJOIN = 8
+
+
+@dataclasses.dataclass
+class SequencedDocumentMessage:
+    """A sequenced op as broadcast to all clients (reference:
+    ISequencedDocumentMessage): ``seq`` is the per-document total order,
+    ``min_seq`` the collaboration-window floor used for zamboni."""
+
+    doc_id: str
+    client_id: int
+    client_seq: int
+    ref_seq: int
+    seq: int
+    min_seq: int
+    type: MessageType
+    contents: Any = None
+    metadata: Optional[dict] = None
+    address: Optional[str] = None
+    timestamp: Optional[float] = None

@@ -1,0 +1,184 @@
+"""Fused merge-tree apply (+ zamboni) as a hand-written Hopper kernel.
+
+Replaces ``fluidframework_tpu/ops/pallas_string_kernel.py::
+apply_string_batch_pallas`` (``pl.pallas_call`` at line 208): for each doc
+apply O sequenced merge-tree ops in column order, optionally followed by a
+stable drop of tombstones with ``removed_seq <= min_seq``, with the doc's
+state resident on chip for the whole op loop. Source:
+``fluidframework_tpu_torch/csrc/string_apply.cu``, compiled by ``nvcc`` for
+``sm_90a`` into a plain-C shared library and bound with ctypes.
+
+Bound on the card: bytes. The function must read and write the state
+planes once and read the op planes once — 2·(7+K)·D·S·4 + 7·D·O·4 bytes;
+at D=10,240, S=384, O=64 and no props that is 238.6 MB, ≈ 71 µs at the
+H100's 3.35 TB/s. Its arithmetic is a few int32 operations per slot per
+op. What the design does about the bound: one CTA per doc loads the doc's
+planes and op fields into shared memory once, runs the whole op loop
+there (block scans, min-reductions and 1/2-slot shifts through registers)
+and writes back once, so device-memory traffic is exactly that minimum.
+What it does not do yet: hide the per-op serial chain, which is why the
+kernel sits well above the bound (the card's times are in PERF.md).
+
+On CPU tensors the wrapper runs the plain composition
+(``merge_tree.apply_string_batch`` then ``compact_string_state``); on CUDA
+tensors it launches the kernel or raises. It never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import tempfile
+import threading
+import time
+
+import torch
+
+from . import merge_tree
+from .merge_tree import PLANES, StringState
+
+#: kernel launches made by ``apply_string_batch_fused`` (callers reset it)
+launches = 0
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+PKG_ROOT = os.path.dirname(_HERE)
+SOURCE = os.path.join(PKG_ROOT, "csrc", "string_apply.cu")
+BUILD_DIR = os.path.join(PKG_ROOT, "_build")
+_LIB_PATH = os.path.join(BUILD_DIR, "libstring_apply.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
+
+_lib = None
+_lock = threading.Lock()
+#: {"seconds": build wall, "ptxas": the -Xptxas -v report} of this process
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
+def build() -> str:
+    """Compile ``csrc/string_apply.cu`` into the build directory (once per
+    process; a temporary name then ``os.replace``, so concurrent builds
+    never load a half-written library). Raises when nvcc fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed building {SOURCE}:\n{proc.stderr}")
+    os.replace(tmp, _LIB_PATH)
+    build_info.update(seconds=time.perf_counter() - t0, ptxas=proc.stderr)
+    return _LIB_PATH
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            vp, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.string_apply_launch.restype = i32
+            lib.string_apply_launch.argtypes = (
+                [vp] * 7        # op planes
+                + [vp] * 7      # state planes
+                + [vp, vp, vp, vp]  # prop_val, count, overflow, min_seq
+                + [i32] * 4     # D, S, O, K
+                + [vp])         # stream
+            lib.string_apply_smem_bytes.restype = ctypes.c_longlong
+            lib.string_apply_smem_bytes.argtypes = [i32] * 4
+            lib.string_apply_error_string.restype = ctypes.c_char_p
+            lib.string_apply_error_string.argtypes = [i32]
+            _lib = lib
+    return _lib
+
+
+def _check(state: StringState, ops, min_seq):
+    D, S = state.seq.shape
+    dev = state.seq.device
+    tensors = list(state.fields().items()) + \
+        [(f"op {n}", t) for n, t in zip(merge_tree.OP_FIELDS, ops)]
+    if min_seq is not None:
+        tensors.append(("min_seq", min_seq))
+    O = ops[0].shape[1] if ops[0].dim() == 2 else -1
+    for name, t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, state on {dev}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name in PLANES:
+        if getattr(state, name).shape != (D, S):
+            raise ValueError(f"{name} shape {tuple(getattr(state, name).shape)}"
+                             f" != {(D, S)}")
+    if state.prop_val.dim() != 3 or state.prop_val.shape[:2] != (D, S):
+        raise ValueError("prop_val must be (D, S, K)")
+    for name in ("count", "overflow"):
+        if getattr(state, name).shape != (D,):
+            raise ValueError(f"{name} must be ({D},)")
+    for n, t in zip(merge_tree.OP_FIELDS, ops):
+        if t.shape != (D, O):
+            raise ValueError(f"op plane {n} shape {tuple(t.shape)} != {(D, O)}")
+    if min_seq is not None and min_seq.shape != (D,):
+        raise ValueError(f"min_seq must be ({D},)")
+
+
+def apply_string_batch_fused(state: StringState, kind, a0, a1, a2, seq,
+                             client, ref_seq, min_seq=None,
+                             with_props: bool = False) -> StringState:
+    """Apply a dense (D, O) op batch to ``state`` IN PLACE (the state's
+    tensors are overwritten, as the JAX kernel aliased them) and return it.
+
+    ``min_seq`` (D,) fuses zamboni into the same pass. After a compaction
+    only ``[0, count)`` and the digest are specified (the kernel zeroes the
+    vacated slots and sets their ``removed_seq`` to NOT_REMOVED; the plain
+    version leaves them sorted). ``with_props=False`` is the annotate-free
+    specialisation: ``prop_val`` is neither read nor written.
+
+    Every tensor must be int32, contiguous and on the state's device. CUDA
+    tensors launch the kernel; CPU tensors run the plain composition."""
+    global launches
+    ops = (kind, a0, a1, a2, seq, client, ref_seq)
+    _check(state, ops, min_seq)
+    if state.seq.device.type == "cpu":
+        out = merge_tree.apply_string_batch(state, *ops,
+                                            with_props=with_props)
+        if min_seq is not None:
+            out = merge_tree.compact_string_state(out, min_seq, with_props)
+        for k, v in state.fields().items():
+            v.copy_(getattr(out, k))
+        return state
+    if state.seq.device.type != "cuda":
+        raise ValueError(f"unsupported device {state.seq.device}")
+    lib = _load()
+    D, S = state.seq.shape
+    O = kind.shape[1]
+    K = state.prop_val.shape[2] if with_props else 0
+    smem = lib.string_apply_smem_bytes(D, S, O, K)
+    if smem > MAX_SMEM:
+        raise ValueError(f"one doc needs {smem} B of shared memory at S={S},"
+                         f" O={O}, K={K}; the limit is {MAX_SMEM} B")
+    if D == 0:
+        return state
+    stream = torch.cuda.current_stream(state.seq.device).cuda_stream
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    err = lib.string_apply_launch(
+        *(ptr(t) for t in ops), *(ptr(getattr(state, k)) for k in PLANES),
+        ptr(state.prop_val), ptr(state.count), ptr(state.overflow),
+        ptr(min_seq) if min_seq is not None else None,
+        D, S, O, K, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError("string_apply launch failed: "
+                           + lib.string_apply_error_string(err).decode())
+    launches += 1
+    return state
+

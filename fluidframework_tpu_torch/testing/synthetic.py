@@ -1,0 +1,166 @@
+"""Synthetic op corpora (seeded numpy) for tests and the chip smoke run.
+
+Every doc follows the same op-kind cadence, so per-op visible lengths are a
+known sequence and position draws vectorise; per-doc randomness lives in
+the positions (and, for the conflict storm, in clients and perspectives).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from ..ops.merge_tree import MAX_CLIENTS, PROP_HANDLE_BITS
+from ..ops.schema import OpKind
+
+INS_LEN = 4
+RM_LEN = 2
+
+
+def typing_storm(n_docs: int, n_ops: int, seed: int = 0,
+                 start_seq: int = 1) -> Tuple[dict, int]:
+    """Dense (D, O) op planes for a synthetic multi-doc typing storm.
+
+    Cadence per doc: 3 inserts of INS_LEN chars, then one remove of RM_LEN.
+    Returns (planes dict, next_seq). Sequence numbers are assigned
+    round-robin across docs in op-index order, matching a fair sequencer.
+    """
+    rng = np.random.default_rng(seed)
+    D, O = n_docs, n_ops
+
+    lengths = np.zeros(O + 1, dtype=np.int64)
+    kinds = np.zeros(O, dtype=np.int32)
+    for k in range(O):
+        if k % 4 < 3 or lengths[k] < RM_LEN:
+            kinds[k] = OpKind.STR_INSERT
+            lengths[k + 1] = lengths[k] + INS_LEN
+        else:
+            kinds[k] = OpKind.STR_REMOVE
+            lengths[k + 1] = lengths[k] - RM_LEN
+
+    kind = np.broadcast_to(kinds, (D, O)).copy()
+    a0 = np.zeros((D, O), np.int32)
+    a1 = np.zeros((D, O), np.int32)
+    a2 = np.zeros((D, O), np.int32)
+    for k in range(O):
+        if kinds[k] == OpKind.STR_INSERT:
+            a0[:, k] = rng.integers(0, lengths[k] + 1, size=D)
+            a1[:, k] = INS_LEN
+            a2[:, k] = k + 1  # payload handle (synthetic)
+        else:
+            a0[:, k] = rng.integers(0, lengths[k] - RM_LEN + 1, size=D)
+            a1[:, k] = a0[:, k] + RM_LEN
+
+    # global seq: op k of doc d -> start + k*D + d (round-robin sequencer)
+    d_idx = np.arange(D, dtype=np.int64)[:, None]
+    k_idx = np.arange(O, dtype=np.int64)[None, :]
+    seq = (start_seq + k_idx * D + d_idx).astype(np.int32)
+    ref_seq = np.maximum(seq - D, 0).astype(np.int32)  # saw own previous op
+    client = np.zeros((D, O), np.int32)
+    planes = dict(kind=kind, a0=a0, a1=a1, a2=a2, seq=seq, client=client,
+                  ref_seq=ref_seq)
+    return planes, int(start_seq + D * O)
+
+
+def conflict_storm(n_docs: int, n_ops: int, seed: int = 0,
+                   start_seq: int = 1, n_clients: int = 4, lag: int = 8,
+                   n_keys: int = 4, n_values: int = 8,
+                   warmup: int = 16) -> Tuple[dict, int]:
+    """The CONFLICT-HEAVY multi-client corpus (the typing storm is
+    single-writer, annotate-free and fully caught up — none of the hot
+    path's hard part). Here every (doc, op) draws a random client
+    and a perspective that LAGS the sequenced stream by up to ``lag`` of
+    the doc's own ops (divergent ref_seq → real concurrent-insert
+    tie-breaks and remove-vs-insert visibility work), removes overlap by
+    construction (random ranges from stale perspectives), and ~1/8 of ops
+    are annotates (packed key<<20 | value, value 0 deletes the key) so the
+    props planes are exercised.
+
+    Position validity: positions are drawn below a CONSERVATIVE visible-
+    length bound — the doc's length ``lag`` ops ago minus every remove
+    issued inside the lag window — so any perspective in the window sees
+    at least that much text.
+
+    Cadence per op index k: k < warmup → insert; else k%8 in {3, 7} →
+    remove, k%8 == 5 → annotate, else insert.
+    """
+    rng = np.random.default_rng(seed)
+    D, O = n_docs, n_ops
+
+    kinds = np.zeros(O, np.int32)
+    lengths = np.zeros(O + 1, np.int64)
+    for k in range(O):
+        r = k % 8
+        if k >= warmup and r in (3, 7) and lengths[k] >= 3 * RM_LEN:
+            kinds[k] = OpKind.STR_REMOVE
+            lengths[k + 1] = lengths[k] - RM_LEN
+        elif k >= warmup and r == 5:
+            kinds[k] = OpKind.STR_ANNOTATE
+            lengths[k + 1] = lengths[k]
+        else:
+            kinds[k] = OpKind.STR_INSERT
+            lengths[k + 1] = lengths[k] + INS_LEN
+
+    # conservative visible length at op k for ANY perspective in the window
+    rm_in_window = np.array(
+        [sum(1 for j in range(max(k - lag, 0), k)
+             if kinds[j] == OpKind.STR_REMOVE) for k in range(O)], np.int64)
+    bound = np.maximum(lengths[np.maximum(np.arange(O) - lag, 0)]
+                       - RM_LEN * rm_in_window, 0)
+
+    kind = np.broadcast_to(kinds, (D, O)).copy()
+    a0 = np.zeros((D, O), np.int32)
+    a1 = np.zeros((D, O), np.int32)
+    a2 = np.zeros((D, O), np.int32)
+    for k in range(O):
+        b = int(bound[k])
+        if kinds[k] == OpKind.STR_INSERT:
+            a0[:, k] = rng.integers(0, b + 1, size=D)
+            a1[:, k] = INS_LEN
+            a2[:, k] = k + 1
+        elif kinds[k] == OpKind.STR_REMOVE:
+            a0[:, k] = rng.integers(0, b - RM_LEN + 1, size=D)
+            a1[:, k] = a0[:, k] + RM_LEN
+        else:  # annotate: ranges up to 6 chars, overlapping freely
+            a0[:, k] = rng.integers(0, max(b - 1, 1), size=D)
+            span = rng.integers(1, 7, size=D)
+            a1[:, k] = np.minimum(a0[:, k] + span, max(b, 1))
+            key = rng.integers(0, n_keys, size=D).astype(np.int64)
+            val = rng.integers(0, n_values + 1, size=D).astype(np.int64)
+            a2[:, k] = ((key << PROP_HANDLE_BITS) | val).astype(np.int32)
+
+    d_idx = np.arange(D, dtype=np.int64)[:, None]
+    k_idx = np.arange(O, dtype=np.int64)[None, :]
+    seq = (start_seq + k_idx * D + d_idx).astype(np.int32)
+    client = rng.integers(0, n_clients, size=(D, O)).astype(np.int32)
+    # divergent perspectives: op k of doc d saw the doc's op (k-1-lag_dk)
+    lag_dk = rng.integers(0, lag + 1, size=(D, O))
+    vis = np.maximum(k_idx - 1 - lag_dk, -1)
+    ref_seq = np.where(vis >= 0, start_seq + vis * D + d_idx, 0) \
+        .astype(np.int32)
+    planes = dict(kind=kind, a0=a0, a1=a1, a2=a2, seq=seq, client=client,
+                  ref_seq=ref_seq)
+    return planes, int(start_seq + D * O)
+
+
+def edge_storm(n_docs: int, n_ops: int, seed: int = 0,
+               start_seq: int = 1) -> Tuple[dict, int]:
+    """conflict_storm with client indexes drawn from {-1, 0, 30, 31} (bit
+    31 of the remover mask is the int32 sign bit; index -1 sees no remover
+    bit; four clients and a short insert-only warm-up keep concurrent
+    removes frequent),
+    annotate keys 0..5 (with K=4 property planes keys 4 and 5 must touch
+    no plane) and ~5% of slots carrying kinds outside {insert, remove,
+    annotate}, which must leave the doc untouched — the edges of the
+    kernel's integer handling."""
+    planes, nxt = conflict_storm(n_docs, n_ops, seed=seed,
+                                 start_seq=start_seq, n_keys=6, warmup=8)
+    rng = np.random.default_rng(seed + 1000)
+    shape = (n_docs, n_ops)
+    planes["client"] = rng.choice(
+        [-1, 0, MAX_CLIENTS - 2, MAX_CLIENTS - 1], size=shape).astype(np.int32)
+    bad = rng.random(shape) < 0.05
+    planes["kind"] = np.where(bad, rng.choice([-3, 3, 12, 99], size=shape),
+                              planes["kind"]).astype(np.int32)
+    return planes, nxt

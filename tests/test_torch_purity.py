@@ -1,0 +1,64 @@
+"""The PyTorch port stands alone: no module of ``fluidframework_tpu_torch``
+and nothing in ``chip_smoke.py`` imports ``jax`` or the JAX package, and
+the entry points refuse to run without a card unless ``device="cpu"`` is
+given.
+
+The scan reads the sources (AST), not ``sys.modules``: the interpreter may
+already hold ``jax`` for reasons unrelated to the port."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+SOURCES = sorted(str(p.relative_to(ROOT)) for p in
+                 (ROOT / "fluidframework_tpu_torch").rglob("*.py")) + \
+    ["chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "fluidframework_tpu")
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_no_jax_imports(path):
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_entry_points_need_a_card_unless_cpu_is_asked():
+    from fluidframework_tpu_torch.ops.string_store import TensorStringStore
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    if torch.cuda.is_available():
+        assert TensorStringStore(8, 128).state.seq.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TensorStringStore(8, 128)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            StringServingEngine(n_docs=8, capacity=128)
+    assert TensorStringStore(8, 128, device="cpu").state.seq.is_cpu
+
+
+def test_kernel_wrapper_checks_its_inputs():
+    """Shape and dtype are refused before any launch (on either device)."""
+    from fluidframework_tpu_torch.ops.merge_tree import StringState
+    from fluidframework_tpu_torch.ops.string_kernel import (
+        apply_string_batch_fused,
+    )
+    st = StringState.create(4, 128, device="cpu")
+    ops = [torch.zeros((4, 8), dtype=torch.int32) for _ in range(7)]
+    with pytest.raises(ValueError, match="shape"):
+        apply_string_batch_fused(st, *ops[:6], torch.zeros((3, 8),
+                                                           dtype=torch.int32))
+    with pytest.raises(TypeError, match="int32"):
+        apply_string_batch_fused(st, *ops[:6], ops[6].long())
