@@ -7,16 +7,22 @@ card — once at full width, and holds the hand-written kernel against its
 plain PyTorch version. Phases (one JSON line each):
 
 1. device — card name, count, ``nvidia-smi`` name and power limit, build
-   seconds and the ``-Xptxas -v`` register / shared-memory report (the
-   kernel is built with nvcc and the native sequencer with g++, in
-   parallel, into the package's git-ignored build directory);
+   seconds and the ``-Xptxas -v`` report: registers, stack-frame and
+   spill-store bytes of every instantiation (the kernel is built with nvcc
+   and the native sequencer with g++, in parallel, into the package's
+   git-ignored build directory);
 2. parity — D=10,240 docs, S=384 slots, O=64 ops, 4 chained typing_storm
    batches: apply (full planes bit-identical) and fused apply+compact
    (``[0, count)`` plus digest identical), and the props specialisation on
    conflict_storm with K=4;
 3. timing — CUDA events over many launches per specialisation at S=384
-   and S=512: kernel ms, plain-version ms, and the least time the card
-   could take for the same work;
+   and S=512: kernel ms, plain-version ms, the least time the card could
+   take for the same work, the launch shape (threads and docs per CTA,
+   slots per lane, CTAs per SM that the registers allow) and the input
+   states' mean ``count``; once on the chained parity inputs (docs that
+   start empty) and once on nearly full docs (``count = S - 2*O``, where
+   the live extent is about S; ``testing/kernel_timing.py``), each held
+   against the plain version;
 4. serving — ``StringServingEngine(n_docs=10240, capacity=512,
    compact_every=1, sequencer="native")``: a warm-up wave then 4 waves of
    64 ops per doc through ``PipelinedIngestExecutor(depth=3)``, with zero
@@ -33,6 +39,7 @@ Usage: ``python3 chip_smoke.py`` (one card).
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -53,6 +60,38 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def ptxas_report(text: str) -> list:
+    """Per kernel instantiation: slots per lane, shared-memory tier, props,
+    compact, registers, stack-frame / spill-store / spill-load bytes."""
+    out, cur = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            t = re.search(r"ILi(\d+)ELb([01])ELb([01])ELb([01])E", m[1])
+            cur = ({"slots_per_lane": int(t[1]), "smem_tier": t[2] == "1",
+                    "props": t[3] == "1", "compact": t[4] == "1"}
+                   if t else {"entry": m[1]})
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack_frame=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m[1])
+    return out
+
+
+def ctas_per_sm(regs: int, threads: int) -> int:
+    """CTAs one H100 SM holds by registers (65,536, allocated per warp in
+    units of 256) and by warps (64) and CTAs (32)."""
+    per_warp = -(-regs * 32 // 256) * 256
+    warps = threads // 32
+    return min(65536 // (per_warp * warps), 64 // warps, 32)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -68,6 +107,7 @@ def main() -> int:
         PipelinedIngestExecutor,
     )
     from fluidframework_tpu_torch.server.serving import StringServingEngine
+    from fluidframework_tpu_torch.testing import kernel_timing, synthetic
     from fluidframework_tpu_torch.testing.synthetic import (
         conflict_storm, typing_storm,
     )
@@ -94,14 +134,17 @@ def main() -> int:
     th.join()
     if "path" not in native:
         raise RuntimeError("native sequencer build failed")
-    ptxas = [ln.strip() for ln in sk.build_info["ptxas"].splitlines()
-             if "Used" in ln or "Compiling entry" in ln]
+    ptxas = ptxas_report(sk.build_info["ptxas"])
+    if not ptxas or any("registers" not in k for k in ptxas):
+        raise RuntimeError("no -Xptxas -v report for the kernel")
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": round(sk.build_info["seconds"], 3),
-          "native_build_s": round(native["seconds"], 3),
-          "ptxas": ptxas})
+          "kernel_build_s": sk.build_info["seconds"],
+          "native_build_s": native["seconds"],
+          "spill_store_bytes_max": max(k["spill_stores"] for k in ptxas),
+          "stack_frame_bytes_max": max(k["stack_frame"] for k in ptxas),
+          "instantiations": ptxas})
 
     # ---------------------------------------------------------- 2. parity
     def clone(st):
@@ -186,16 +229,16 @@ def main() -> int:
                   "peak_count": peak})
 
     # ---------------------------------------------------------- 3. timing
-    def bound(S, props, compact, batches, states):
+    def bound(S, props, compact, work):
         """Least time for the same work: bytes each read/written once vs
-        int32 operations (one per visible slot per op) at peak rate."""
+        int32 operations (one per visible slot per op) at peak rate.
+        ``work``: (real ops, mean input count) of each batch."""
         k = K if props else 0
         nbytes = (2 * (7 + k) * D * S * 4 + 7 * D * O * 4 + 2 * 2 * D * 4
                   + (D * 4 if compact else 0))
-        n_ops = sum(n_real * int(st.count.float().mean()) + n_real
-                    for (_, _, n_real), st in zip(batches, states))
+        n_ops = sum(n * int(c) + n for n, c in work)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / len(batches) / INT_OPS_PER_S * 1e3
+        t_ops = n_ops / len(work) / INT_OPS_PER_S * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations"), nbytes
 
@@ -229,20 +272,48 @@ def main() -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b)
 
+    def launch_shape(S, props, compact):
+        shape = sk.launch_shape(S, K if props else 0)
+        regs = next(k["registers"] for k in ptxas
+                    if (k.get("slots_per_lane"), k.get("smem_tier"),
+                        k.get("props"), k.get("compact"))
+                    == (shape["slots_per_lane"], S > 2048, props, compact))
+        shape.update(registers=regs,
+                     ctas_per_sm=ctas_per_sm(regs, shape["threads"]))
+        return shape
+
     timing = {}
+
+    def timed(name, S, state, props, compact, ms_k, ms_p, work):
+        b_ms, b_by, nbytes = bound(S, props, compact, work)
+        timing[(name, S, state)] = dict(ms=ms_k, plain_ms=ms_p,
+                                        bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": "timing", "spec": name, "D": D, "S": S, "O": O,
+              "state": state, "ms": ms_k, "plain_ms": ms_p,
+              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+              "library_ms": None,
+              "launch_shape": launch_shape(S, props, compact),
+              "mean_count": sum(c for _, c in work) / len(work),
+              "card": smi})
+
     for (name, S), (states, batches, props, compact) in inputs.items():
         time_kernel(states, batches, props, compact, rounds=1)  # warm-up
         ms_k = time_kernel(states, batches, props, compact)
         ms_p = time_plain(states, batches, props, compact)
-        b_ms, b_by, nbytes = bound(S, props, compact, batches, states)
-        timing[(name, S)] = dict(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                                 bound_by=b_by)
-        emit({"phase": "timing", "spec": name, "D": D, "S": S, "O": O,
-              "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
-              "bound_by": b_by, "bytes": nbytes, "library_ms": None,
-              "card": smi})
+        timed(name, S, "chained", props, compact, ms_k, ms_p,
+              [(n_real, float(st.count.float().mean()))
+               for (_, _, n_real), st in zip(batches, states)])
     del inputs, typing, conflict
     torch.cuda.empty_cache()
+    # nearly full docs: the live extent is about S, so it saves nothing
+    for S in (S_KERNEL, S_SERVE):
+        for name, props, compact in specs:
+            row = kernel_timing.measure(mt, sk, synthetic, D, S, O, name, K)
+            if row["max_abs_err"] or row["overflowed_docs"]:
+                raise AssertionError(f"nearly full docs ({name}, S={S}): "
+                                     f"{row}")
+            timed(name, S, "near-full", props, compact, row["ms"],
+                  row["plain_ms"], [(D * O, row["mean_count"])])
 
     # --------------------------------------------------------- 4. serving
     docs = [f"doc-{i}" for i in range(D)]
@@ -322,7 +393,7 @@ def main() -> int:
           "visible_len_min_max": [int(lengths.min()), int(lengths.max())],
           "card": smi})
 
-    main_t = timing[("no-props+compact", S_SERVE)]
+    main_t = timing[("no-props+compact", S_SERVE, "chained")]
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "string_apply",
@@ -337,8 +408,8 @@ def main() -> int:
         "shape": {"D": D, "S": S_SERVE, "O": O,
                   "spec": "no-props+compact (the serving path)"},
         "specialisations": [
-            {"spec": name, "S": S, **t}
-            for (name, S), t in timing.items()],
+            {"spec": name, "S": S, "state": state, **t}
+            for (name, S, state), t in timing.items()],
         "total_s": time.perf_counter() - t_start,
     }]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,21 +3,33 @@
 Replaces ``fluidframework_tpu/ops/pallas_string_kernel.py::
 apply_string_batch_pallas`` (``pl.pallas_call`` at line 208): for each doc
 apply O sequenced merge-tree ops in column order, optionally followed by a
-stable drop of tombstones with ``removed_seq <= min_seq``, with the doc's
-state resident on chip for the whole op loop. Source:
+stable drop of tombstones with ``removed_seq <= min_seq``. Source:
 ``fluidframework_tpu_torch/csrc/string_apply.cu``, compiled by ``nvcc`` for
 ``sm_90a`` into a plain-C shared library and bound with ctypes.
 
-Bound on the card: bytes. The function must read and write the state
-planes once and read the op planes once — 2·(7+K)·D·S·4 + 7·D·O·4 bytes;
-at D=10,240, S=384, O=64 and no props that is 238.6 MB, ≈ 71 µs at the
-H100's 3.35 TB/s. Its arithmetic is a few int32 operations per slot per
-op. What the design does about the bound: one CTA per doc loads the doc's
-planes and op fields into shared memory once, runs the whole op loop
-there (block scans, min-reductions and 1/2-slot shifts through registers)
-and writes back once, so device-memory traffic is exactly that minimum.
-What it does not do yet: hide the per-op serial chain, which is why the
-kernel sits well above the bound (the card's times are in PERF.md).
+What bounds it on the card. Bytes would: the state planes read and
+written once and the op planes read once — 2·(7+K)·D·S·4 + 7·D·O·4 bytes,
+≈ 0.09 ms at D=10,240, S=512, O=64 at the H100's 3.35 TB/s. But the O ops
+of a doc are a serial chain (each resolves its position against the
+prefix the previous op left), so the kernel is bound by the latency of
+the per-op block collectives and by the instructions per slot per op.
+
+What the design does about it. It spends instructions only on live
+slots, keeps each per-op collective to a few warp instructions and keeps
+enough docs in flight per SM. One CTA per doc; warp w owns G groups of 32
+slots, lane l of group g holding slot w·32·G + 32·g + l of every plane, in
+registers for the whole op loop (the property planes in shared memory from
+S > 512 or K > 8, every plane above S = 2048; the collectives' scratch too,
+so the 48 KB opt-in sees every byte). Groups outside the live extent
+``hi`` (``count``, or the last non-fill slot, raised by each shift) are
+skipped, and warps past ``hi + 2·O`` leave after the load: a fill tail
+shifted right stays fill and the roll's wrapped slot is always the new
+slot, so the bound is exact under the full-plane roll contract. Scans are
+warp shuffles per live group, reductions one ``redux.sync`` per field, the
+shift by 1 or 2 two shuffles per live group and plane; each collective
+costs one barrier (2 per insert, 3 per remove or annotate: a split shifts
+the prefix and visibility arrays with the planes instead of rescanning).
+Compaction writes kept slots straight to device memory.
 
 On CPU tensors the wrapper runs the plain composition
 (``merge_tree.apply_string_batch`` then ``compact_string_state``); on CUDA
@@ -46,8 +58,10 @@ PKG_ROOT = os.path.dirname(_HERE)
 SOURCE = os.path.join(PKG_ROOT, "csrc", "string_apply.cu")
 BUILD_DIR = os.path.join(PKG_ROOT, "_build")
 _LIB_PATH = os.path.join(BUILD_DIR, "libstring_apply.so")
+# -split-compile=0: the template instantiations compile in parallel
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 
 _lib = None
@@ -95,10 +109,26 @@ def _load():
                 + [vp])         # stream
             lib.string_apply_smem_bytes.restype = ctypes.c_longlong
             lib.string_apply_smem_bytes.argtypes = [i32] * 4
+            lib.string_apply_shape.restype = i32
+            lib.string_apply_shape.argtypes = [i32, i32, ctypes.POINTER(i32),
+                                               ctypes.POINTER(i32)]
             lib.string_apply_error_string.restype = ctypes.c_char_p
             lib.string_apply_error_string.argtypes = [i32]
             _lib = lib
     return _lib
+
+
+def launch_shape(S: int, K: int = 0) -> dict:
+    """The kernel's launch shape for capacity S and K property planes
+    (0: the no-props specialisation); builds the kernel. ``{"threads": per
+    CTA, "docs_per_cta": 1, "slots_per_lane": groups of 32 slots per
+    warp}``."""
+    lib = _load()
+    g, threads = ctypes.c_int(), ctypes.c_int()
+    if lib.string_apply_shape(S, K, ctypes.byref(g), ctypes.byref(threads)):
+        raise ValueError(f"the kernel does not take capacity {S}, K={K}")
+    return {"threads": threads.value, "docs_per_cta": 1,
+            "slots_per_lane": g.value}
 
 
 def _check(state: StringState, ops, min_seq):

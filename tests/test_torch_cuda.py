@@ -97,3 +97,203 @@ def test_engine_on_card_matches_cpu(cuda):
         assert engines[0].read_text(d) == engines[1].read_text(d), d
     assert np.array_equal(engines[0].store.digests(),
                           engines[1].store.digests())
+
+
+# ------------------------------------------------ edges of the kernel design
+# Shapes that cross every slots-per-thread and warp boundary (ragged S), the
+# shared-memory tier above S = 2048, input tails past ``count`` that are not
+# fill, docs at the overflow edge, and the property-plane counts.
+
+def _ops(planes, dev):
+    return [torch.as_tensor(np.ascontiguousarray(planes[k])).to(dev)
+            for k in mt.OP_FIELDS]
+
+
+def _assert_same(st, ref, props, compact, tag):
+    keys = mt.PLANES + (("prop_val",) if props else ())
+    if not compact:   # full planes, slots past count included
+        for k in keys + ("count", "overflow"):
+            assert torch.equal(getattr(st, k), getattr(ref, k)), (tag, k)
+        return
+    assert torch.equal(st.count, ref.count), tag
+    assert torch.equal(st.overflow, ref.overflow), tag
+    act = torch.arange(st.seq.shape[1], device=st.seq.device)[None, :] < \
+        st.count[:, None]
+    for k in keys:
+        a, b = getattr(st, k), getattr(ref, k)
+        m = act if a.dim() == 2 else act[:, :, None].expand_as(a)
+        assert torch.equal(a[m], b[m]), (tag, k)
+    assert torch.equal(mt.string_state_digest(st),
+                       mt.string_state_digest(ref)), tag
+
+
+def _chain(dev, st, gen, O, props, compact, n_batches=2, seed=0, **kw):
+    """Kernel and plain version over chained batches from ``st``; after a
+    compaction both continue from the kernel's state."""
+    D = st.seq.shape[0]
+    ref = _clone(st)
+    seq = 1
+    for b in range(n_batches):
+        planes, seq = gen(D, O, seed=seed * 10 + b, start_seq=seq, **kw)
+        ops = _ops(planes, dev)
+        ms = torch.full((D,), max(seq - D * 16, 0), dtype=torch.int32,
+                        device=dev) if compact else None
+        sk.apply_string_batch_fused(st, *ops, min_seq=ms, with_props=props)
+        ref = mt.apply_string_batch(ref, *ops, with_props=props)
+        if compact:
+            ref = mt.compact_string_state(ref, ms, props)
+        torch.cuda.synchronize()
+        _assert_same(st, ref, props, compact, (b, props, compact))
+        if compact:
+            ref = _clone(st)
+    return st
+
+
+SPECS = [("no-props", False, False), ("no-props+compact", False, True),
+         ("props", True, False), ("props+compact", True, True)]
+
+
+@pytest.mark.parametrize("spec", [s[0] for s in SPECS])
+@pytest.mark.parametrize("S", [32, 33, 100, 255, 257, 512, 1000, 2048, 3000])
+def test_kernel_capacity_edges(cuda, S, spec):
+    _, props, compact = next(s for s in SPECS if s[0] == spec)
+    st = mt.StringState.create(37, S, 4, device=cuda)
+    gen = conflict_storm if props else typing_storm
+    _chain(cuda, st, gen, 64, props, compact)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_kernel_shared_tier_largest_capacity(cuda, compact):
+    """S = 8192: the largest capacity the kernel takes (planes in shared
+    memory, 32 slots per thread)."""
+    st = mt.StringState.create(5, 8192, 4, device=cuda)
+    _chain(cuda, st, typing_storm, 64, False, compact)
+    assert sk.launch_shape(8192) == {"threads": 256, "docs_per_cta": 1,
+                                     "slots_per_lane": 32}
+    assert sk.launch_shape(512) == {"threads": 256, "docs_per_cta": 1,
+                                    "slots_per_lane": 2}
+
+
+@pytest.mark.parametrize("O", [0, 1, 64])
+@pytest.mark.parametrize("props", [False, True])
+def test_kernel_op_counts(cuda, O, props):
+    st = mt.StringState.create(37, 256, 4, device=cuda)
+    _chain(cuda, st, conflict_storm, O, props, compact=props)
+
+
+@pytest.mark.parametrize("spec", [s[0] for s in SPECS])
+def test_kernel_input_tail_not_fill(cuda, spec):
+    """The plain compaction sorts the dropped slots to the tail, so its
+    output's slots past ``count`` are not fill: the kernel must take such a
+    state (it then bounds its work by S, not by the live extent)."""
+    _, props, compact = next(s for s in SPECS if s[0] == spec)
+    D, S = 37, 257
+    st = mt.StringState.create(D, S, 4, device=cuda)
+    ref = _clone(st)
+    seq = 1
+    for b in range(2):
+        planes, seq = conflict_storm(D, 64, seed=b, start_seq=seq)
+        ref = mt.apply_string_batch(ref, *_ops(planes, cuda),
+                                    with_props=props)
+    ref = mt.compact_string_state(
+        ref, torch.full((D,), seq - D * 40, dtype=torch.int32, device=cuda),
+        props)
+    act = torch.arange(S, device=cuda)[None, :] < ref.count[:, None]
+    assert (~act & (ref.removed_seq != mt.NOT_REMOVED)).any()  # not fill
+    _chain(cuda, _clone(ref), conflict_storm, 64, props, compact, seed=5)
+
+
+def _packed_state(dev, counts, S, K=4):
+    """Docs whose first ``counts[d]`` slots are live 4-char segments."""
+    D = len(counts)
+    st = mt.StringState.create(D, S, K, device=dev)
+    i = torch.arange(S, device=dev, dtype=torch.int32)[None, :]
+    live = i < torch.as_tensor(counts, device=dev)[:, None]
+    st.seq.copy_(torch.where(live, i + 1, 0))
+    st.length.copy_(torch.where(live, 4, 0))
+    st.handle_op.copy_(torch.where(live, i + 1, 0))
+    st.count.copy_(torch.as_tensor(counts, dtype=torch.int32, device=dev))
+    return st
+
+
+def _op_planes(rows, start_seq):
+    """Dense op planes from per-doc lists of (kind, a0, a1, a2)."""
+    D, O = len(rows), max(len(r) for r in rows)
+    p = {k: np.zeros((D, O), np.int32) for k in mt.OP_FIELDS}
+    p["kind"][:] = 12   # NOOP pads
+    for d, r in enumerate(rows):
+        for o, (kind, a0, a1, a2) in enumerate(r):
+            p["kind"][d, o], p["a0"][d, o] = kind, a0
+            p["a1"][d, o], p["a2"][d, o] = a1, a2
+    p["seq"][:] = start_seq + np.arange(D * O, dtype=np.int32).reshape(D, O)
+    p["ref_seq"][:] = p["seq"] - 1
+    return p
+
+
+@pytest.mark.parametrize("props", [False, True])
+@pytest.mark.parametrize("S", [32, 100, 512])
+def test_kernel_overflow_and_roll_edges(cuda, S, props):
+    """Docs at count S-1 and S: the sticky overflow fires mid-batch,
+    including a range op whose first split fits and whose second
+    overflows; inserts at position 0 (the roll's wrapped slot) and at the
+    end; a doc with room for everything beside them."""
+    counts = [S - 1, S, S - 1, S - 3, 0, 1]
+    st = _packed_state(cuda, counts, S)
+    total = [4 * c for c in counts]
+    ann = (1 << 20) | 7    # key 1, value 7
+    rows = []
+    for d, n in enumerate(total):
+        rows.append([
+            (0, 0, 4, 900 + d),        # insert at 0 (boundary, roll wrap)
+            (1, 1, max(n - 2, 2), 0),  # remove: two splits
+            (0, 2, 4, 901),            # insert strictly inside a segment
+            (2, 1, 3, ann),            # annotate inside one segment
+            (0, n + 4, 4, 902),        # insert at the end
+            (0, 0, 4, 903),
+        ][1 if d == 2 else 0:])   # doc 2: the remove's 2nd split overflows
+    planes = _op_planes(rows, start_seq=S + 1)
+    ops = _ops(planes, cuda)
+    for compact in (False, True):
+        k_st, ref = _clone(st), _clone(st)
+        ms = torch.full((len(counts),), S + 3, dtype=torch.int32,
+                        device=cuda) if compact else None
+        sk.apply_string_batch_fused(k_st, *ops, min_seq=ms, with_props=props)
+        ref = mt.apply_string_batch(ref, *ops, with_props=props)
+        if compact:
+            ref = mt.compact_string_state(ref, ms, props)
+        torch.cuda.synchronize()
+        _assert_same(k_st, ref, props, compact, (S, props, compact))
+        ovf = k_st.overflow.tolist()
+        assert ovf[:3] == [1, 1, 1] and ovf[4] == 0, ovf
+
+
+@pytest.mark.parametrize("K", [1, 4, 8])
+@pytest.mark.parametrize("compact", [False, True])
+def test_kernel_prop_planes(cuda, K, compact):
+    """edge_storm (clients -1 and 31, keys past K, invalid kinds) with K
+    property planes."""
+    st = mt.StringState.create(37, 384, K, device=cuda)
+    _chain(cuda, st, edge_storm, 64, True, compact, n_batches=3)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("S,K", [(33, 9), (384, 12), (1000, 16), (3000, 12)])
+def test_kernel_many_prop_planes(cuda, S, K, compact):
+    """More than 8 property planes: a doc takes at least 4 slots per lane
+    and keeps the property planes in shared memory; annotate keys span all
+    K planes and two past them."""
+    assert sk.launch_shape(S, K)["slots_per_lane"] >= 4
+    st = mt.StringState.create(37, S, K, device=cuda)
+    _chain(cuda, st, conflict_storm, 64, True, compact, n_keys=K + 2)
+
+
+@pytest.mark.parametrize("S,K,O", [(2048, 4, 512), (2048, 4, 519),
+                                   (1024, 8, 512), (2048, 0, 1707),
+                                   (2048, 0, 1708)])
+def test_kernel_shared_memory_opt_in(cuda, S, K, O):
+    """Shapes on both sides of the 48 KB line, where the launch must opt in
+    to more shared memory for every byte the CTA uses (scratch included)."""
+    props = K > 0
+    st = mt.StringState.create(5, S, max(K, 1), device=cuda)
+    gen = conflict_storm if props else typing_storm
+    _chain(cuda, st, gen, O, props, compact=True, n_batches=1)

@@ -16,6 +16,7 @@ from fluidframework_tpu.ops.pallas_string_kernel import (
     apply_string_batch_pallas,
 )
 from fluidframework_tpu.testing.synthetic import conflict_storm, typing_storm
+from fluidframework_tpu_torch.core.constants import NOT_REMOVED
 from fluidframework_tpu_torch.ops import merge_tree as tmt
 from fluidframework_tpu_torch.ops.string_kernel import (
     apply_string_batch_fused,
@@ -165,3 +166,62 @@ def test_numpy_round_trip():
     back = tmt.state_from_numpy(tmt.state_to_numpy(st), device="cpu")
     for k, v in st.fields().items():
         assert torch.equal(v, getattr(back, k)), k
+
+
+# ------------------------------------------- the live-extent invariant
+# The card kernel bounds its shifts and its write-back by the live extent:
+# it treats the slots from the last non-fill slot on as fill. That is exact
+# only if the apply keeps every slot in [count, S) at StringState.create's
+# fill (0, NOT_REMOVED for removed_seq) whenever it was fill before.
+
+_FILL = {"removed_seq": NOT_REMOVED}
+
+
+def _tail_is_fill(st):
+    S = st.seq.shape[1]
+    past = torch.arange(S)[None, :] >= st.count[:, None]
+    for k in PLANE_KEYS:
+        v = getattr(st, k)
+        fill = _FILL.get(k, 0)
+        m = past if v.dim() == 2 else past[:, :, None].expand_as(v)
+        if not bool((v[m] == fill).all()):
+            return k
+    return None
+
+
+def _kernel_style_compact(st, ms, with_props):
+    """The plain compaction, then the vacated slots zeroed as the kernel's
+    epilogue does (NOT_REMOVED for removed_seq)."""
+    c = tmt.compact_string_state(st, ms, with_props)
+    past = torch.arange(st.seq.shape[1])[None, :] >= c.count[:, None]
+    for k in PLANE_KEYS:
+        v = getattr(c, k)
+        m = past if v.dim() == 2 else past[:, :, None].expand_as(v)
+        v[m] = _FILL.get(k, 0)
+    return c
+
+
+PLANE_KEYS = tmt.PLANES + ("prop_val",)
+
+
+@pytest.mark.parametrize("S", [32, 64, 96])
+@pytest.mark.parametrize("corpus", ["typing", "conflict", "edge"])
+def test_tail_past_count_stays_fill(corpus, S):
+    gen = {"typing": typing_storm, "conflict": conflict_storm,
+           "edge": edge_storm}[corpus]
+    with_props = corpus != "typing"
+    D = 16
+    st, seq = _torch_state(D, S), 1
+    overflowed = 0
+    for b in range(4):
+        planes, seq = gen(D, 32, seed=b, start_seq=seq)
+        ops = [torch.as_tensor(planes[k]) for k in ORDER]
+        assert _tail_is_fill(st) is None
+        st = tmt.apply_string_batch(st, *ops, with_props=with_props)
+        assert _tail_is_fill(st) is None, (b, _tail_is_fill(st))
+        overflowed = int(st.overflow.sum())
+        ms = torch.full((D,), max(seq - D * 20, 0), dtype=torch.int32)
+        st = _kernel_style_compact(st, ms, with_props)
+        assert _tail_is_fill(st) is None, b
+    if S == 32:
+        assert overflowed > 0   # the invariant holds through overflow too
