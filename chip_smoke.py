@@ -28,7 +28,22 @@ plain PyTorch version. Phases (one JSON line each):
    64 ops per doc through ``PipelinedIngestExecutor(depth=3)``, with zero
    nacks, no overflow, the kernel's launch count above 0, and the text and
    digests of sampled docs equal to a small ``device="cpu"`` engine fed
-   the same rows.
+   the same rows;
+5. recovery — the same waves at S=384 (``bench.py``'s kernel capacity,
+   which the corpus outgrows), the first serially and the rest pipelined,
+   until docs overflow: the drain and one more ``recover_overflowed``
+   rebuild them from the log, then every doc's text (and the digest of
+   every doc that never overflowed) equals a capacity-1024 control engine
+   fed the same waves. Then ``summarize``, a tail wave to 1,024 flat docs,
+   ``StringServingEngine.load`` on the card and one more recovery: every
+   doc's text, ``doc_seq``, flat digest and graduated digest equal the
+   live engine's, and a resubmitted clientSeq is dup-acked with its seq.
+   Every launch shape outside the flat tier (rebuild and graduated
+   stores) is timed and held against the plain version on the inputs the
+   path gave it. The line reports the docs re-uploaded and graduated, the
+   rebuild capacities and op windows, recovery seconds by part (log scan,
+   rebuild apply, compaction, adopt), summarize and load seconds and the
+   launches by shape.
 
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed phase raises, so
@@ -90,6 +105,266 @@ def ctas_per_sm(regs: int, threads: int) -> int:
     per_warp = -(-regs * 32 // 256) * 256
     warps = threads // 32
     return min(65536 // (per_warp * warps), 64 // warps, 32)
+
+
+def recovery_phase(D, O, docs, wave, waves, smi, dev, clone, bound,
+                   max_err):
+    """Phase 5: serve config #4 at S=384 until docs overflow, recover,
+    hold every doc against a capacity-1024 control, summarize, send a
+    tail wave, load, hold the reloaded engine against the live one, and
+    time every launch shape outside the flat tier against the plain
+    version. Returns (launches, rebuild shape rows, max abs error)."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import merge_tree as mt
+    from fluidframework_tpu_torch.ops import string_kernel as sk
+    from fluidframework_tpu_torch.ops import string_store
+    from fluidframework_tpu_torch.server.ingest_pipeline import (
+        PipelinedIngestExecutor,
+    )
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    from fluidframework_tpu_torch.testing import kernel_timing
+
+    t_phase = time.perf_counter()
+    rows_all = np.arange(D, dtype=np.int32)
+    recoveries = []   # (report, time split) of each recovery that healed
+
+    def engine(capacity, **kw):
+        e = StringServingEngine(n_docs=D, capacity=capacity,
+                                batch_window=10 ** 9, compact_every=1,
+                                sequencer="native", device=dev, **kw)
+        for d in docs:
+            e.connect(d, 1)
+        if not np.array_equal([e.doc_row(d) for d in docs], rows_all):
+            raise AssertionError("rows not allocated in doc order")
+        return e
+
+    def recording(e):
+        """Keep every recovery's report and time split (the engine's
+        own calls included: drain's, the compaction cadence's, load's)."""
+        recover = e.recover_overflowed
+
+        def wrapped(*a, **kw):
+            rep = recover(*a, **kw)
+            if rep:
+                recoveries.append((dict(rep), dict(e.last_recovery)))
+            return rep
+        e.recover_overflowed = wrapped
+        return e
+
+    def serve(e, ws):
+        """The first wave serially, the rest through the executor."""
+        res = [e.ingest_planes(rows_all, **ws[0])]
+        with PipelinedIngestExecutor(e, depth=3) as ex:
+            tks = [ex.submit(rows_all, **w) for w in ws[1:]]
+            ex.drain()
+            res += [tk.result() for tk in tks]
+        if any(r["nacked"] for r in res):
+            raise AssertionError("recovery phase: nacked ops")
+
+    # the first launch of every shape outside the flat tier (rebuild and
+    # graduated stores), kept to time it against the plain version later
+    shape_inputs = {}
+    flat_apply = string_store.apply_string_batch_fused
+
+    def keep_inputs(state, *ops, min_seq=None, with_props=False):
+        key = (*state.seq.shape, ops[0].shape[1], with_props,
+               min_seq is not None)
+        if key[0] != D and key not in shape_inputs:
+            shape_inputs[key] = (clone(state), ops, min_seq)
+        return flat_apply(state, *ops, min_seq=min_seq,
+                          with_props=with_props)
+    string_store.apply_string_batch_fused = keep_inputs
+
+    launch_shapes = {}
+
+    def count_launches():
+        for k, n in sk.shapes.items():
+            launch_shapes[k] = launch_shapes.get(k, 0) + n
+        return sk.launches
+
+    # serve at S=384 until docs overflow; detection is one compaction
+    # late, so after the drain one more recover_overflowed heals the rest
+    sk.launches = 0
+    sk.shapes.clear()
+    t0 = time.perf_counter()
+    live = recording(engine(S_KERNEL))
+    rec_waves = list(waves)
+    serve(live, rec_waves)
+    live.recover_overflowed()
+    while not recoveries and len(rec_waves) < 8:
+        rec_waves.append(wave(len(rec_waves)))
+        live.ingest_planes(rows_all, **rec_waves[-1])
+        live.recover_overflowed()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    phase_launches = count_launches()
+    healed = {d: how for rep, _ in recoveries for d, how in rep.items()}
+    if not healed:
+        raise AssertionError(f"no doc overflowed in {len(rec_waves)} waves")
+    if live.overflowed_docs():
+        raise AssertionError("overflowed docs left after recovery")
+    served = list(recoveries)
+
+    # the same waves into an engine whose capacity never overflows
+    t0 = time.perf_counter()
+    control = engine(1024)
+    serve(control, rec_waves)
+    control.recover_overflowed()
+    if control.last_recovery or control._graduated:
+        raise AssertionError("the control engine overflowed")
+    dl, dc = live.store.digests(), control.store.digests()
+    for i, d in enumerate(docs):
+        if live.read_text(d) != control.read_text(d):
+            raise AssertionError(f"{d}: text differs from the control")
+        if d not in healed and dl[i] != dc[i]:
+            raise AssertionError(f"{d}: digest differs from the control")
+    for i in sorted({0, 7, D // 2, D - 1} | set(
+            int(d[4:]) for d in list(healed)[:4])):
+        n = len(control.read_text(docs[i]))
+        for p in (0, n // 2, n - 1):
+            if live.get_properties(docs[i], p) != \
+                    control.get_properties(docs[i], p):
+                raise AssertionError(f"{docs[i]}@{p}: properties differ")
+    compare_s = time.perf_counter() - t0
+    del control
+    torch.cuda.empty_cache()
+
+    # reload: summary, a tail wave to 1,024 flat docs (every 10th), load
+    sk.launches = 0
+    sk.shapes.clear()
+    t0 = time.perf_counter()
+    summary = live.summarize()
+    summarize_s = time.perf_counter() - t0
+    tail = [i for i, d in enumerate(docs) if d in live._doc_rows][::10]
+    tail = tail[:1024]
+    tw = {k: (v[tail] if isinstance(v, np.ndarray) else v)
+          for k, v in wave(len(rec_waves)).items()}
+    tres = live.ingest_planes(rows_all[tail], **tw)
+    live.note_acked_planes([docs[i] for i in tail], tw["client"],
+                           tw["client_seq"], tres["seq"])
+    live.recover_overflowed()
+    t0 = time.perf_counter()
+    loaded = recording(StringServingEngine.load(
+        summary, live.log, device=dev, sequencer="native"))
+    loaded.recover_overflowed()   # the replayed tail overflowed its docs
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if loaded._doc_rows != live._doc_rows or \
+            sorted(loaded._graduated) != sorted(live._graduated):
+        raise AssertionError("reloaded rows or tiers differ from live")
+    for d in docs:
+        if loaded.read_text(d) != live.read_text(d) or \
+                loaded.deli.doc_seq(d) != live.deli.doc_seq(d):
+            raise AssertionError(f"{d}: reloaded text or seq differs")
+    if not np.array_equal(loaded.store.digests(), live.store.digests()):
+        raise AssertionError("reloaded flat digests differ from live")
+    for d, st in live._graduated.items():
+        if loaded._graduated[d].digests()[0] != st.digests()[0]:
+            raise AssertionError(f"{d}: reloaded graduated digest differs")
+    d0 = docs[tail[0]]
+    cs, seq = int(tw["client_seq"][0, 5]), int(tres["seq"][0, 5])
+    for e in (live, loaded):   # a resubmit is dup-acked with its seq
+        msg, nack = e.submit(d0, 1, cs, 0, {"mt": "insert", "kind": 0,
+                                            "pos": 0, "text": "x"})
+        if msg is not None or nack.seq != seq:
+            raise AssertionError(f"resubmit of {d0}:{cs} not dup-acked")
+        e.submit(d0, 1, int(tw["client_seq"][0, -1]) + 1,
+                 e.deli.doc_seq(d0), {"mt": "insert", "kind": 0, "pos": 3,
+                                      "text": "Z"})
+    if loaded.read_text(d0) != live.read_text(d0):
+        raise AssertionError(f"{d0}: text differs after a new op")
+    tail_graduated = len(live._graduated)
+    torch.cuda.synchronize()
+    phase_launches += count_launches()
+    string_store.apply_string_batch_fused = flat_apply
+    reloaded_s = time.perf_counter() - t0
+
+    # every launch shape outside the flat tier against the plain version
+    rebuild_rows = []
+    for (d_, s_, o_, props, compact), (st0, ops, ms) in sorted(
+            shape_inputs.items()):
+        work = clone(st0)
+        sk.apply_string_batch_fused(work, *ops, min_seq=ms,
+                                    with_props=props)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        ref = mt.apply_string_batch(st0, *ops, with_props=props)
+        if compact:
+            ref = mt.compact_string_state(ref, ms, props)
+        b.record()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        err = kernel_timing.max_abs_err(mt, work, ref, props, compact)
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"kernel != plain at D={d_} S={s_} "
+                                 f"O={o_}: max abs err {err}")
+        mean_seen = float(st0.count.float().mean()
+                          + work.count.float().mean()) / 2
+        n_real = int((ops[0] != 12).sum())
+        ev = []
+        for _ in range(10):
+            for k, v in work.fields().items():
+                v.copy_(getattr(st0, k))
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            sk.apply_string_batch_fused(work, *ops, min_seq=ms,
+                                        with_props=props)
+            b.record()
+            ev.append((a, b))
+        torch.cuda.synchronize()
+        b_ms, b_by, nbytes = bound(s_, props, compact,
+                                   [(n_real, mean_seen)], d=d_, o=o_)
+        k_ = K if props else 0
+        rebuild_rows.append({
+            "spec": ("props" if props else "no-props")
+            + ("+compact" if compact else ""),
+            "D": d_, "S": s_, "O": o_, "K": k_, "state": "rebuild",
+            "ms": sum(x.elapsed_time(y) for x, y in ev) / len(ev),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "max_abs_err": err, "real_ops": n_real,
+            "mean_count_seen": mean_seen,
+            "launches": launch_shapes.get((d_, s_, o_, k_, compact), 0)})
+    del shape_inputs, summary, loaded, live
+    torch.cuda.empty_cache()
+
+    def split(rec):
+        rep, stats = rec
+        outcome = {}
+        for how in rep.values():
+            outcome[how] = outcome.get(how, 0) + 1
+        return {**stats, "outcomes": outcome}
+
+    all_rec = [split(r) for r in recoveries]
+    emit({"phase": "recovery", "docs": D, "capacity": S_KERNEL,
+          "control_capacity": 1024, "waves": len(rec_waves),
+          "ops_per_wave": D * O,
+          "overflowed_docs": len(healed),
+          "reuploaded": sum(h == "reuploaded" for h in healed.values()),
+          "graduated": sum(h == "graduated" for h in healed.values()),
+          "serving_recoveries": [split(r) for r in served],
+          "tail_docs": len(tail), "tail_graduated": tail_graduated,
+          "recoveries": all_rec,
+          "recovery_s": {k: sum(r.get(k, 0.0) for r in all_rec)
+                         for k in ("scan_s", "apply_s", "compact_s",
+                                   "adopt_s")},
+          "serve_s": serve_s, "control_compare_s": compare_s,
+          "summarize_s": summarize_s, "load_s": load_s,
+          "reload_and_checks_s": reloaded_s,
+          "kernel_launches": phase_launches,
+          "launch_shapes": [
+              {"D": k[0], "S": k[1], "O": k[2], "K": k[3],
+               "compact": k[4], "launches": n}
+              for k, n in sorted(launch_shapes.items())],
+          "rebuild_shapes": rebuild_rows,
+          "texts_equal_control": D, "reloaded_equal_live": D,
+          "total_s": time.perf_counter() - t_phase, "card": smi})
+
+    return phase_launches, rebuild_rows, max_err
 
 
 def main() -> int:
@@ -229,13 +504,13 @@ def main() -> int:
                   "peak_count": peak})
 
     # ---------------------------------------------------------- 3. timing
-    def bound(S, props, compact, work):
+    def bound(S, props, compact, work, d=D, o=O):
         """Least time for the same work: bytes each read/written once vs
         int32 operations (one per visible slot per op) at peak rate.
-        ``work``: (real ops, mean input count) of each batch."""
+        ``work``: (real ops, mean count the ops see) of each batch."""
         k = K if props else 0
-        nbytes = (2 * (7 + k) * D * S * 4 + 7 * D * O * 4 + 2 * 2 * D * 4
-                  + (D * 4 if compact else 0))
+        nbytes = (2 * (7 + k) * d * S * 4 + 7 * d * o * 4 + 2 * 2 * d * 4
+                  + (d * 4 if compact else 0))
         n_ops = sum(n * int(c) + n for n, c in work)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / len(work) / INT_OPS_PER_S * 1e3
@@ -317,16 +592,19 @@ def main() -> int:
 
     # --------------------------------------------------------- 4. serving
     docs = [f"doc-{i}" for i in range(D)]
-    waves = []
-    for b in range(N_BATCHES + 1):
+
+    def wave(b):
+        """typing_storm wave ``b`` (seed b) for every doc, clientSeqs
+        b·O+1 .. (b+1)·O."""
         planes, _ = typing_storm(D, O, seed=b)
         cseq = np.broadcast_to(np.arange(b * O + 1, (b + 1) * O + 1,
                                          dtype=np.int32), (D, O))
         # the client saw everything sequenced so far (join = seq 1)
-        waves.append(dict(client=np.ones((D, O), np.int32),
-                          client_seq=cseq, ref_seq=cseq,
-                          kind=planes["kind"], a0=planes["a0"],
-                          a1=planes["a1"], text=TEXT))
+        return dict(client=np.ones((D, O), np.int32), client_seq=cseq,
+                    ref_seq=cseq, kind=planes["kind"], a0=planes["a0"],
+                    a1=planes["a1"], text=TEXT)
+
+    waves = [wave(b) for b in range(N_BATCHES + 1)]
     eng = StringServingEngine(n_docs=D, capacity=S_SERVE,
                               batch_window=10 ** 9, compact_every=1,
                               sequencer="native")
@@ -393,6 +671,12 @@ def main() -> int:
           "visible_len_min_max": [int(lengths.min()), int(lengths.max())],
           "card": smi})
 
+    del eng, small
+    torch.cuda.empty_cache()
+
+    phase_launches, rebuild_rows, max_err = recovery_phase(
+        D, O, docs, wave, waves, smi, dev, clone, bound, max_err)
+
     main_t = timing[("no-props+compact", S_SERVE, "chained")]
     print(smi, flush=True)
     emit({"kernels": [{
@@ -407,9 +691,10 @@ def main() -> int:
         "library_ms": None,
         "shape": {"D": D, "S": S_SERVE, "O": O,
                   "spec": "no-props+compact (the serving path)"},
+        "recovery_launches": phase_launches,
         "specialisations": [
             {"spec": name, "S": S, "state": state, **t}
-            for (name, S, state), t in timing.items()],
+            for (name, S, state), t in timing.items()] + rebuild_rows,
         "total_s": time.perf_counter() - t_start,
     }]})
     emit({"ok": True, "device": {"platform": "gpu",

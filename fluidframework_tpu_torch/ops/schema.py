@@ -56,6 +56,16 @@ class ValueInterner:
         """Values in handle order (element 0 is the reserved None)."""
         return list(self._values)
 
+    def export_from(self, base: int) -> list:
+        """Values appended since ``base`` (the table is append-only: an
+        incremental summary carries only this delta)."""
+        return list(self._values[base:])
+
+    def extend_from(self, values: list) -> None:
+        """Re-append an ``export_from`` delta."""
+        for v in values:
+            self.handle(v)
+
     @classmethod
     def restore(cls, values: list) -> "ValueInterner":
         it = cls()

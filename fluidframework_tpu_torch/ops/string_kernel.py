@@ -38,12 +38,14 @@ tensors it launches the kernel or raises. It never falls back.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import subprocess
 import tempfile
 import threading
 import time
+from typing import Optional
 
 import torch
 
@@ -52,6 +54,8 @@ from .merge_tree import PLANES, StringState
 
 #: kernel launches made by ``apply_string_batch_fused`` (callers reset it)
 launches = 0
+#: the same launches by shape: (D, S, O, K, compact) → count
+shapes: collections.Counter = collections.Counter()
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 PKG_ROOT = os.path.dirname(_HERE)
@@ -63,6 +67,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-split-compile=0", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
+MAX_S = 8192        # the largest capacity the kernel takes (kMaxS)
 
 _lib = None
 _lock = threading.Lock()
@@ -129,6 +134,30 @@ def launch_shape(S: int, K: int = 0) -> dict:
         raise ValueError(f"the kernel does not take capacity {S}, K={K}")
     return {"threads": threads.value, "docs_per_cta": 1,
             "slots_per_lane": g.value}
+
+
+def max_ops(S: int, K: int = 0) -> Optional[int]:
+    """The widest op batch (O) one launch takes at capacity S with K
+    property planes, from the kernel's own shared-memory size
+    (``string_apply_smem_bytes``, linear in O: the register tier stages
+    the 7 op fields of every op); None when O does not count (the shared
+    tier stages none). Builds the kernel."""
+    lib = _load()
+    base = lib.string_apply_smem_bytes(1, S, 0, K)
+    per_op = lib.string_apply_smem_bytes(1, S, 1, K) - base
+    if per_op <= 0:
+        return None
+    return max((MAX_SMEM - base) // per_op, 0)
+
+
+def takes_capacity(S: int, K: int = 0) -> bool:
+    """Whether the kernel launches on a state of capacity S with K
+    property planes (S <= MAX_S and the doc's shared memory fits)."""
+    lib = _load()
+    g, threads = ctypes.c_int(), ctypes.c_int()
+    if lib.string_apply_shape(S, K, ctypes.byref(g), ctypes.byref(threads)):
+        return False
+    return lib.string_apply_smem_bytes(1, S, 1, K) <= MAX_SMEM
 
 
 def _check(state: StringState, ops, min_seq):
@@ -210,5 +239,6 @@ def apply_string_batch_fused(state: StringState, kind, a0, a1, a2, seq,
         raise RuntimeError("string_apply launch failed: "
                            + lib.string_apply_error_string(err).decode())
     launches += 1
+    shapes[(D, S, O, K, min_seq is not None)] += 1
     return state
 

@@ -11,7 +11,12 @@ Two apply routes end in the same kernel wrapper
 messages → dense op planes) and ``apply_planes`` (the columnar wire: one
 int32 word buffer per batch, unpacked on the device by
 ``_columnar_unpack``). On the card every capacity and every doc count
-takes the kernel; CPU tensors take its plain version.
+takes the kernel; CPU tensors take its plain version. ``apply_messages``
+splits a history longer than one launch can stage into op windows.
+
+Overflow recovery re-uploads a rebuilt doc with ``adopt_doc`` (or empties
+a graduated doc's row with ``clear_doc``); incremental summaries carry
+``snapshot_rows`` deltas, folded back by ``apply_row_snapshot``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from .merge_tree import (
     MAX_CLIENTS, PLANES, PROP_HANDLE_BITS, StringState, compact_string_state,
     string_state_digest,
 )
+from . import string_kernel
 from .schema import OpKind, ValueInterner
 from .string_kernel import apply_string_batch_fused
 
@@ -221,6 +227,33 @@ class StringOpInterner:
             raise OverflowError("property value table exceeded 2^20 entries")
         return h
 
+    def remap_payload_handles(self, src: "StringOpInterner",
+                              handles: np.ndarray) -> np.ndarray:
+        """Re-intern ``src``'s payloads referenced by ``handles`` into this
+        store's table (one new handle per distinct source handle, in
+        first-seen order); returns the remapped handles."""
+        hmap: Dict[int, int] = {}
+        out = np.empty_like(handles)
+        for i, h in enumerate(handles.tolist()):
+            if h not in hmap:
+                hmap[h] = self._payload(*src._payloads[h])
+            out[i] = hmap[h]
+        return out
+
+    def remap_props(self, src: "StringOpInterner", tprop: np.ndarray,
+                    out: np.ndarray) -> None:
+        """Write ``src``'s (n, K_src) per-slot property-value handles into
+        ``out`` (n+, K_self) under this store's key planes and value
+        table."""
+        n = tprop.shape[0]
+        for key, tplane in src._prop_planes.items():
+            mplane = self._prop_plane(key)
+            col = tprop[:, tplane]
+            vmap = {int(h): (0 if h == 0 else self._prop_values.handle(
+                src._prop_values.value(int(h))))
+                for h in np.unique(col)}
+            out[:n, mplane] = [vmap[int(h)] for h in col]
+
     def reserve_props(self, props: dict) -> list:
         """Admission-time reservation of the key planes ``props`` needs
         (atomic: nothing is minted if any key cannot fit) and a headroom
@@ -317,30 +350,62 @@ class TensorStringStore(StringOpInterner):
         self.last_profile: Optional[tuple] = None
         #: rich payload wire form of the last batch: plane/tab8/tab16
         self.last_rich_wire: Optional[str] = None
+        #: op width of each launch of the last ``apply_messages``
+        self.last_op_windows: List[int] = []
 
     # ----------------------------------------------------------------- apply
 
     def apply_messages(self, messages) -> None:
         """messages: iterable of (doc, SequencedDocumentMessage) carrying
-        merge-tree op contents; applied in one dispatch."""
+        merge-tree op contents. Each doc's records apply in order: in one
+        launch, or in consecutive op windows when one launch cannot take
+        them all (the apply is an in-order fold per doc and the overflow
+        flag is sticky, so the windows leave the same state)."""
+        for planes in self._message_planes(messages):
+            self._dispatch_apply(tuple(torch.from_numpy(p).to(self.device)
+                                       for p in planes))
+
+    def _message_planes(self, messages) -> List[np.ndarray]:
+        """Intern ``messages`` and lay their device records out as dense
+        op planes: one (7, n_docs, O) int32 array per launch, O the power-
+        of-two bucket of the widest doc's records (the JAX store's static
+        shapes), capped at ``_op_window()``; NOOP pads. Records intern
+        here, so every returned window must be applied, in order."""
         per_doc: Dict[int, list] = {}
         for doc, msg in messages:
             recs = self._records_for(doc, msg)
             if recs:
                 per_doc.setdefault(doc, []).extend(recs)
+        self.last_op_windows = []
         if not per_doc:
-            return
-        # power-of-two op-axis buckets (the JAX store's static shapes)
+            return []
         widest = max(len(v) for v in per_doc.values())
-        o = 8
-        while o < widest:
-            o *= 2
-        planes = np.zeros((7, self.n_docs, o), np.int32)
-        planes[0] = _NOOP
-        for doc, recs in per_doc.items():
-            planes[:, doc, :len(recs)] = np.asarray(recs, np.int32).T
-        self._dispatch_apply(tuple(torch.from_numpy(p).to(self.device)
-                                   for p in planes))
+        limit = self._op_window()
+        step = widest if limit is None else max(limit, 1)
+        out = []
+        for lo in range(0, widest, step):
+            window = {d: r[lo:lo + step] for d, r in per_doc.items()
+                      if len(r) > lo}
+            o = 8
+            while o < max(len(r) for r in window.values()):
+                o *= 2
+            o = min(o, step) if limit is not None else o
+            planes = np.zeros((7, self.n_docs, o), np.int32)
+            planes[0] = _NOOP
+            for doc, recs in window.items():
+                planes[:, doc, :len(recs)] = np.asarray(recs, np.int32).T
+            out.append(planes)
+            self.last_op_windows.append(o)
+        return out
+
+    def _op_window(self) -> Optional[int]:
+        """The widest op batch one launch takes: on the card the kernel's
+        shared-memory limit at this store's shape (``None`` when it stages
+        no op fields); no limit for the plain version on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        return string_kernel.max_ops(
+            self.capacity, self.n_props if self._has_props else 0)
 
     def _dispatch_apply(self, op_planes: tuple, min_seq=None) -> None:
         """One device merge of dense (D, O) op planes (+ fused zamboni)."""
@@ -641,6 +706,40 @@ class TensorStringStore(StringOpInterner):
                 parts.append(text[hoff[i]:hoff[i] + length[i]])
         return "".join(parts)
 
+    def visible_length(self, doc: int) -> int:
+        rem, _, _, length, _ = self._pull_doc(doc)
+        return int(length[rem == NOT_REMOVED].sum())
+
+    @staticmethod
+    def _slot_in_planes(rem, length, pos: int) -> int:
+        """Slot holding visible position ``pos`` in pulled planes (skip
+        tombstones, accumulate live lengths)."""
+        at = 0
+        for i in range(len(rem)):
+            if rem[i] != NOT_REMOVED:
+                continue
+            if at <= pos < at + length[i]:
+                return i
+            at += length[i]
+        raise IndexError(f"position {pos} beyond visible length {at}")
+
+    def _slot_at(self, doc: int, pos: int) -> int:
+        rem, _, _, length, _ = self._pull_doc(doc)
+        return self._slot_in_planes(rem, length, pos)
+
+    def seq_at(self, doc: int, pos: int) -> int:
+        """Insert seq of the slot holding visible position ``pos``."""
+        rem, _, _, length, seqp = self._pull_doc(doc)
+        return int(seqp[self._slot_in_planes(rem, length, pos)])
+
+    def get_properties(self, doc: int, pos: int) -> dict:
+        """Properties of the character at visible position ``pos``."""
+        i = self._slot_at(doc, pos)
+        pv = self.state.prop_val[doc, i].cpu().numpy()
+        return {key: self._prop_values.value(int(pv[plane]))
+                for key, plane in self._prop_planes.items()
+                if pv[plane] != 0}
+
     def visible_lengths(self) -> np.ndarray:
         """(D,) visible lengths of every doc in one device round trip."""
         st = self.state
@@ -650,6 +749,62 @@ class TensorStringStore(StringOpInterner):
         live = active & (st.removed_seq == NOT_REMOVED)
         return torch.where(live, st.length, 0).sum(
             dim=1, dtype=_I32).cpu().numpy()
+
+    # ----------------------------------------------------- overflow recovery
+
+    def _write_rows(self, rows: torch.Tensor, planes: np.ndarray,
+                    prop: np.ndarray, count, overflow) -> None:
+        """Overwrite whole doc rows: ``planes`` (7, n, S) in PLANES order,
+        ``prop`` (n, S, K), ``count`` and ``overflow`` (n,)."""
+        st, dev = self.state, self.device
+        planes = torch.from_numpy(np.ascontiguousarray(planes)).to(dev)
+        for i, k in enumerate(PLANES):
+            getattr(st, k)[rows] = planes[i]
+        st.prop_val[rows] = torch.from_numpy(prop).to(dev)
+        st.count[rows] = torch.as_tensor(count, dtype=_I32, device=dev)
+        st.overflow[rows] = torch.as_tensor(overflow, dtype=_I32, device=dev)
+
+    def _empty_rows(self, n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(planes, prop) of ``n`` empty rows: fill everywhere."""
+        planes = np.zeros((len(PLANES), n, self.capacity), np.int32)
+        planes[PLANES.index("removed_seq")] = NOT_REMOVED
+        return planes, np.zeros((n, self.capacity, self.n_props), np.int32)
+
+    def adopt_doc(self, row: int, tmp: "TensorStringStore",
+                  src_row: int = 0) -> None:
+        """Adopt row ``src_row`` of ``tmp`` (a rebuilt store) into ``row``:
+        the re-upload step of overflow recovery. Payload handles re-intern
+        into this store's table, the doc's client map moves over whole
+        (client indexes are doc-local, so the client and removers planes
+        carry over as they are), property planes remap by key. The row's
+        tail is padded with fill, ``count`` written and the sticky
+        overflow flag cleared. The source row must fit this store."""
+        n = int(tmp.state.count[src_row])
+        if n > self.capacity or int(tmp.state.overflow[src_row]):
+            raise ValueError(f"row {src_row} of the rebuild ({n} slots) "
+                             f"does not fit capacity {self.capacity}")
+        src = torch.stack([getattr(tmp.state, k)[src_row, :n]
+                           for k in PLANES]).cpu().numpy()
+        planes, prop = self._empty_rows(1)
+        planes[:, 0, :n] = src
+        hop = PLANES.index("handle_op")
+        planes[hop, 0, :n] = self.remap_payload_handles(tmp, src[hop])
+        self._client_idx[row] = dict(tmp._client_idx[src_row])
+        self._cidx_cache = None  # the row's client map changed
+        if tmp._has_props:
+            self._has_props = True
+            self.remap_props(tmp, tmp.state.prop_val[src_row, :n].cpu()
+                             .numpy(), prop[0])
+        self._write_rows(torch.tensor([row], device=self.device), planes,
+                         prop, [n], [0])
+
+    def clear_doc(self, row: int) -> None:
+        """Empty a row (its doc graduated off this store): fill planes,
+        count 0, overflow flag cleared."""
+        planes, prop = self._empty_rows(1)
+        self._write_rows(torch.tensor([row], device=self.device), planes,
+                         prop, [0], [0])
+        self._cidx_cache = None
 
     def overflowed(self) -> np.ndarray:
         return self.state.overflow.cpu().numpy()
@@ -682,6 +837,72 @@ class TensorStringStore(StringOpInterner):
             "prop_values": self._prop_values.export(),
             "has_props": self._has_props,
         }
+
+    def snapshot_rows(self, rows, payloads_base: int,
+                      prop_values_base: int) -> dict:
+        """Incremental snapshot: only the given doc rows' planes (one
+        gather per plane, trimmed to their widest slot count) plus the
+        append-only interner deltas since the table lengths
+        ``payloads_base`` / ``prop_values_base`` of the last summary. The
+        JAX store's ``snapshot_rows`` layout, without interval state."""
+        rows = np.ascontiguousarray(rows, np.int32)
+        st = self.state
+        if len(rows):
+            idx = torch.from_numpy(rows).to(self.device).long()
+            counts = st.count[idx].cpu().numpy()
+            w = max(int(counts.max()), 1)
+            planes = {k: getattr(st, k)[idx, :w].cpu().numpy()
+                      for k in self.SNAP_PLANES}
+            overflow = st.overflow[idx].cpu().numpy()
+        else:
+            planes = {k: np.zeros((0, 1), np.int32)
+                      for k in self.SNAP_PLANES}
+            counts = overflow = np.zeros((0,), np.int32)
+        return {
+            "rows": rows,
+            "planes": planes,
+            "count": counts,
+            "overflow": overflow,
+            "payloads_delta": list(self._payloads[payloads_base:]),
+            "client_idx": {int(r): dict(self._client_idx[int(r)])
+                           for r in rows},
+            "prop_planes": dict(self._prop_planes),
+            "prop_values_delta":
+                self._prop_values.export_from(prop_values_base),
+            "has_props": self._has_props,
+        }
+
+    def apply_row_snapshot(self, delta: dict) -> None:
+        """Fold one ``snapshot_rows`` delta (this package's or the JAX
+        store's) into this restored-base store: extend the append-only
+        interner tables and overwrite the dirty rows. A delta holding
+        interval segments is refused."""
+        if any(delta.get("intervals") or []):
+            raise ValueError("row snapshot holds interval segments, which "
+                             "the PyTorch store does not support yet")
+        self._payloads.extend(tuple(p) for p in delta["payloads_delta"])
+        self._prop_planes = dict(delta["prop_planes"])
+        self._prop_values.extend_from(delta["prop_values_delta"])
+        self._has_props = self._has_props or bool(delta["has_props"])
+        # the plane map and the dirty rows' client maps are replaced
+        self._props_pack_cache = {}
+        self._cidx_cache = None
+        rows = np.asarray(delta["rows"], np.int32)
+        if not len(rows):
+            return
+        for r, m in delta["client_idx"].items():
+            self._client_idx[int(r)] = dict(m)
+        n = len(rows)
+        planes, prop = self._empty_rows(n)
+        for i, k in enumerate(PLANES):
+            small = np.asarray(delta["planes"][k], np.int32)
+            planes[i, :, :small.shape[1]] = small
+        if "prop_val" in delta["planes"]:
+            pv = np.asarray(delta["planes"]["prop_val"], np.int32)
+            prop[:, :pv.shape[1]] = pv
+        self._write_rows(torch.from_numpy(rows).to(self.device).long(),
+                         planes, prop, np.asarray(delta["count"], np.int32),
+                         np.asarray(delta["overflow"], np.int32))
 
     @classmethod
     def from_jax_snapshot(cls, snap: dict,

@@ -129,3 +129,47 @@ class DeliSequencer:
 
     def doc_seq(self, doc_id: str) -> int:
         return self._doc(doc_id).seq
+
+    # ---------------------------------------------------------- checkpoints
+
+    def checkpoint(self) -> dict:
+        """Serialisable sequencer state, in the JAX package's layout (so a
+        checkpoint taken by either package restores in the other)."""
+        return {
+            doc_id: {
+                "seq": d.seq,
+                "minSeq": d.min_seq,
+                "clients": {str(cid): [c.last_client_seq, c.ref_seq]
+                            for cid, c in d.clients.items()},
+            }
+            for doc_id, d in self._docs.items()
+        }
+
+    @classmethod
+    def restore(cls, snapshot: dict, clock=None) -> "DeliSequencer":
+        deli = cls(clock)
+        for doc_id, d in snapshot.items():
+            doc = _DocState(seq=d["seq"], min_seq=d["minSeq"])
+            for cid, (lcs, rs) in d["clients"].items():
+                doc.clients[int(cid)] = _ClientState(lcs, rs)
+            deli._docs[doc_id] = doc
+        return deli
+
+    def replay(self, msg: SequencedDocumentMessage) -> None:
+        """Re-apply an already-sequenced message (log-tail replay after a
+        restore from an older checkpoint): the counters must advance past
+        every sequenced op, or the resumed sequencer would re-issue seqs."""
+        doc = self._doc(msg.doc_id)
+        if msg.type == MessageType.CLIENT_JOIN:
+            doc.clients[msg.client_id] = _ClientState(ref_seq=msg.ref_seq)
+        elif msg.type == MessageType.CLIENT_LEAVE:
+            doc.clients.pop(msg.client_id, None)
+        else:
+            client = doc.clients.get(msg.client_id)
+            if client is not None:
+                if msg.type != MessageType.NOOP:
+                    client.last_client_seq = max(client.last_client_seq,
+                                                 msg.client_seq)
+                client.ref_seq = max(client.ref_seq, msg.ref_seq)
+        doc.seq = max(doc.seq, msg.seq)
+        doc.min_seq = max(doc.min_seq, msg.min_seq)

@@ -13,7 +13,9 @@ sum becomes a max:
   thread (they share the sequencer and the compaction cursor). Kernels
   launch on that thread's current CUDA stream;
 - **log worker** — ``_ingest_log``: the whole-batch log append, after
-  which the wave's ticket resolves (the ack-safe point).
+  which the wave's ticket resolves (the ack-safe point). A wave whose
+  deferred overflow read shows an overflowed doc marks recovery due;
+  ``drain`` runs it once no wave is in flight.
 
 In-flight depth is bounded: ``submit`` blocks while ``depth`` waves are
 packing, sequenced or unlogged. Stages are FIFO per worker, so sequencing
@@ -145,12 +147,22 @@ class PipelinedIngestExecutor:
         return ticket
 
     def drain(self, timeout: Optional[float] = None) -> None:
-        """Block until every in-flight wave has logged (or failed); raises
-        the first stage failure."""
+        """Block until every in-flight wave has logged (or failed); then
+        run the overflow recovery a wave's log stage marked due (recovery
+        replays the log, so it needs no wave in flight). Raises the first
+        stage failure.
+
+        Detection is one compaction late (the deferred flag copy), so a
+        caller that needs every doc healed calls the engine's
+        ``recover_overflowed()`` once more after this."""
         with self._cond:
             if not self._cond.wait_for(lambda: self._inflight == 0,
                                        timeout):
                 raise TimeoutError("pipelined ingest drain timed out")
+        eng = self.engine
+        if self._failure is None and eng._ov_recover_due:
+            eng._ov_recover_due = False
+            eng.recover_overflowed()
         if self._failure is not None:
             raise RuntimeError(
                 f"pipelined ingest failed at wave {self._failed_at}"

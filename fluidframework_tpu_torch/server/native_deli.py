@@ -58,6 +58,12 @@ def _load():
         lib.deli_doc_seq.argtypes = [vp, cp]
         lib.deli_doc_min_seq.restype = i64
         lib.deli_doc_min_seq.argtypes = [vp, cp]
+        lib.deli_replay.restype = None
+        lib.deli_replay.argtypes = [vp, cp, i32, i32, i32, i64, i64, i32]
+        lib.deli_checkpoint.restype = i64
+        lib.deli_checkpoint.argtypes = [vp, cp, i64]
+        lib.deli_restore.restype = vp
+        lib.deli_restore.argtypes = [cp, i64]
         _lib = lib
         return lib
 
@@ -67,10 +73,10 @@ class NativeDeli:
     one Python-side lock serialises every native call (the pipelined
     executor sequences on its own worker thread)."""
 
-    def __init__(self):
+    def __init__(self, _handle=None):
         self._lib = _load()
         self._lock = threading.Lock()
-        self._h = self._lib.deli_create()
+        self._h = _handle if _handle is not None else self._lib.deli_create()
 
     def __del__(self):
         if getattr(self, "_h", None):
@@ -138,14 +144,40 @@ class NativeDeli:
             return int(self._lib.deli_doc_min_seq(self._h,
                                                   doc_id.encode()))
 
+    def replay(self, doc_id: str, client: int, client_seq: int,
+               ref_seq: int, seq: int, min_seq: int, type_: int) -> None:
+        """Fold an already-sequenced message into the state (tail replay)."""
+        with self._lock:
+            self._lib.deli_replay(self._h, doc_id.encode(), client,
+                                  client_seq, ref_seq, seq, min_seq, type_)
+
+    def checkpoint(self) -> bytes:
+        """The state as the C library's text blob (one line per doc)."""
+        with self._lock:
+            n = self._lib.deli_checkpoint(self._h, None, 0)
+            buf = ctypes.create_string_buffer(int(n))
+            self._lib.deli_checkpoint(self._h, buf, n)
+        return buf.raw[:n]
+
+    @classmethod
+    def restore(cls, blob: bytes) -> "NativeDeli":
+        """A new sequencer holding a ``checkpoint`` blob's state. Row
+        handles do not survive: re-register docs with ``doc_handle``."""
+        lib = _load()
+        return cls(_handle=lib.deli_restore(blob, len(blob)))
+
 
 class NativeDeliAdapter:
     """The C++ sequencer behind the Python ``DeliSequencer`` surface, so an
     engine can swap it in wholesale (``sequencer="native"``); the columnar
-    ingest path uses ``raw`` against the same state."""
+    ingest path uses ``raw`` against the same state.
 
-    def __init__(self, clock=None):
-        self.raw = NativeDeli()
+    Checkpoints are the native text blob wrapped as ``{"native": <latin1
+    str>}`` (the JAX package's format); ``serving.restore_sequencer``
+    dispatches on that key."""
+
+    def __init__(self, clock=None, _native: Optional[NativeDeli] = None):
+        self.raw = _native if _native is not None else NativeDeli()
         self.clock = clock if clock is not None else time.time
 
     def client_join(self, doc_id: str, client_id: int):
@@ -182,3 +214,15 @@ class NativeDeliAdapter:
 
     def doc_seq(self, doc_id: str) -> int:
         return self.raw.doc_seq(doc_id)
+
+    def replay(self, msg) -> None:
+        self.raw.replay(msg.doc_id, msg.client_id, msg.client_seq,
+                        msg.ref_seq, msg.seq, msg.min_seq, int(msg.type))
+
+    def checkpoint(self) -> dict:
+        return {"native": self.raw.checkpoint().decode("latin1")}
+
+    @classmethod
+    def restore(cls, snapshot: dict, clock=None) -> "NativeDeliAdapter":
+        return cls(clock=clock, _native=NativeDeli.restore(
+            snapshot["native"].encode("latin1")))

@@ -11,6 +11,12 @@ import threading
 from typing import Any, List, Optional
 
 
+class OplogCorruptionError(ValueError):
+    """The log no longer holds the history a summary was cut from (it is
+    shorter than the summary's offset): replaying its tail would silently
+    serve a different history."""
+
+
 def partition_of(doc_id: str, n_partitions: int) -> int:
     """Stable doc → partition mapping (FNV-1a over the UTF-8 id)."""
     h = 2166136261
@@ -39,3 +45,7 @@ class PartitionedLog:
              to_offset: Optional[int] = None) -> List[Any]:
         with self._plocks[partition]:
             return list(self._parts[partition][from_offset:to_offset])
+
+    def size(self, partition: int) -> int:
+        with self._plocks[partition]:
+            return len(self._parts[partition])

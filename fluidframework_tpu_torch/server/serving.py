@@ -1,5 +1,5 @@
 """The replica serving engine: sequencer + partitioned log + batched device
-merge, for many SharedString documents (the flat tier).
+merge, for many SharedString documents.
 
 Reference counterpart: the Routerlicious pipeline around the op-merge hot
 path — Alfred ingress → Deli sequencing → Kafka → broadcast — with the
@@ -14,6 +14,19 @@ Two ingest routes: the per-op ``submit`` (→ ``flush`` →
 a serial walk of four stage methods (prepare → sequence → dispatch → log)
 that ``server.ingest_pipeline.PipelinedIngestExecutor`` also runs from its
 worker threads.
+
+Two tiers: the flat store (one row per doc, capacity S) and the graduated
+tier (a doc whose compacted state outgrew S gets a store of its own). A doc
+whose row overflows (the kernel drops the op and sets a sticky flag) is
+healed by ``recover_overflowed``: its whole history is replayed from the
+log into a rebuild store at doubled capacity, compacted at the doc's window
+floor, then re-uploaded into its row or graduated. Every store recovery
+builds sits on the engine's device.
+
+Recovery of the whole engine is one primitive: ``summarize`` (full, or an
+incremental delta over the last summary) captures the compacted stores,
+the sequencer checkpoint, the log offsets and the dedup ledger; ``load``
+restores them and replays the log tail through the same apply path.
 """
 
 from __future__ import annotations
@@ -22,44 +35,103 @@ import collections
 import dataclasses
 import json
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+import time
+from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from ..core.protocol import MessageType, SequencedDocumentMessage
+from ..ops import string_kernel
 from ..ops.schema import OpKind
 from ..ops.string_store import TensorStringStore
 from .deli import DeliSequencer, Nack, NackReason
-from .oplog import PartitionedLog, partition_of
+from .oplog import OplogCorruptionError, PartitionedLog, partition_of
 
 
 class DedupLedger:
     """Per ``(doc, client)`` the recent ``clientSeq → seq`` acks, recorded
     only after the op's log append: a resubmitted op whose ack was lost is
-    re-acked with its original seq instead of nacked. Bounded per key."""
+    re-acked with its original seq instead of nacked. ``last()`` is the
+    highest clientSeq durably accepted (a reconnecting client's resync
+    cursor). Bounded per key; snapshots ride the engine summary."""
 
     def __init__(self, window: int = 512):
         self.window = window
         self._led: Dict[Tuple[str, int], "collections.OrderedDict"] = {}
+        self._last: Dict[Tuple[str, int], int] = {}
         self._lock = threading.Lock()
+
+    def _record(self, doc_id: str, client_id: int, client_seq: int,
+                seq: int) -> None:
+        key = (doc_id, int(client_id))
+        led = self._led.get(key)
+        if led is None:
+            led = self._led[key] = collections.OrderedDict()
+        led[int(client_seq)] = int(seq)
+        while len(led) > self.window:
+            led.popitem(last=False)
+        if client_seq > self._last.get(key, 0):
+            self._last[key] = int(client_seq)
 
     def record(self, doc_id: str, client_id: int, client_seq: int,
                seq: int) -> None:
-        key = (doc_id, int(client_id))
         with self._lock:
-            led = self._led.get(key)
-            if led is None:
-                led = self._led[key] = collections.OrderedDict()
-            led[int(client_seq)] = int(seq)
-            while len(led) > self.window:
-                led.popitem(last=False)
+            self._record(doc_id, client_id, client_seq, seq)
+
+    def record_many(self, items) -> None:
+        """Record ``(doc, client, client_seq, seq)`` tuples under one lock
+        acquisition (a whole ack window)."""
+        with self._lock:
+            for item in items:
+                self._record(*item)
 
     def lookup(self, doc_id: str, client_id: int,
                client_seq: int) -> Optional[int]:
         with self._lock:
             led = self._led.get((doc_id, int(client_id)))
             return None if led is None else led.get(int(client_seq))
+
+    def last(self, doc_id: str, client_id: int) -> int:
+        with self._lock:
+            return self._last.get((doc_id, int(client_id)), 0)
+
+    def snapshot(self, docs=None) -> dict:
+        """Full snapshot, or (``docs`` given) only those docs' entries: the
+        slice an incremental summary carries."""
+        out: Dict[str, Dict[str, dict]] = {}
+        with self._lock:
+            for (doc, cid), led in self._led.items():
+                if docs is not None and doc not in docs:
+                    continue
+                out.setdefault(doc, {})[str(cid)] = {
+                    "last": self._last.get((doc, cid), 0),
+                    "acked": [[cs, sq] for cs, sq in led.items()]}
+        return out
+
+    def merge(self, partial: Optional[dict]) -> None:
+        """Overlay a delta summary's slice: each ``(doc, client)`` entry
+        replaces the ledger's (it is that key's whole current window)."""
+        for doc, clients in (partial or {}).items():
+            for cid, ent in clients.items():
+                key = (doc, int(cid))
+                with self._lock:
+                    self._last[key] = max(self._last.get(key, 0),
+                                          int(ent.get("last", 0)))
+                    self._led[key] = collections.OrderedDict(
+                        (int(cs), int(sq)) for cs, sq in ent.get("acked", []))
+
+    @classmethod
+    def load(cls, snapshot: Optional[dict],
+             window: int = 512) -> "DedupLedger":
+        self = cls(window=window)
+        for doc, clients in (snapshot or {}).items():
+            for cid, ent in clients.items():
+                key = (doc, int(cid))
+                self._last[key] = int(ent.get("last", 0))
+                self._led[key] = collections.OrderedDict(
+                    (int(cs), int(sq)) for cs, sq in ent.get("acked", []))
+        return self
 
 
 def make_sequencer(kind: str = "python", clock=None):
@@ -71,6 +143,15 @@ def make_sequencer(kind: str = "python", clock=None):
     if kind != "python":
         raise ValueError(f"unknown sequencer {kind!r}")
     return DeliSequencer(clock=clock)
+
+
+def restore_sequencer(snapshot: dict, clock=None):
+    """Checkpoint-format dispatch: native blobs (``{"native": ...}``)
+    restore into the native sequencer, dicts into the Python one."""
+    if "native" in snapshot:
+        from .native_deli import NativeDeliAdapter
+        return NativeDeliAdapter.restore(snapshot, clock=clock)
+    return DeliSequencer.restore(snapshot, clock=clock)
 
 
 @dataclasses.dataclass
@@ -97,30 +178,39 @@ class ColumnarOps:
     props: Optional[List[dict]] = None
     tidx: Optional[np.ndarray] = None
 
-    def expand(self) -> List[SequencedDocumentMessage]:
-        """The per-op message stream this record stands for."""
+    def expand(self, only_doc: Optional[str] = None
+               ) -> List[SequencedDocumentMessage]:
+        """The per-op message stream this record stands for, or only the
+        slice of ``only_doc``."""
+        if only_doc is None:
+            return self.messages(range(len(self.seq)))
+        if only_doc not in self.doc_ids:
+            return []
+        return self.messages(np.flatnonzero(
+            np.asarray(self.doc) == self.doc_ids.index(only_doc)))
+
+    def messages(self, idxs) -> List[SequencedDocumentMessage]:
+        """Messages of the slots ``idxs``, in that order."""
+        idxs = np.asarray(idxs, np.int64)
+        cols = [np.asarray(f)[idxs].tolist() for f in (
+            self.doc, self.client, self.client_seq, self.ref_seq, self.seq,
+            self.min_seq, self.kind, self.a0, self.a1)]
+        cols.append([0] * len(idxs) if self.tidx is None
+                    else np.asarray(self.tidx)[idxs].tolist())
         out = []
-        for i in range(len(self.seq)):
-            k = int(self.kind[i])
+        for doc, cl, cs, rs, sq, ms, k, a0, a1, ti in zip(*cols):
             if k == OpKind.STR_INSERT:
-                text = self.text if self.texts is None \
-                    else self.texts[int(self.tidx[i])]
-                contents = {"mt": "insert", "kind": 0, "pos": int(self.a0[i]),
-                            "text": text,
-                            "clientSeq": int(self.client_seq[i])}
+                text = self.text if self.texts is None else self.texts[ti]
+                contents = {"mt": "insert", "kind": 0, "pos": a0,
+                            "text": text, "clientSeq": cs}
             elif k == OpKind.STR_ANNOTATE:
-                contents = {"mt": "annotate", "start": int(self.a0[i]),
-                            "end": int(self.a1[i]),
-                            "props": self.props[int(self.tidx[i])]}
+                contents = {"mt": "annotate", "start": a0, "end": a1,
+                            "props": self.props[ti]}
             else:
-                contents = {"mt": "remove", "start": int(self.a0[i]),
-                            "end": int(self.a1[i])}
+                contents = {"mt": "remove", "start": a0, "end": a1}
             out.append(SequencedDocumentMessage(
-                doc_id=self.doc_ids[int(self.doc[i])],
-                client_id=int(self.client[i]),
-                client_seq=int(self.client_seq[i]),
-                ref_seq=int(self.ref_seq[i]), seq=int(self.seq[i]),
-                min_seq=int(self.min_seq[i]), type=MessageType.OP,
+                doc_id=self.doc_ids[doc], client_id=cl, client_seq=cs,
+                ref_seq=rs, seq=sq, min_seq=ms, type=MessageType.OP,
                 contents=contents, timestamp=self.timestamp))
         return out
 
@@ -128,7 +218,9 @@ class ColumnarOps:
 class ServingEngineBase:
     """The DDS-agnostic half of a serving engine: Deli sequencing, the
     partitioned log, doc-row membership, window-floor tracking and the
-    batch window. Subclasses own the device store."""
+    batch window, and the summary half of recovery (sequencer checkpoint,
+    log offsets, dedup ledger and member set; tail replay). Subclasses own
+    the device store."""
 
     def __init__(self, n_docs: int, batch_window: int = 64,
                  n_partitions: int = 8, compact_every: int = 16,
@@ -140,11 +232,29 @@ class ServingEngineBase:
         self.batch_window = batch_window
         self.compact_every = compact_every
         self._doc_rows: Dict[str, int] = {}
+        # row allocator: rows freed by graduated docs are reused first
+        self._free_rows: List[int] = []
+        self._next_row = 0
         self._queue: List[Tuple[int, SequencedDocumentMessage]] = []
         self._flushes_since_compact = 0
         self._min_seq: Dict[str, int] = {}
+        # durable dedup and the member set: persisted in summaries and
+        # rebuilt by the tail replay (a rejoin resets the native
+        # sequencer's dedup window, so a resuming client must not rejoin)
         self._dedup = DedupLedger()
+        self._members: Set[Tuple[str, int]] = set()
         self._dup_acked_last = 0
+        # set by the log stage when a pipelined wave's deferred flag read
+        # shows an overflow; the executor's drain recovers
+        self._ov_recover_due = False
+        # incremental summaries: the last summary and its dirty-detection
+        # baselines; docs whose device state was rewritten outside the op
+        # stream (re-upload), which a doc-seq comparison would miss; the
+        # delta chain's depth bound (past it a summary is full)
+        self._summ_bookkeeping: Optional[dict] = None
+        self._dirty_outside_ops: Set[str] = set()
+        self.max_incremental_chain = 8
+        self._chain_depth = 0
         # set while the device state may be AHEAD of the log (a wave was
         # sequenced but its append has not committed); counter-backed
         # because the pipelined executor keeps several waves in flight
@@ -169,13 +279,20 @@ class ServingEngineBase:
     def doc_row(self, doc_id: str) -> int:
         row = self._doc_rows.get(doc_id)
         if row is None:
-            row = len(self._doc_rows)
-            if row >= self.n_docs:
+            if self._free_rows:
+                row = self._free_rows.pop()
+            elif self._next_row < self.n_docs:
+                row = self._next_row
+                self._next_row += 1
+            else:
                 raise KeyError(f"document capacity {self.n_docs} exhausted")
             self._doc_rows[doc_id] = row
-            self._row_doc_id[row] = doc_id
-            self._row_part[row] = partition_of(doc_id, self.log.n_partitions)
+            self._note_row(doc_id, row)
         return row
+
+    def _note_row(self, doc_id: str, row: int) -> None:
+        self._row_doc_id[row] = doc_id
+        self._row_part[row] = partition_of(doc_id, self.log.n_partitions)
 
     def _fill_row_handles(self, rows: np.ndarray, raw) -> None:
         if (self._row_handle[rows] < 0).any():
@@ -191,6 +308,7 @@ class ServingEngineBase:
                 ) -> SequencedDocumentMessage:
         msg = self.deli.client_join(doc_id, client_id)
         self._log_append(doc_id, msg)
+        self._members.add((doc_id, int(client_id)))
         return msg
 
     def disconnect(self, doc_id: str, client_id: int
@@ -198,7 +316,22 @@ class ServingEngineBase:
         msg = self.deli.client_leave(doc_id, client_id)
         if msg is not None:
             self._log_append(doc_id, msg)
+        self._members.discard((doc_id, int(client_id)))
         return msg
+
+    def note_acked_planes(self, docs, clients, client_seqs, seqs) -> None:
+        """Ledger one acked columnar wave (the ack path's hook, after the
+        log append): ``docs`` holds the wave's doc ids, one per plane row
+        (ids, not rows: a recovery inside the wave may have released a
+        row), the rest are its (R, O) planes and ``ingest_planes``'s
+        ``seq``. Entries with ``seq <= 0`` are nacks, never recorded."""
+        seqs = np.asarray(seqs)
+        ok = seqs > 0
+        self._dedup.record_many(zip(
+            np.broadcast_to(np.asarray(docs, object)[:, None],
+                            seqs.shape)[ok].tolist(),
+            np.asarray(clients)[ok].tolist(),
+            np.asarray(client_seqs)[ok].tolist(), seqs[ok].tolist()))
 
     # ------------------------------------------ shared columnar protocol
 
@@ -284,11 +417,17 @@ class ServingEngineBase:
             return None, nack
         self._log_append(doc_id, msg)
         self._dedup.record(doc_id, client_id, client_seq, msg.seq)
-        self._queue.append((self.doc_row(doc_id), msg))
+        self._enqueue(doc_id, msg)
         self._min_seq[doc_id] = msg.min_seq
-        if len(self._queue) >= self.batch_window:
+        if self._queued() >= self.batch_window:
             self.flush()
         return msg, None
+
+    def _enqueue(self, doc_id: str, msg: SequencedDocumentMessage) -> None:
+        self._queue.append((self.doc_row(doc_id), msg))
+
+    def _queued(self) -> int:
+        return len(self._queue)
 
     def _valid_op(self, contents: Any) -> bool:
         return True
@@ -324,6 +463,155 @@ class ServingEngineBase:
     def compact(self) -> None:
         self._flushes_since_compact = 0
 
+    # ------------------------------------------------ incremental summaries
+    # A row is dirty when its doc sequenced an op since the last summary
+    # (host-side, no device read), when its doc↔row mapping changed
+    # (graduation, row reuse), or when its device state was rewritten
+    # outside the op stream (``_dirty_outside_ops``).
+
+    def _incremental_ok(self, incremental: bool) -> bool:
+        return (incremental and self._summ_bookkeeping is not None
+                and self._chain_depth < self.max_incremental_chain)
+
+    def _dirty_rows_since(self, prev: dict):
+        """(dirty row set, current doc seqs) against the last summary."""
+        cur_seqs = {d: self.deli.doc_seq(d) for d in self._doc_rows}
+        dirty = {row for d, row in self._doc_rows.items()
+                 if cur_seqs[d] != prev["doc_seqs"].get(d)}
+        dirty |= {row for d, row in prev["row_of"].items()
+                  if self._doc_rows.get(d) != row}
+        dirty |= {self._doc_rows[d] for d in self._dirty_outside_ops
+                  if d in self._doc_rows}
+        return dirty, cur_seqs
+
+    def _note_summary(self, summary: dict, cur_seqs: dict,
+                      **extra) -> None:
+        self._dirty_outside_ops.clear()
+        self._summ_bookkeeping = {
+            "summary": summary, "doc_seqs": cur_seqs,
+            "row_of": dict(self._doc_rows),
+            "members": frozenset(self._members), **extra}
+
+    def _mark_delta(self, summary: dict, prev: dict,
+                    cur_seqs: dict) -> None:
+        """Stamp a ``_base_summary()`` as a delta over ``prev``: the dedup
+        ledger rides only for docs that sequenced an op since the base, the
+        member set as a join/leave diff."""
+        summary["kind"] = "delta"
+        summary["base"] = prev["summary"]
+        changed = {d for d, s in cur_seqs.items()
+                   if s != prev["doc_seqs"].get(d)}
+        summary["dedup"] = self._dedup.snapshot(docs=changed)
+        cur = frozenset(self._members)
+        base_members = prev.get("members", frozenset())
+        del summary["members"]
+        summary["members_delta"] = {
+            "join": sorted([d, c] for d, c in cur - base_members),
+            "leave": sorted([d, c] for d, c in base_members - cur)}
+
+    @staticmethod
+    def resolve_summary_chain(summary: dict):
+        """(newest full summary, deltas oldest→newest) of an incremental
+        chain (a full summary resolves to itself)."""
+        chain: List[dict] = []
+        full = summary
+        while full.get("kind") == "delta":
+            chain.append(full)
+            full = full["base"]
+        return full, chain[::-1]
+
+    # ----------------------------------------------------- summary / recovery
+    # Subclasses' summarize() merges _base_summary() with their store
+    # snapshots; their load() calls _restore_base() then _replay_tail().
+
+    def _base_summary(self) -> dict:
+        self._check_poisoned()
+        sizes = [self.log.size(p) for p in range(self.log.n_partitions)]
+        return {
+            "deli": self.deli.checkpoint(),
+            "log_offsets": sizes,
+            # the in-memory log keeps no checksum chain: no anchor words
+            "chain_heads": [None] * len(sizes),
+            "doc_rows": dict(self._doc_rows),
+            "min_seq": dict(self._min_seq),
+            "dedup": self._dedup.snapshot(),
+            "members": [[d, c] for d, c in sorted(self._members)],
+        }
+
+    def _restore_base(self, summary: dict) -> None:
+        # keep this engine's clock (a test may have injected one)
+        self.deli = restore_sequencer(summary["deli"], clock=self.deli.clock)
+        self._doc_rows = dict(summary["doc_rows"])
+        used = set(self._doc_rows.values())
+        self._next_row = max(used) + 1 if used else 0
+        self._free_rows = [r for r in range(self._next_row) if r not in used]
+        for d, row in self._doc_rows.items():
+            self._note_row(d, row)
+        self._min_seq = dict(summary["min_seq"])
+        # the chain carries the whole ledger and roster only in its full
+        # base, then an O(changed) slice per delta: resolve oldest→newest
+        full, deltas = self.resolve_summary_chain(summary)
+        self._dedup = DedupLedger.load(full.get("dedup"))
+        members = {(d, int(c)) for d, c in full.get("members") or []}
+        for d_sum in deltas:
+            self._dedup.merge(d_sum.get("dedup"))
+            md = d_sum.get("members_delta") or {}
+            members |= {(d, int(c)) for d, c in md.get("join", [])}
+            members -= {(d, int(c)) for d, c in md.get("leave", [])}
+        self._members = members
+
+    def _verify_tail_anchor(self, summary: dict) -> None:
+        """The log must still reach every partition's summary offset: a
+        shorter log lost records behind the summary, and replaying its
+        tail would serve a different history. (Chain words are not checked:
+        this log keeps none.)"""
+        for p, off in enumerate(summary.get("log_offsets") or []):
+            if self.log.size(p) < int(off):
+                raise OplogCorruptionError(
+                    f"log p{p} holds {self.log.size(p)} records but the "
+                    f"summary was cut at offset {int(off)}")
+
+    def _replay_tail(self, summary: dict) -> None:
+        """Replay every tail message through the sequencer (so sequencing
+        resumes past the tail), the member set and the dedup ledger; OPs
+        queue for the device merge. The tail is sorted by (doc, seq):
+        columnar records round-robin across partitions while JOIN/LEAVE
+        stay in the doc's own partition, so the scan order is not the
+        order of events."""
+        self._verify_tail_anchor(summary)
+        tail: List[SequencedDocumentMessage] = []
+        for p in range(self.log.n_partitions):
+            for rec in self.log.read(p,
+                                     from_offset=summary["log_offsets"][p]):
+                tail.extend(rec.expand() if hasattr(rec, "expand")
+                            else (rec,))
+        tail.sort(key=lambda m: (m.doc_id, m.seq))
+        for msg in tail:
+            if msg.type == MessageType.PROPOSAL and \
+                    isinstance(msg.contents, dict) and \
+                    msg.contents.get("markMega"):
+                raise ValueError(f"log routes {msg.doc_id!r} to the mega "
+                                 "tier, which is not ported")
+            self.deli.replay(msg)
+            self._absorb_resilience(msg)
+            if msg.type == MessageType.OP:
+                self._enqueue(msg.doc_id, msg)
+                self._min_seq[msg.doc_id] = max(
+                    self._min_seq.get(msg.doc_id, 0), msg.min_seq)
+        self._queue.sort(key=lambda dm: dm[1].seq)
+
+    def _absorb_resilience(self, msg: SequencedDocumentMessage) -> None:
+        """Fold one replayed message into the member set and the dedup
+        ledger: a rebuilt engine must refuse (and re-ack) the clientSeqs
+        it accepted in its previous life."""
+        if msg.type == MessageType.CLIENT_JOIN:
+            self._members.add((msg.doc_id, int(msg.client_id)))
+        elif msg.type == MessageType.CLIENT_LEAVE:
+            self._members.discard((msg.doc_id, int(msg.client_id)))
+        elif msg.type == MessageType.OP and msg.client_id >= 0:
+            self._dedup.record(msg.doc_id, msg.client_id,
+                               msg.client_seq, msg.seq)
+
 
 class _IngestWave:
     """Per-wave carrier threaded through the four columnar-ingest stages."""
@@ -343,19 +631,30 @@ class _IngestWave:
 class StringServingEngine(ServingEngineBase):
     """Sequencer + log + batched device merge for many documents, on
     ``device`` (default the card; ``device="cpu"`` runs the plain
-    versions)."""
+    versions). ``store`` adopts an existing flat store (``load``)."""
 
     def __init__(self, n_docs: int, capacity: int = 256, n_props: int = 4,
                  batch_window: int = 64, n_partitions: int = 8,
                  compact_every: int = 16,
                  log: Optional[PartitionedLog] = None,
-                 sequencer: str = "python", device="cuda"):
-        self.store = TensorStringStore(n_docs, capacity, n_props, device)
+                 sequencer: str = "python", device="cuda",
+                 store: Optional[TensorStringStore] = None):
+        self.store = store if store is not None \
+            else TensorStringStore(n_docs, capacity, n_props, device)
         super().__init__(n_docs, batch_window, n_partitions, compact_every,
                          log, sequencer=sequencer)
         # in-flight async copy of the overflow flags (deferred read)
         self._ov_pending = None
         self._admit_token = None
+        # graduated tier: docs whose compacted state outgrew the flat
+        # capacity, each served from a store of its own (row 0)
+        self._graduated: Dict[str, TensorStringStore] = {}
+        self._grad_queue: List[Tuple[str, SequencedDocumentMessage]] = []
+        #: overflow flags are read and recovery runs on the compaction
+        #: cadence
+        self.auto_recover = True
+        #: time split and shapes of the last flat-tier recovery
+        self.last_recovery: dict = {}
 
     # --------------------------------------------------------------- ingress
 
@@ -399,17 +698,30 @@ class StringServingEngine(ServingEngineBase):
         return False
 
     def _admit(self, doc_id: str, contents: Any) -> None:
-        """Row + property-plane reservation, refunded by ``_unadmit``."""
-        self.doc_row(doc_id)
+        """Row + property-plane reservation (in the doc's own store once
+        it graduated), refunded by ``_unadmit``."""
+        if doc_id not in self._graduated:  # a graduated doc holds no row
+            self.doc_row(doc_id)
         self._admit_token = None
         props = contents.get("props")
         if props:
-            self._admit_token = self.store.reserve_props(props)
+            store, _ = self._store_of(doc_id)
+            self._admit_token = (store, store.reserve_props(props))
 
     def _unadmit(self) -> None:
         if self._admit_token is not None:
-            self.store.release_props(self._admit_token)
+            store, minted = self._admit_token
+            store.release_props(minted)
         self._admit_token = None
+
+    def _enqueue(self, doc_id: str, msg: SequencedDocumentMessage) -> None:
+        if doc_id in self._graduated:
+            self._grad_queue.append((doc_id, msg))
+        else:
+            self._queue.append((self.doc_row(doc_id), msg))
+
+    def _queued(self) -> int:
+        return len(self._queue) + len(self._grad_queue)
 
     def heartbeat(self, doc_id: str, client_id: int, ref_seq: int) -> None:
         """NOOP: advances the client's refSeq (and the doc's MSN) so zamboni
@@ -462,6 +774,10 @@ class StringServingEngine(ServingEngineBase):
             raise ValueError("rows must be exactly one UNIQUE row per "
                              "plane row (duplicates would silently drop "
                              "ops in the device scatter)")
+        if self._graduated and any(self._row_doc_id[r] in self._graduated
+                                   for r in rows):
+            raise ValueError("a targeted doc has graduated off the flat "
+                             "tier; route its ops through submit()")
         kind = np.asarray(kind, np.int32)
         top = int(OpKind.STR_REMOVE)
         if props is not None:
@@ -565,12 +881,17 @@ class StringServingEngine(ServingEngineBase):
             tidx=w.tidx, props=w.props, prepacked=w.prepacked)
         if w.compact_due:
             self._flushes_since_compact = 0
-            # DEFERRED overflow read: a synchronous flag read here would
-            # stall the dispatch pipeline. Start an async device→host copy
-            # of the flags now and inspect the PREVIOUS compaction's copy
-            # (already landed): detection is one compaction late.
-            w.ov_prev = self._ov_pending
-            self._ov_pending = self._async_flags()
+            for doc_id, store in self._graduated.items():
+                store.compact(self._min_seq.get(doc_id, 0))
+            if self.auto_recover:
+                # DEFERRED overflow read: a synchronous flag read here
+                # would stall the dispatch pipeline. Start an async
+                # device→host copy of the flags now and inspect the
+                # PREVIOUS compaction's copy (already landed): detection
+                # is one compaction late, which only delays recovery (the
+                # log holds every acked op).
+                w.ov_prev = self._ov_pending
+                self._ov_pending = self._async_flags()
         else:
             self._flushes_since_compact += 1
 
@@ -589,12 +910,11 @@ class StringServingEngine(ServingEngineBase):
 
     def _ingest_log(self, w: _IngestWave) -> dict:
         """Stage 4 — the whole-batch log append (the ack barrier: poison
-        clears and callers may ack only after it commits).
-
-        Raises OverflowError (after the append, so the log holds every
-        acked op) when the deferred flag read shows a doc whose device
-        capacity overflowed: overflow recovery is not ported, and its ops
-        would otherwise be dropped silently."""
+        clears and callers may ack only after it commits), then the
+        overflow harvest. Recovery replays the log, so it runs after the
+        append: inline on the serial path; on the pipelined path (other
+        waves may still be in flight) the wave only marks it due, and the
+        executor's ``drain`` recovers once nothing is in flight."""
         ts = self.deli.clock()
         R, O = w.R, w.O
         rows, kind, nacked = w.rows, w.kind, w.nacked
@@ -638,13 +958,11 @@ class StringServingEngine(ServingEngineBase):
             host, event = w.ov_prev
             if event is not None:
                 event.synchronize()
-            rows_over = np.flatnonzero(host.numpy())
-            if len(rows_over):
-                docs = [self._row_doc_id[r] for r in rows_over[:8]]
-                raise OverflowError(
-                    f"{len(rows_over)} docs overflowed their device "
-                    f"capacity (e.g. {docs}); overflow recovery is not "
-                    "ported — rebuild with a larger capacity")
+            if bool(host.numpy().any()):
+                if w.pipelined:
+                    self._ov_recover_due = True
+                else:
+                    self.recover_overflowed()
         n_dup = int(w.dup_acked or 0)
         return {"seq": w.seq_rs, "nacked": int(nacked.sum()) - n_dup,
                 "dup_acked": n_dup}
@@ -652,28 +970,288 @@ class StringServingEngine(ServingEngineBase):
     # ----------------------------------------------------------- device side
 
     def _flush_impl(self) -> int:
-        """Merge the queued window on the device in one batched apply."""
-        n = len(self._queue)
+        """Merge the queued window on the device: one batched apply for the
+        flat tier, one per graduated doc."""
+        n = self._queued()
         if self._queue:
             self.store.apply_messages(self._queue)
             self._queue.clear()
+        if self._grad_queue:
+            per_doc: Dict[str, list] = {}
+            for doc_id, msg in self._grad_queue:
+                per_doc.setdefault(doc_id, []).append((0, msg))
+            for doc_id, msgs in per_doc.items():
+                self._graduated[doc_id].apply_messages(msgs)
+            self._grad_queue.clear()
         return n
 
     def compact(self) -> None:
-        """Zamboni at each doc's MSN (collaboration-window floor)."""
+        """Zamboni at each doc's MSN (collaboration-window floor); reads
+        the overflow flags and recovers on the same cadence."""
         min_seq = np.zeros((self.n_docs,), np.int32)
         for doc_id, row in self._doc_rows.items():
             min_seq[row] = self._min_seq.get(doc_id, 0)
         self.store.compact(min_seq)
+        for doc_id, store in self._graduated.items():
+            store.compact(self._min_seq.get(doc_id, 0))
         super().compact()
+        if self.auto_recover:
+            self.recover_overflowed()
 
     # ----------------------------------------------------------------- reads
 
+    def _store_of(self, doc_id: str):
+        """(store, row) serving ``doc_id``; allocates a flat row for a doc
+        that has none yet."""
+        if doc_id in self._graduated:
+            return self._graduated[doc_id], 0
+        return self.store, self.doc_row(doc_id)
+
     def read_text(self, doc_id: str) -> str:
         self.flush()
-        return self.store.read_text(self.doc_row(doc_id))
+        store, row = self._store_of(doc_id)
+        return store.read_text(row)
+
+    def get_properties(self, doc_id: str, pos: int) -> dict:
+        self.flush()
+        store, row = self._store_of(doc_id)
+        return store.get_properties(row, pos)
 
     def overflowed_docs(self) -> List[str]:
-        """Docs whose device capacity overflowed (ops dropped)."""
+        """Flat-tier docs whose device capacity overflowed (ops dropped
+        until ``recover_overflowed`` rebuilds them)."""
         flags = self.store.overflowed()
         return [d for d, row in self._doc_rows.items() if flags[row]]
+
+    # ----------------------------------------------------- overflow recovery
+
+    def recover_overflowed(self, grow_limit: int = 1 << 20
+                           ) -> Dict[str, str]:
+        """Heal every doc whose row overflowed (the kernel dropped an op
+        and set the sticky flag): replay the doc's whole history from the
+        log into a rebuild store at doubled capacity (the same apply path),
+        compact it at the doc's window floor, then re-upload it into its
+        row when it fits again, or graduate it to a store of its own. The
+        log holds every sequenced op, so no acked op is lost. A graduated
+        store that overflows is rebuilt at doubled capacity ("regrown").
+        Returns {doc_id: "reuploaded" | "graduated" | "regrown"}.
+
+        Rebuild stores sit on the engine's device. On the card a rebuild
+        past what the kernel takes raises MemoryError, as does one past
+        ``grow_limit``."""
+        # logged-but-queued ops must not apply twice: the rebuild replays
+        # the whole log, so the queues must be empty
+        self.flush()
+        report: Dict[str, str] = {}
+        flags = self.store.overflowed()
+        flat = [d for d, r in self._doc_rows.items() if flags[r]]
+        if flat:
+            report.update(self._recover_flat_batch(flat, grow_limit))
+        for doc_id, store in list(self._graduated.items()):
+            if store.overflowed().any():
+                self._graduated[doc_id] = self._rebuild_doc(
+                    doc_id, store, grow_limit)
+                report[doc_id] = "regrown"
+        return report
+
+    def _check_rebuild_capacity(self, doc_id: str, cap: int,
+                                grow_limit: int,
+                                src: TensorStringStore) -> None:
+        """Refuse a rebuild of ``src``'s doc at capacity ``cap`` past
+        ``grow_limit``, or, on the card, past what the kernel takes."""
+        if cap > grow_limit:
+            raise MemoryError(
+                f"{doc_id}: rebuild exceeds grow limit {grow_limit}")
+        K = src.n_props if src._has_props else 0
+        if src.device.type == "cuda" and \
+                not string_kernel.takes_capacity(cap, K):
+            raise MemoryError(
+                f"{doc_id}: a rebuild at capacity {cap} (K={K}) is past "
+                "what the string_apply kernel takes (S <= "
+                f"{string_kernel.MAX_S} slots and "
+                f"{string_kernel.MAX_SMEM} B of shared memory per doc)")
+
+    def _docs_log_messages(self, doc_ids: List[str]) -> Dict[str, list]:
+        """Per doc, every sequenced OP message of ``doc_ids`` in seq order,
+        in one pass over the log. Whole-batch columnar records round-robin
+        across partitions, so every partition is scanned; a record's
+        wanted slots are picked with numpy before any message is built."""
+        want = set(doc_ids)
+        buckets: Dict[str, list] = {d: [] for d in doc_ids}
+        for p in range(self.log.n_partitions):
+            for rec in self.log.read(p):
+                if isinstance(rec, ColumnarOps):
+                    local = [i for i, d in enumerate(rec.doc_ids)
+                             if d in want]
+                    if not local:
+                        continue
+                    for m in rec.messages(np.flatnonzero(
+                            np.isin(rec.doc, local))):
+                        buckets[m.doc_id].append(m)
+                elif rec.doc_id in want and rec.type == MessageType.OP:
+                    buckets[rec.doc_id].append(rec)
+        for msgs in buckets.values():
+            msgs.sort(key=lambda m: m.seq)
+        return buckets
+
+    def _rebuild_doc(self, doc_id: str, src: TensorStringStore,
+                     grow_limit: int) -> TensorStringStore:
+        """Replay one doc's whole history into a fresh single-doc store,
+        from twice ``src``'s capacity, doubling until it fits, compacted
+        at the window floor."""
+        msgs = self._docs_log_messages([doc_id])[doc_id]
+        cap = max(src.capacity, 128)
+        while True:
+            cap *= 2
+            self._check_rebuild_capacity(doc_id, cap, grow_limit, src)
+            tmp = TensorStringStore(1, cap, src.n_props, src.device)
+            tmp.apply_messages((0, m) for m in msgs)
+            if not tmp.overflowed().any():
+                break
+        tmp.compact(self._min_seq.get(doc_id, 0))
+        return tmp
+
+    def _sync(self) -> None:
+        """Wait for the card (recovery's time split only)."""
+        if self.store.device.type == "cuda":
+            torch.cuda.synchronize(self.store.device)
+
+    def _recover_flat_batch(self, doc_ids: List[str],
+                            grow_limit: int) -> Dict[str, str]:
+        """Rebuild every overflowed flat-tier doc together: one store of
+        all of them per capacity doubling, one batched apply, one compact,
+        two flag/count reads. Docs that fit re-upload into their rows;
+        docs still too big graduate to stores of their own."""
+        t0 = time.perf_counter()
+        stats = {"docs": len(doc_ids), "scan_s": 0.0, "apply_s": 0.0,
+                 "compact_s": 0.0, "adopt_s": 0.0, "rebuilds": []}
+        report: Dict[str, str] = {}
+        msgs = self._docs_log_messages(doc_ids)
+        stats["messages"] = sum(len(v) for v in msgs.values())
+        t1 = time.perf_counter()
+        stats["scan_s"] = t1 - t0
+        pending = list(doc_ids)
+        cap = max(self.store.capacity, 128)
+        n_props = self.store.n_props
+        while pending:
+            cap *= 2
+            self._check_rebuild_capacity(pending[0], cap, grow_limit,
+                                         self.store)
+            tmp = TensorStringStore(len(pending), cap, n_props,
+                                    self.store.device)
+            tmp.apply_messages([(i, m) for i, d in enumerate(pending)
+                                for m in msgs[d]])
+            self._sync()
+            t2 = time.perf_counter()
+            tmp.compact(np.fromiter(
+                (self._min_seq.get(d, 0) for d in pending), np.int32,
+                count=len(pending)))
+            ov = tmp.overflowed()
+            counts = tmp.slot_usage()
+            t3 = time.perf_counter()
+            stats["rebuilds"].append({"D": len(pending), "S": cap,
+                                      "op_windows": tmp.last_op_windows})
+            nxt = []
+            for i, d in enumerate(pending):
+                if ov[i]:
+                    nxt.append(d)  # even doubled it did not fit: grow again
+                elif int(counts[i]) <= self.store.capacity:
+                    self.store.adopt_doc(self._doc_rows[d], tmp, src_row=i)
+                    self._dirty_outside_ops.add(d)
+                    report[d] = "reuploaded"
+                else:
+                    single = TensorStringStore(1, cap, n_props,
+                                               self.store.device)
+                    single.adopt_doc(0, tmp, src_row=i)
+                    self.store.clear_doc(self._doc_rows[d])
+                    self._graduated[d] = single
+                    self._release_flat_row(d)
+                    report[d] = "graduated"
+            pending = nxt
+            self._sync()
+            t4 = time.perf_counter()
+            stats["apply_s"] += t2 - t1
+            stats["compact_s"] += t3 - t2
+            stats["adopt_s"] += t4 - t3
+            t1 = t4
+        self.last_recovery = stats
+        return report
+
+    def _release_flat_row(self, doc_id: str) -> None:
+        """Return a graduated doc's row to the allocator and forget its
+        doc id and native handle, so a reused row cannot hit them."""
+        row = self._doc_rows.pop(doc_id)
+        self._free_rows.append(row)
+        self._row_doc_id[row] = None
+        self._row_handle[row] = -1
+
+    # ----------------------------------------------------- summary / load
+
+    def summarize(self, incremental: bool = False) -> dict:
+        """Flush + compact (which recovers), then capture the recovery
+        summary: store snapshot, graduated stores, sequencer checkpoint,
+        per-partition log offsets, doc rows, window floors, dedup ledger
+        and members.
+
+        ``incremental=True`` (after a summary of this engine) captures a
+        delta instead: only rows whose doc sequenced an op since the last
+        summary, rows whose doc↔row mapping changed and rows rewritten by
+        recovery, plus the interner tables' appended entries; the rest is
+        carried by reference to the previous summary (``base``). Past
+        ``max_incremental_chain`` deltas the summary is full again."""
+        self.flush()
+        self.compact()
+        prev = self._summ_bookkeeping
+        summary = self._base_summary()
+        if self._incremental_ok(incremental):
+            dirty_rows, cur_seqs = self._dirty_rows_since(prev)
+            self._mark_delta(summary, prev, cur_seqs)
+            summary["store_delta"] = self.store.snapshot_rows(
+                sorted(dirty_rows), prev["payloads_len"],
+                prev["prop_values_len"])
+            self._chain_depth += 1
+        else:
+            summary["kind"] = "full"
+            summary["store"] = self.store.snapshot()
+            self._chain_depth = 0
+            cur_seqs = {d: self.deli.doc_seq(d) for d in self._doc_rows}
+        # graduated stores are single-doc: they ride in full every time
+        summary["mega_store"] = None
+        summary["mega_rows"] = {}
+        summary["graduated"] = {d: s.snapshot()
+                                for d, s in self._graduated.items()}
+        self._note_summary(summary, cur_seqs,
+                           payloads_len=len(self.store._payloads),
+                           prop_values_len=len(self.store._prop_values))
+        return summary
+
+    @classmethod
+    def load(cls, summary: dict, log: PartitionedLog, device="cuda",
+             **kwargs) -> "StringServingEngine":
+        """Resume from a summary (this package's or the JAX engine's, full
+        or incremental) and the log: restore the flat store (the newest
+        full summary, then each delta's rows), the graduated stores, the
+        sequencer and the dedup state, then replay the log tail through
+        the same apply path. Every store is built on ``device``. A summary
+        holding intervals, a mega store or attribution is refused."""
+        full, deltas = cls.resolve_summary_chain(summary)
+        for s in [full] + deltas:
+            if s.get("mega_store") is not None or s.get("mega_rows"):
+                raise ValueError("summary holds a mega tier, which is not "
+                                 "ported")
+            if s.get("attribution") is not None:
+                raise ValueError("summary holds attribution, which is not "
+                                 "ported")
+        store = TensorStringStore.from_jax_snapshot(full["store"], device)
+        for delta in deltas:
+            store.apply_row_snapshot(delta["store_delta"])
+        engine = cls(store.n_docs, store.capacity, store.n_props, log=log,
+                     store=store, **kwargs)
+        engine._restore_base(summary)
+        engine._graduated = {
+            d: TensorStringStore.from_jax_snapshot(s, device)
+            for d, s in summary.get("graduated", {}).items()}
+        engine._replay_tail(summary)
+        engine._grad_queue.sort(key=lambda dm: dm[1].seq)
+        engine.flush()
+        return engine

@@ -297,3 +297,159 @@ def test_kernel_shared_memory_opt_in(cuda, S, K, O):
     st = mt.StringState.create(5, S, max(K, 1), device=cuda)
     gen = conflict_storm if props else typing_storm
     _chain(cuda, st, gen, O, props, compact=True, n_batches=1)
+
+
+# ------------------------------------------------ recovery on the card
+# Rebuild stores, graduated stores and windowed applies launch the kernel
+# at shapes the flat tier never gives it; each is held against the same
+# feed on the CPU (plain versions).
+
+def _doc_ops(rng, n_ops, n_keys=4, start_len=0):
+    """Valid op contents for one fully caught-up writer: inserts, removes
+    and annotates at random positions of a doc of known length."""
+    out, n = [], start_len
+    for _ in range(n_ops):
+        r = rng.random()
+        if n < 4 or r < 0.55:
+            pos = int(rng.integers(0, n + 1))
+            k = int(rng.integers(1, 4))
+            out.append({"mt": "insert", "kind": 0, "pos": pos,
+                        "text": "abcdefgh"[:k]})
+            n += k
+        elif r < 0.8:
+            a = int(rng.integers(0, n - 1))
+            b = min(n, a + int(rng.integers(1, 3)))
+            out.append({"mt": "remove", "start": a, "end": b})
+            n -= b - a
+        else:
+            a = int(rng.integers(0, n - 1))
+            b = min(n, a + int(rng.integers(1, 6)))
+            out.append({"mt": "annotate", "start": a, "end": b, "props": {
+                f"k{int(rng.integers(0, n_keys))}":
+                    int(rng.integers(0, 3)) or None}})
+    return out
+
+
+def _recovering_engines(dev, **kw):
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    engines = [StringServingEngine(device=d, **kw) for d in (dev, "cpu")]
+    for eng in engines:
+        eng.auto_recover = False
+    return engines
+
+
+def _same_engines(a, b):
+    assert a._doc_rows == b._doc_rows
+    assert sorted(a._graduated) == sorted(b._graduated)
+    for d in sorted(set(a._doc_rows) | set(a._graduated)):
+        text = a.read_text(d)
+        assert text == b.read_text(d), d
+        for p in range(0, len(text), 7):
+            assert a.get_properties(d, p) == b.get_properties(d, p), (d, p)
+    assert np.array_equal(a.store.digests(), b.store.digests())
+    for d, st in a._graduated.items():
+        assert st.device == a.store.device
+        assert np.array_equal(st.digests(), b._graduated[d].digests()), d
+
+
+def test_recovery_on_card_matches_cpu(cuda):
+    """Docs that overflow a small flat tier re-upload or graduate on the
+    card exactly as on the CPU; the graduated tier then serves ops, and a
+    summary with a delta loads back on the card like on the CPU."""
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    engines = _recovering_engines(cuda, n_docs=8, capacity=96,
+                                  batch_window=32, compact_every=4)
+    rng = np.random.default_rng(7)
+    plan = {f"d{i}": _doc_ops(rng, 150 if i % 2 else 260) for i in range(8)}
+    for eng in engines:
+        for d, ops in plan.items():
+            eng.connect(d, 1)
+            for cs, op in enumerate(ops, 1):
+                _, nack = eng.submit(d, 1, cs, eng.deli.doc_seq(d), op)
+                assert nack is None
+        eng.flush()
+    reports = [eng.recover_overflowed() for eng in engines]
+    assert reports[0] == reports[1]
+    assert set(reports[0].values()) == {"reuploaded", "graduated"}
+    _same_engines(*engines)
+    summaries = []
+    for eng in engines:
+        eng.auto_recover = True
+        summaries.append([eng.summarize()])
+    for d, ops in plan.items():   # the tail, both tiers
+        more = _doc_ops(rng, 12, start_len=len(engines[1].read_text(d)))
+        for eng, s in zip(engines, summaries):
+            for cs, op in enumerate(more, len(ops) + 1):
+                _, nack = eng.submit(d, 1, cs, eng.deli.doc_seq(d), op)
+                assert nack is None
+        plan[d] = ops + more
+    for eng, s in zip(engines, summaries):
+        s.append(eng.summarize(incremental=True))
+    _same_engines(*engines)
+    loaded = [StringServingEngine.load(s[-1], eng.log, device=dev)
+              for eng, s, dev in zip(engines, summaries, (cuda, "cpu"))]
+    _same_engines(*loaded)
+    with pytest.raises(MemoryError, match="string_apply kernel"):
+        engines[0]._check_rebuild_capacity("d0", 2 * sk.MAX_S, 1 << 20,
+                                           engines[0].store)
+
+
+@pytest.mark.parametrize("S,K", [(768, 4), (2048, 16)])
+def test_rebuild_store_props_match_plain(cuda, S, K):
+    """A rebuild-shaped store (many docs' whole histories at once, with
+    property planes; at S=768/K=4 the planes live in shared memory) on the
+    card equals the same messages applied on the CPU, full planes."""
+    from fluidframework_tpu_torch.core.protocol import (
+        MessageType, SequencedDocumentMessage,
+    )
+    from fluidframework_tpu_torch.ops.string_store import TensorStringStore
+    assert sk.launch_shape(S, K)["slots_per_lane"] >= 4
+    rng = np.random.default_rng(S)
+    msgs = []
+    for d in range(6):
+        for i, op in enumerate(_doc_ops(rng, 200, n_keys=K), 1):
+            msgs.append((d, SequencedDocumentMessage(
+                f"r{d}", 1 + i % 3, i, i - 1, i, 0, MessageType.OP, op)))
+    stores = [TensorStringStore(6, S, K, device=dev) for dev in (cuda, "cpu")]
+    for st in stores:
+        st.apply_messages(msgs)
+    assert stores[0].last_op_windows == stores[1].last_op_windows
+    for k, v in stores[1].state.fields().items():
+        assert torch.equal(getattr(stores[0].state, k).cpu(), v), k
+
+
+def test_windowed_rebuild_matches_one_shot_plain(cuda):
+    """A doc history longer than one launch can stage (the register tier
+    keeps 28 bytes of op fields per op in shared memory) applies in op
+    windows on the card and equals the one-shot plain apply on the CPU,
+    full planes."""
+    from fluidframework_tpu_torch.core.protocol import (
+        MessageType, SequencedDocumentMessage,
+    )
+    from fluidframework_tpu_torch.ops.string_store import TensorStringStore
+    S, K = 2048, 16
+    limit = sk.max_ops(S, K)
+    assert limit is not None
+    # one insert, then annotates of 16 keys each (16 records a message)
+    n_msgs = limit // K + 8
+    msgs = []
+    for d in range(2):
+        ops = [{"mt": "insert", "kind": 0, "pos": 0, "text": "x" * 40}]
+        ops += [{"mt": "annotate", "start": (i + d) % 7, "end": 40 - i % 5,
+                 "props": {f"k{j}": (i + j + d) % 4 or None
+                           for j in range(K)}}
+                for i in range(n_msgs)]
+        msgs += [(d, SequencedDocumentMessage(f"w{d}", 1, i, i - 1, i, 0,
+                                              MessageType.OP, op))
+                 for i, op in enumerate(ops, 1)]
+    card = TensorStringStore(2, S, K, device=cuda)
+    before = sk.launches
+    card.apply_messages(msgs)
+    assert len(card.last_op_windows) > 1
+    assert sk.launches - before == len(card.last_op_windows)
+    assert max(card.last_op_windows) <= limit
+    cpu = TensorStringStore(2, S, K, device="cpu")
+    cpu.apply_messages(msgs)
+    assert len(cpu.last_op_windows) == 1 and cpu.last_op_windows[0] > limit
+    for k, v in cpu.state.fields().items():
+        assert torch.equal(getattr(card.state, k).cpu(), v), k
