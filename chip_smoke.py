@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch / H100 port (``fluidframework_tpu_torch``).
 
-Drives the port's main path — BASELINE config #4, SharedString ops
-sequenced by Deli and merged into a (doc × segment) merge-tree state on the
-card — once at full width, and holds the hand-written kernel against its
+Drives the port's paths once at full width — BASELINE config #4
+(SharedString ops sequenced by Deli and merged into a (doc × segment)
+merge-tree state on the card), config #2 (SharedMap) and config #3 (the
+SharedMatrix cell table) — and holds each hand-written kernel against its
 plain PyTorch version. Phases (one JSON line each):
 
 1. device — card name, count, ``nvidia-smi`` name and power limit, build
    seconds and the ``-Xptxas -v`` report: registers, stack-frame and
-   spill-store bytes of every instantiation (the kernel is built with nvcc
-   and the native sequencer with g++, in parallel, into the package's
-   git-ignored build directory);
+   spill-store bytes of every instantiation (the three kernels are built
+   with one nvcc each and the native sequencer with g++, all in parallel,
+   into the package's git-ignored build directory);
 2. parity — D=10,240 docs, S=384 slots, O=64 ops, 4 chained typing_storm
    batches: apply (full planes bit-identical) and fused apply+compact
    (``[0, count)`` plus digest identical), and the props specialisation on
@@ -43,9 +44,32 @@ plain PyTorch version. Phases (one JSON line each):
    path gave it. The line reports the docs re-uploaded and graduated, the
    rebuild capacities and op windows, recovery seconds by part (log scan,
    rebuild apply, compaction, adopt), summarize and load seconds and the
-   launches by shape.
+   launches by shape;
+6. map — BASELINE config #2 (1,024 maps × 64 key slots, 64 ops per map
+   per batch, set:delete:clear = 8:2:1): its 64 raw batches chained
+   through the map kernel (``csrc/map_apply.cu``) and the plain version
+   on the card (all planes equal after every batch); a
+   ``MapServingEngine`` on the card with the native sequencer takes 12
+   columnar batches (warm-up + 11 timed; zero nacks, planes equal a
+   ``device="cpu"`` engine fed the same batches, ops/s), then 320 per-op
+   submits with clears on 16 maps (reads equal the CPU engine's), a full
+   and an incremental summary and a load of each on the card (reads, and
+   the incremental load's digests, equal the live engine's). The kernel
+   is timed dense at D=1,024 and D=10,240 and packed at config #2;
+7. matrix_cells — BASELINE config #3 (a 1,024 × 1,024 grid, 8 batches of
+   65,536 set-cell ops, capacity rows·cols + O): the batches through the
+   cell merge kernel (``csrc/cell_merge.cu``) in full mode against the
+   plain version on the card, then the same 524,288 records through
+   ``TensorMatrixStore.apply_batch_columnar`` (batch 4,096: 128 prefix
+   merges) against a store whose merges run the plain version, a
+   first-writer-wins storm, and ``snapshot_delta`` / ``apply_delta`` /
+   ``restore`` on the card equal to the live store. Both modes are timed.
 
-Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line, and as the
+Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (the three
+kernels: ``string_apply``, ``map_apply``, ``cell_merge``, each with its
+launches on its own paths, every count set to 0 just before a path and
+read just after: config #4 serving; config #2's kernel loop and its
+serving route; config #3's kernel loop and the store route), and as the
 last line ``{"ok": true, "device": {...}}``. Any failed phase raises, so
 the exit code is non-zero. Without a card it exits 2 and prints no result.
 
@@ -57,7 +81,6 @@ import os
 import re
 import subprocess
 import sys
-import threading
 import time
 
 D = 10_240          # documents (config #4)
@@ -69,6 +92,13 @@ N_BATCHES = 4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit peak (fp32 rate)
 TEXT = "abcd"               # typing_storm insert payload (INS_LEN = 4)
+D_STRING = D                # config #4's doc count, a map timing shape
+MAP_D, MAP_K, MAP_O = 1024, 64, 64   # config #2: maps × key slots × ops
+MAP_RAW_BATCHES = 64        # config2_map_storm.py's kernel loop
+MAP_SERVE_BATCHES = 12      # its serving loop: warm-up + 11 timed
+MAP_PER_OP = 320            # per-op submits across 16 maps
+MX_GRID, MX_OPS, MX_BATCHES = 1024, 1 << 16, 8   # config #3
+MX_STORE_BATCH = 4096       # TensorMatrixStore's default chunk
 
 
 def emit(obj) -> None:
@@ -367,6 +397,473 @@ def recovery_phase(D, O, docs, wave, waves, smi, dev, clone, bound,
     return phase_launches, rebuild_rows, max_err
 
 
+def timed_events(fn, reps):
+    """Mean ms of ``reps`` calls of ``fn`` bracketed by CUDA events (after
+    one warm-up call)."""
+    import torch
+    fn()
+    ev = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        ev.append((a, b))
+    torch.cuda.synchronize()
+    return sum(x.elapsed_time(y) for x, y in ev) / len(ev)
+
+
+def graph_ms(fn, reps):
+    """Mean ms per call of ``fn`` as the card runs it back to back: ``reps``
+    calls captured in one CUDA graph, one replay between CUDA events. The
+    host's enqueue, longer than these kernels, is left out."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bytes_bound(nbytes):
+    """(ms, "bytes") for a function that must move ``nbytes``."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def map_phase(smi, dev):
+    """Phase 6: BASELINE config #2 at full width (1,024 maps × 64 key
+    slots, 64 ops per doc per batch, set:delete:clear = 8:2:1). Returns the
+    ``map_apply`` kernels-line entry."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import map_apply as mak
+    from fluidframework_tpu_torch.ops import map_kernel as mk
+    from fluidframework_tpu_torch.server.serving import MapServingEngine
+    from fluidframework_tpu_torch.testing.synthetic import (
+        map_raw_batches, map_serving_batch,
+    )
+
+    t_phase = time.perf_counter()
+    D, K, O = MAP_D, MAP_K, MAP_O
+
+    def diff(a, b):
+        return max(int((getattr(a, k).long() - getattr(b, k).long())
+                       .abs().max()) for k in mk.PLANES)
+
+    # raw loop: 64 chained batches through the kernel and the plain version
+    raw = [tuple(torch.as_tensor(p).to(dev) for p in b)
+           for b in map_raw_batches(D, K, O, MAP_RAW_BATCHES, seed=0)]
+    st = mk.MapState.create(D, K, dev)
+    ref = mk.MapState.create(D, K, dev)
+    err = 0
+    mak.launches = 0   # config #2's kernel loop starts here
+    for b in raw:
+        mk.apply_map_batch_fused(st, *b)
+        ref = mk.apply_map_batch(ref, *b)
+        torch.cuda.synchronize()
+        err = max(err, diff(st, ref))
+        if err:
+            raise AssertionError(f"map kernel != plain: max abs err {err}")
+    raw_launches = mak.launches   # and ends here
+    if raw_launches != MAP_RAW_BATCHES:
+        raise AssertionError(f"kernel loop launched {raw_launches} times")
+
+    # timing: dense at config #2 and at config #4's doc count, packed at
+    # config #2 (the serving shape)
+    rows_specs = []
+
+    def time_dense(d):
+        b = map_raw_batches(d, K, O, 1, seed=d)[0]
+        ops = [torch.as_tensor(p).to(dev) for p in b]
+        work = mk.MapState.create(d, K, dev)
+        run = lambda: mk.apply_map_batch_fused(work, *ops)  # noqa: E731
+        t = {"ms": graph_ms(run, 50), "call_ms": timed_events(run, 20)}
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = mk.apply_map_batch(work, *ops)
+        z.record()
+        torch.cuda.synchronize()
+        chk = mk.MapState(*(v.clone() for v in work.fields().values()))
+        mk.apply_map_batch_fused(chk, *ops)
+        e = diff(chk, out)
+        b_ms, b_by = bytes_bound(2 * 3 * d * K * 4 + 4 * d * O * 4)
+        rows_specs.append({"spec": "dense", "D": d, "K": K, "O": O,
+                           **t, "plain_ms": a.elapsed_time(z),
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "max_abs_err": e})
+        return e
+
+    err = max(err, time_dense(D), time_dense(D_STRING))
+
+    kind, kidx, keys, vidx, values = map_serving_batch(D, O, 0, n_keys=K)
+    base = np.arange(D, dtype=np.int32) * O
+    buf_np, wide = mk.pack_map_batch(kind, kidx, vidx + 1, base,
+                                     np.arange(D, dtype=np.int32))
+    buf = torch.as_tensor(buf_np).to(dev)
+    work = mk.MapState.create(D, K, dev)
+    run = lambda: mk.map_columnar_apply_fused(  # noqa: E731
+        work, buf, D, O, False, wide)
+    t = {"ms": graph_ms(run, 50), "call_ms": timed_events(run, 20)}
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = mk.map_columnar_apply(work, buf, D, O, False, wide)
+    z.record()
+    torch.cuda.synchronize()
+    chk = mk.MapState(*(v.clone() for v in work.fields().values()))
+    mk.map_columnar_apply_fused(chk, buf, D, O, False, wide)
+    err = max(err, diff(chk, out))
+    b_ms, b_by = bytes_bound(2 * 3 * D * K * 4 + buf.numel() * 4)
+    packed = {"spec": "packed (serving)", "D": D, "K": K, "O": O,
+              **t, "plain_ms": a.elapsed_time(z), "bound_ms": b_ms,
+              "bound_by": b_by, "max_abs_err": err,
+              "wire_bytes": buf.numel() * 4}
+    rows_specs.append(packed)
+    if err:
+        raise AssertionError(f"map kernel != plain: max abs err {err}")
+    del raw, st, ref, work, chk, out
+
+    # columnar serving on the card against the same batches on the CPU
+    docs = [f"map-{i}" for i in range(D)]
+
+    def engine(device):
+        e = MapServingEngine(n_docs=D, n_keys=K, batch_window=10 ** 9,
+                             sequencer="native", device=device)
+        for d in docs:
+            e.connect(d, 1)
+        return e, np.array([e.doc_row(d) for d in docs], np.int32)
+
+    def ingest(e, rows, b, **kw):
+        kind, kidx, keys, vidx, values = map_serving_batch(D, O, b,
+                                                           n_keys=K)
+        cs = np.broadcast_to(np.arange(b * O + 1, (b + 1) * O + 1,
+                                       dtype=np.int32), (D, O))
+        return e.ingest_planes(rows, np.ones((D, O), np.int32), cs,
+                               np.zeros((D, O), np.int32), kind, kidx,
+                               keys, values, vidx)
+
+    eng, rows = engine(dev)
+    if type(eng.deli).__name__ != "NativeDeliAdapter":
+        raise AssertionError("map serving must run the native sequencer")
+    mak.launches = 0   # the map path starts here
+    nacked = ingest(eng, rows, 0)["nacked"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(1, MAP_SERVE_BATCHES):
+        nacked += ingest(eng, rows, b)["nacked"]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    # per-op route: a second client on 16 docs, with clears
+    op_docs = docs[:16]
+    cpu, cpu_rows = engine("cpu")
+    for b in range(MAP_SERVE_BATCHES):
+        ingest(cpu, cpu_rows, b)
+
+    def per_op(e, n, cs0):
+        for i in range(n):
+            d = op_docs[i % 16]
+            c = {"op": "clear"} if i % 29 == 0 else \
+                {"op": "delete", "key": f"k{i % 7}"} if i % 5 == 0 else \
+                {"op": "set", "key": f"k{i % 11}", "value": {"i": i}}
+            _, nack = e.submit(d, 2, cs0 + i // 16, e.deli.doc_seq(d), c)
+            if nack is not None:
+                raise AssertionError(f"per-op map route nacked: {nack}")
+
+    for e in (eng, cpu):
+        for d in op_docs:
+            e.connect(d, 2)
+        per_op(e, MAP_PER_OP, 1)
+        e.flush()
+    torch.cuda.synchronize()
+    launches = mak.launches   # the map path ends here
+    if nacked:
+        raise AssertionError(f"map serving: {nacked} nacks")
+    if launches <= 0:
+        raise AssertionError("map serving never launched the kernel")
+    for k in mk.PLANES:
+        if not torch.equal(getattr(eng.store.state, k).cpu(),
+                           getattr(cpu.store.state, k)):
+            raise AssertionError(f"map serving: plane {k} differs from CPU")
+    for d in op_docs:
+        if eng.read_doc(d) != cpu.read_doc(d):
+            raise AssertionError(f"{d}: per-op reads differ from CPU")
+
+    # summaries: full, more traffic, incremental; load both on the card
+    t0 = time.perf_counter()
+    full = eng.summarize()
+    ingest(eng, rows, MAP_SERVE_BATCHES)
+    per_op(eng, 64, MAP_PER_OP // 16 + 1)
+    inc = eng.summarize(incremental=True)
+    summarize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_inc = MapServingEngine.load(inc, eng.log, device=dev,
+                                     sequencer="native")
+    from_full = MapServingEngine.load(full, eng.log, device=dev,
+                                      sequencer="native")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if inc.get("kind") != "delta":
+        raise AssertionError("the second summary is not incremental")
+    if not np.array_equal(from_inc.store.digests(), eng.store.digests()):
+        raise AssertionError("loaded digests differ from the live engine")
+    for d in docs:
+        want = eng.read_doc(d)
+        if from_inc.read_doc(d) != want or from_full.read_doc(d) != want:
+            raise AssertionError(f"{d}: loaded reads differ from live")
+    n_ops = D * O * (MAP_SERVE_BATCHES - 1)
+    emit({"phase": "map", "docs": D, "n_keys": K, "ops_per_batch": D * O,
+          "raw_batches": MAP_RAW_BATCHES, "raw_max_abs_err": 0,
+          "serving_batches": MAP_SERVE_BATCHES, "nacked": nacked,
+          "serving_ops_per_s": n_ops / serve_s, "serving_s": serve_s,
+          "per_op_submits": MAP_PER_OP, "kernel_launches": launches,
+          "kernel_loop_launches": raw_launches,
+          "planes_equal_cpu": True, "summarize_s": summarize_s,
+          "load_s": load_s, "loaded_equal_live": D,
+          "timing": rows_specs, "total_s": time.perf_counter() - t_phase,
+          "card": smi})
+    return {
+        "name": "map_apply", "route": "cuda",
+        "source": "fluidframework_tpu_torch/csrc/map_apply.cu",
+        "replaces": "fluidframework_tpu/ops/map_kernel.py:128",
+        "launches": raw_launches + launches,
+        "launches_by_path": {"kernel loop (dense)": raw_launches,
+                             "serving (packed + per-op flush)": launches},
+        "max_abs_err": err,
+        "ms": packed["ms"], "plain_ms": packed["plain_ms"],
+        "bound_ms": packed["bound_ms"], "bound_by": packed["bound_by"],
+        "library_ms": None,
+        "shape": {"D": D, "K": K, "O": O,
+                  "spec": "packed (the columnar serving path)"},
+        "specialisations": rows_specs}
+
+
+def matrix_phase(smi, dev):
+    """Phase 7: BASELINE config #3 at full width (a 1,024 × 1,024 grid,
+    8 batches of 65,536 set-cell ops, table capacity rows·cols + O).
+    Returns the ``cell_merge`` kernels-line entry."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import cell_merge as cmk
+    from fluidframework_tpu_torch.ops import matrix_kernel as mx
+    from fluidframework_tpu_torch.testing.synthetic import cell_storm
+
+    t_phase = time.perf_counter()
+    G, O3 = MX_GRID, MX_OPS
+    T = G * G + O3
+
+    def diff(a, b):
+        return max(int((getattr(a, k).long() - getattr(b, k).long())
+                       .abs().max()) for k in mx.PLANES + ("count",
+                                                           "overflow"))
+
+    def clone(s):
+        return mx.MatrixCellState(**{k: v.clone()
+                                     for k, v in s.fields().items()})
+
+    def plain_in_place(state, k, s, v, L=None, fww=False):
+        out = mx.merge_cells(state, k, s, v, L, fww)
+        for name, t in state.fields().items():
+            t.copy_(getattr(out, name))
+        return state
+
+    # raw batches: full mode, kernel against plain after every batch
+    storm = cell_storm(G, G, O3, MX_BATCHES, seed=0)
+    batches = [tuple(torch.as_tensor(x).to(dev) for x in b) for b in storm]
+    st = mx.MatrixCellState.create(T, dev)
+    ref = mx.MatrixCellState.create(T, dev)
+    err = 0
+    inputs = []
+    cmk.launches = 0   # config #3's kernel loop starts here
+    for b in batches:
+        inputs.append(clone(st))
+        mx.merge_cells_fused(st, *b)
+        ref = mx.apply_cells_batch(ref, *b)
+        torch.cuda.synchronize()
+        err = max(err, diff(st, ref))
+        if err:
+            raise AssertionError(f"cell merge (full) != plain: {err}")
+    raw_launches = cmk.launches   # and ends here
+    if raw_launches != MX_BATCHES:
+        raise AssertionError(f"kernel loop launched {raw_launches} merges")
+    if int(st.overflow):
+        raise AssertionError("config #3 storm overflowed its table")
+    live_cells = int(st.count)
+    work = clone(st)
+    rows_specs = []
+
+    def time_merge(state0, b, L, label):
+        """Time one merge of ``b`` into a copy of ``state0`` (the copy
+        before each merge is timed apart and taken off) and hold the
+        kernel's result against the plain version's."""
+        work = clone(state0)
+
+        def copy():
+            for name, t in work.fields().items():
+                t.copy_(getattr(state0, name))
+
+        def run():
+            copy()
+            mx.merge_cells_fused(work, *b, L=L)
+
+        def check(when):
+            """Max abs error of the kernel's merge against the plain
+            one's; raises with the first differing slot of each plane."""
+            run()
+            torch.cuda.synchronize()
+            e = diff(work, out)
+            if e:
+                where = {}
+                for k in mx.PLANES:
+                    bad = torch.nonzero(getattr(work, k) != getattr(out, k))
+                    if len(bad):
+                        i = int(bad[0])
+                        where[k] = {"first": i, "n": len(bad),
+                                    "kernel": int(getattr(work, k)[i]),
+                                    "plain": int(getattr(out, k)[i])}
+                raise AssertionError(
+                    f"cell merge ({label}, {when}) != plain: max abs err "
+                    f"{e}; count {int(work.count)} / {int(out.count)}; "
+                    f"{where}")
+            return e
+
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = mx.merge_cells(state0, *b, L, False)
+        z.record()
+        torch.cuda.synchronize()
+        check("before timing")
+        t = {"ms": graph_ms(run, 10) - graph_ms(copy, 10),
+             "call_ms": timed_events(run, 10) - timed_events(copy, 10)}
+        e = check("after timing")
+        Lt = T if L is None else L
+        nbytes = 2 * 3 * Lt * 4 + 3 * b[0].numel() * 4 + 4 * 4
+        b_ms, b_by = bytes_bound(nbytes)
+        rows_specs.append({"spec": label, "T": T, "L": Lt,
+                           "O": b[0].numel(), **t,
+                           "plain_ms": a.elapsed_time(z), "bound_ms": b_ms,
+                           "bound_by": b_by, "bytes": nbytes,
+                           "max_abs_err": e,
+                           "live_in": int(state0.count)})
+        return e
+
+    err = max(err, time_merge(inputs[-1], batches[-1], None,
+                              "full (config #3 kernel loop)"))
+    del inputs, ref, work
+    torch.cuda.empty_cache()
+
+    # store route: the same records through the store, kernel against a
+    # store whose merges run the plain version on the card
+    recs = [np.concatenate(x) for x in zip(*storm)]
+    row_keys = (recs[0] // G).tolist()
+    col_keys = (recs[0] % G).tolist()
+    values = recs[2].tolist()
+    seqs = recs[1]
+    fww_storm = cell_storm(G, G, O3, 1, seed=1)[0]
+    fww_cols = ((fww_storm[0] // G).tolist(), (fww_storm[0] % G).tolist(),
+                fww_storm[2].tolist(),
+                fww_storm[1] + MX_BATCHES * O3)
+    stores = []
+    fused = mx.merge_cells_fused
+    cmk.launches = 0   # the matrix path starts here
+    t0 = time.perf_counter()
+    for plain in (False, True):
+        if plain:
+            mx.merge_cells_fused = plain_in_place
+        try:
+            s = mx.TensorMatrixStore(capacity=T, batch_size=MX_STORE_BATCH,
+                                     device=dev)
+            s.apply_batch_columnar(row_keys, col_keys, values, seqs)
+            torch.cuda.synchronize()
+            if not plain:
+                store_s = time.perf_counter() - t0
+                launches = cmk.launches   # the matrix path ends here
+                L_final = 8
+                while L_final < min(len(s._cell_ids) + 1, T):
+                    L_final *= 2
+                pre_fww = (s.snapshot(), s.table_bases(), clone(s.state))
+            s.switch_set_cell_policy()
+            s.apply_batch_columnar(*fww_cols)
+            stores.append(s)
+        finally:
+            mx.merge_cells_fused = fused
+    kern, plain_store = stores
+    for k in mx.PLANES + ("count", "overflow"):
+        if not torch.equal(getattr(kern.state, k), getattr(plain_store.state,
+                                                           k)):
+            raise AssertionError(f"store route: {k} differs from plain")
+    if kern.overflowed():
+        raise AssertionError("store route overflowed")
+    if launches != -(-len(row_keys) // MX_STORE_BATCH):
+        raise AssertionError(f"store route launched {launches} merges")
+    # the store's last prefix shape, timed on its state before the FWW storm
+    last = [torch.as_tensor(np.ascontiguousarray(x[-MX_STORE_BATCH:]))
+            .to(dev) for x in (recs[0], recs[1] + MX_BATCHES * O3 * 2,
+                               recs[2])]
+    err = max(err, time_merge(pre_fww[2], last, L_final,
+                              "prefix (store route, last L)"))
+    main = rows_specs[-1]
+
+    # round trip: the pre-FWW snapshot plus the delta since equals live
+    snap, bases, _ = pre_fww
+    t0 = time.perf_counter()
+    delta = kern.snapshot_delta(bases)
+    back = mx.TensorMatrixStore.restore(snap, device=dev)
+    back.apply_delta(delta)
+    whole = mx.TensorMatrixStore.restore(kern.snapshot(), device=dev)
+    roundtrip_s = time.perf_counter() - t0
+    for r in (back, whole):
+        for k in mx.PLANES + ("count", "overflow"):
+            if not torch.equal(getattr(r.state, k), getattr(kern.state, k)):
+                raise AssertionError(f"round trip: {k} differs")
+        if r.fww != kern.fww or r.digest() != kern.digest():
+            raise AssertionError("round trip: policy or digest differs")
+    probe = list(kern._cell_ids)[::max(len(kern._cell_ids) // 64, 1)]
+    if [back.read_cell(c) for c in probe] != \
+            [kern.read_cell(c) for c in probe]:
+        raise AssertionError("round trip: read_cell differs")
+    if err:
+        raise AssertionError(f"cell merge != plain: max abs err {err}")
+    emit({"phase": "matrix_cells", "grid": [G, G], "capacity": T,
+          "raw_batches": MX_BATCHES, "ops_per_batch": O3,
+          "raw_max_abs_err": 0, "live_cells": live_cells,
+          "kernel_loop_launches": raw_launches,
+          "store_records": len(row_keys), "store_batch": MX_STORE_BATCH,
+          "store_merges": launches, "store_final_L": L_final,
+          "store_s": store_s, "store_equal_plain": True,
+          "store_live_cells": int(kern.state.count),
+          "fww_records": O3, "roundtrip_s": roundtrip_s,
+          "timing": rows_specs, "total_s": time.perf_counter() - t_phase,
+          "card": smi})
+    return {
+        "name": "cell_merge", "route": "cuda",
+        "source": "fluidframework_tpu_torch/csrc/cell_merge.cu",
+        "replaces": "fluidframework_tpu/ops/matrix_kernel.py:164",
+        "launches": raw_launches + launches,
+        "launches_by_path": {"kernel loop (full mode)": raw_launches,
+                             "store route (prefix mode)": launches},
+        "max_abs_err": err,
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "shape": {"T": T, "L": L_final, "O": MX_STORE_BATCH,
+                  "spec": "prefix (the store route)"},
+        "specialisations": rows_specs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -375,7 +872,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from fluidframework_tpu_torch.native.build import ensure_built
+    from fluidframework_tpu_torch.ops import cuda_build
     from fluidframework_tpu_torch.ops import merge_tree as mt
     from fluidframework_tpu_torch.ops import string_kernel as sk
     from fluidframework_tpu_torch.server.ingest_pipeline import (
@@ -396,30 +893,28 @@ def main() -> int:
     smi = smi.splitlines()[0]
 
     # ---------------------------------------------------------- 1. device
-    native = {}
-
-    def build_native():
-        t0 = time.perf_counter()
-        native["path"] = ensure_built("libdeli.so")
-        native["seconds"] = time.perf_counter() - t0
-
-    th = threading.Thread(target=build_native)
-    th.start()
-    sk._load()
-    th.join()
-    if "path" not in native:
-        raise RuntimeError("native sequencer build failed")
-    ptxas = ptxas_report(sk.build_info["ptxas"])
-    if not ptxas or any("registers" not in k for k in ptxas):
-        raise RuntimeError("no -Xptxas -v report for the kernel")
+    # one nvcc per kernel source and the g++ sequencer, all in parallel
+    t0 = time.perf_counter()
+    cuda_build.build_all()
+    build_s = time.perf_counter() - t0
+    reports = {n: ptxas_report(cuda_build.build_info[n]["ptxas"])
+               for n in cuda_build.SOURCES}
+    ptxas = reports["string_apply"]
+    for n, rep in reports.items():
+        if not rep or any("registers" not in k for k in rep):
+            raise RuntimeError(f"no -Xptxas -v report for {n}")
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": sk.build_info["seconds"],
-          "native_build_s": native["seconds"],
-          "spill_store_bytes_max": max(k["spill_stores"] for k in ptxas),
-          "stack_frame_bytes_max": max(k["stack_frame"] for k in ptxas),
-          "instantiations": ptxas})
+          "build_s": build_s,
+          "kernel_build_s": {n: cuda_build.build_info[n]["seconds"]
+                             for n in cuda_build.SOURCES},
+          "native_build_s": cuda_build.build_info["libdeli.so"]["seconds"],
+          "spill_store_bytes_max": max(k["spill_stores"]
+                                       for r in reports.values() for k in r),
+          "stack_frame_bytes_max": max(k["stack_frame"]
+                                       for r in reports.values() for k in r),
+          "instantiations": reports})
 
     # ---------------------------------------------------------- 2. parity
     def clone(st):
@@ -676,6 +1171,10 @@ def main() -> int:
 
     phase_launches, rebuild_rows, max_err = recovery_phase(
         D, O, docs, wave, waves, smi, dev, clone, bound, max_err)
+    torch.cuda.empty_cache()
+    map_entry = map_phase(smi, dev)
+    torch.cuda.empty_cache()
+    cell_entry = matrix_phase(smi, dev)
 
     main_t = timing[("no-props+compact", S_SERVE, "chained")]
     print(smi, flush=True)
@@ -696,7 +1195,7 @@ def main() -> int:
             {"spec": name, "S": S, "state": state, **t}
             for (name, S, state), t in timing.items()] + rebuild_rows,
         "total_s": time.perf_counter() - t_start,
-    }]})
+    }, map_entry, cell_entry]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -10,6 +10,8 @@ from __future__ import annotations
 import enum
 import json
 
+import numpy as np
+
 
 class OpKind(enum.IntEnum):
     # merge-tree / SharedString ops (reference: IMergeTreeOp types)
@@ -31,6 +33,28 @@ class OpKind(enum.IntEnum):
     AXIS_RESOLVE = 13
 
 
+def pad_rows_pow2(rows):
+    """Pad a row list to the next power of two by repeating row 0, so the
+    row gathers and writes of incremental summaries come in a few shapes
+    (a repeated gather is dropped, a repeated write writes the same
+    values). Returns (rows_padded, p2, n)."""
+    rows = np.ascontiguousarray(rows, np.int32)
+    n = len(rows)
+    p2 = 1 << (n - 1).bit_length() if n else 1
+    if p2 > n:
+        rows = np.concatenate([rows, np.full(p2 - n, rows[0], np.int32)])
+    return rows, p2, n
+
+
+def bucket_rows(a, p2: int, n: int):
+    """Pad a per-row array to the ``pad_rows_pow2`` bucket by repeating
+    row 0's entry."""
+    a = np.asarray(a, np.int32)
+    if p2 > n:
+        a = np.concatenate([a, np.repeat(a[:1], p2 - n, axis=0)])
+    return a
+
+
 class ValueInterner:
     """JSON value ↔ int32 handle interning: handle 0 is reserved for "no
     value"; equal values (by canonical JSON encoding) share one handle."""
@@ -45,6 +69,43 @@ class ValueInterner:
             self._ids[enc] = len(self._values)
             self._values.append(value)
         return self._ids[enc]
+
+    def bulk(self, items) -> list:
+        """Handles for a whole value table at once (columnar ingest)."""
+        ids = self._ids
+        values = self._values
+        get = ids.get
+        dumps = json.dumps
+        out = []
+        append = out.append
+        for v in items:
+            enc = dumps(v, sort_keys=True)
+            h = get(enc)
+            if h is None:
+                h = len(values)
+                ids[enc] = h
+                values.append(v)
+            append(h)
+        return out
+
+    def bulk_ints(self, items) -> list:
+        """``bulk`` for a column of Python ints: the canonical JSON of an
+        int is ``repr(int)``, so no encoder runs (callers exclude ``bool``:
+        ``True`` and ``1`` encode differently)."""
+        ids = self._ids
+        values = self._values
+        get = ids.get
+        out = []
+        append = out.append
+        for v in items:
+            enc = repr(v)
+            h = get(enc)
+            if h is None:
+                h = len(values)
+                ids[enc] = h
+                values.append(v)
+            append(h)
+        return out
 
     def value(self, handle: int):
         return self._values[handle]

@@ -5,7 +5,8 @@ apply_string_batch_pallas`` (``pl.pallas_call`` at line 208): for each doc
 apply O sequenced merge-tree ops in column order, optionally followed by a
 stable drop of tombstones with ``removed_seq <= min_seq``. Source:
 ``fluidframework_tpu_torch/csrc/string_apply.cu``, compiled by ``nvcc`` for
-``sm_90a`` into a plain-C shared library and bound with ctypes.
+``sm_90a`` into a plain-C shared library (``cuda_build``) and bound with
+ctypes.
 
 What bounds it on the card. Bytes would: the state planes read and
 written once and the op planes read once — 2·(7+K)·D·S·4 + 7·D·O·4 bytes,
@@ -40,16 +41,12 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import os
-import subprocess
-import tempfile
 import threading
-import time
 from typing import Optional
 
 import torch
 
-from . import merge_tree
+from . import cuda_build, merge_tree
 from .merge_tree import PLANES, StringState
 
 #: kernel launches made by ``apply_string_batch_fused`` (callers reset it)
@@ -57,53 +54,18 @@ launches = 0
 #: the same launches by shape: (D, S, O, K, compact) → count
 shapes: collections.Counter = collections.Counter()
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-PKG_ROOT = os.path.dirname(_HERE)
-SOURCE = os.path.join(PKG_ROOT, "csrc", "string_apply.cu")
-BUILD_DIR = os.path.join(PKG_ROOT, "_build")
-_LIB_PATH = os.path.join(BUILD_DIR, "libstring_apply.so")
-# -split-compile=0: the template instantiations compile in parallel
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-split-compile=0", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 MAX_S = 8192        # the largest capacity the kernel takes (kMaxS)
 
 _lib = None
 _lock = threading.Lock()
-#: {"seconds": build wall, "ptxas": the -Xptxas -v report} of this process
-build_info: dict = {}
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
-
-
-def build() -> str:
-    """Compile ``csrc/string_apply.cu`` into the build directory (once per
-    process; a temporary name then ``os.replace``, so concurrent builds
-    never load a half-written library). Raises when nvcc fails."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed building {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, _LIB_PATH)
-    build_info.update(seconds=time.perf_counter() - t0, ptxas=proc.stderr)
-    return _LIB_PATH
 
 
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            lib = cuda_build.load("string_apply")
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             lib.string_apply_launch.restype = i32
             lib.string_apply_launch.argtypes = (

@@ -1,5 +1,6 @@
-"""The replica serving engine: sequencer + partitioned log + batched device
-merge, for many SharedString documents.
+"""The replica serving engines: sequencer + partitioned log + batched device
+merge, for many SharedString documents (``StringServingEngine``) or many
+SharedMap documents (``MapServingEngine``).
 
 Reference counterpart: the Routerlicious pipeline around the op-merge hot
 path — Alfred ingress → Deli sequencing → Kafka → broadcast — with the
@@ -43,6 +44,7 @@ import torch
 
 from ..core.protocol import MessageType, SequencedDocumentMessage
 from ..ops import string_kernel
+from ..ops.map_kernel import TensorMapStore, pack_map_batch, refuse_mesh
 from ..ops.schema import OpKind
 from ..ops.string_store import TensorStringStore
 from .deli import DeliSequencer, Nack, NackReason
@@ -156,11 +158,13 @@ def restore_sequencer(snapshot: dict, clock=None):
 
 @dataclasses.dataclass
 class ColumnarOps:
-    """A columnar run of sequenced string ops in the log — ONE record per
-    ingest batch (or per partition when some ops were nacked) instead of
-    one object per op. Payload forms: broadcast ``text``, or per-op
-    ``texts`` + ``tidx``; annotate slots index the single-key ``props``
-    table through ``tidx``."""
+    """A columnar run of sequenced ops in the log — ONE record per ingest
+    batch (or per partition when some string ops were nacked) instead of
+    one object per op. ``family`` names the op dialect ``expand`` rebuilds:
+    "str" (merge-tree ops; payloads are the broadcast ``text``, or per-op
+    ``texts`` + ``tidx``, and annotate slots index the single-key ``props``
+    table through ``tidx``) or "map" (set/delete/clear: ``a0`` indexes the
+    ``keys`` table, ``a1`` the ``values`` table)."""
 
     doc_ids: List[str]          # row-local doc-id table
     doc: np.ndarray             # (N,) index into doc_ids
@@ -170,13 +174,16 @@ class ColumnarOps:
     seq: np.ndarray             # (N,)
     min_seq: np.ndarray         # (N,)
     kind: np.ndarray            # (N,) OpKind
-    a0: np.ndarray              # (N,) pos / start
-    a1: np.ndarray              # (N,) len / end
+    a0: np.ndarray              # (N,) str: pos / start; map: key index
+    a1: np.ndarray              # (N,) str: len / end; map: value index
     text: str                   # broadcast insert payload
     timestamp: float = 0.0
     texts: Optional[List[str]] = None
     props: Optional[List[dict]] = None
     tidx: Optional[np.ndarray] = None
+    family: str = "str"
+    keys: Optional[List[str]] = None
+    values: Optional[list] = None
 
     def expand(self, only_doc: Optional[str] = None
                ) -> List[SequencedDocumentMessage]:
@@ -199,7 +206,15 @@ class ColumnarOps:
                     else np.asarray(self.tidx)[idxs].tolist())
         out = []
         for doc, cl, cs, rs, sq, ms, k, a0, a1, ti in zip(*cols):
-            if k == OpKind.STR_INSERT:
+            if self.family == "map":
+                if k == OpKind.MAP_CLEAR:
+                    contents = {"op": "clear"}
+                elif k == OpKind.MAP_DELETE:
+                    contents = {"op": "delete", "key": self.keys[a0]}
+                else:
+                    contents = {"op": "set", "key": self.keys[a0],
+                                "value": self.values[a1]}
+            elif k == OpKind.STR_INSERT:
                 text = self.text if self.texts is None else self.texts[ti]
                 contents = {"mt": "insert", "kind": 0, "pos": a0,
                             "text": text, "clientSeq": cs}
@@ -336,13 +351,13 @@ class ServingEngineBase:
     # ------------------------------------------ shared columnar protocol
 
     def _sequence_columnar(self, raw, handles, client, client_seq,
-                           ref_seq, doc_of):
+                           ref_seq, doc_of=None):
         """One native sequencing call, then POISON the engine until the
         batch's log record is appended. Returns (out_seq, out_min, nacked
-        mask, n_ok). DUPLICATE-nacked slots found in the dedup ledger get
-        their ORIGINAL seq patched into ``out_seq`` (so the ack fan
-        re-acks them) while staying in the ``nacked`` mask (never
-        re-applied or re-logged); ``doc_of`` maps a flat slot to its doc."""
+        mask, n_ok). With ``doc_of`` (a flat slot → its doc id),
+        DUPLICATE-nacked slots found in the dedup ledger get their ORIGINAL
+        seq patched into ``out_seq`` (so the ack fan re-acks them) while
+        staying in the ``nacked`` mask (never re-applied or re-logged)."""
         out_seq, out_min = raw.sequence_batch_rows(
             handles, client, client_seq, ref_seq)
         with self._poison_lock:
@@ -351,7 +366,7 @@ class ServingEngineBase:
         nacked = out_seq < 0
         n_ok = int((~nacked).sum())
         n_dup = 0
-        if nacked.any():
+        if doc_of is not None and nacked.any():
             # -3 = the native DUPLICATE nack code
             for i in np.flatnonzero(out_seq == -3):
                 orig = self._dedup.lookup(doc_of(int(i)), int(client[i]),
@@ -574,10 +589,12 @@ class ServingEngineBase:
     def _replay_tail(self, summary: dict) -> None:
         """Replay every tail message through the sequencer (so sequencing
         resumes past the tail), the member set and the dedup ledger; OPs
-        queue for the device merge. The tail is sorted by (doc, seq):
-        columnar records round-robin across partitions while JOIN/LEAVE
-        stay in the doc's own partition, so the scan order is not the
-        order of events."""
+        queue for the device merge. Columnar records of either family
+        ("str" or "map") expand to their per-op messages, which the
+        engine's own ``_flush_impl`` applies. The tail is sorted by (doc,
+        seq): columnar records round-robin across partitions while
+        JOIN/LEAVE stay in the doc's own partition, so the scan order is
+        not the order of events."""
         self._verify_tail_anchor(summary)
         tail: List[SequencedDocumentMessage] = []
         for p in range(self.log.n_partitions):
@@ -1253,5 +1270,223 @@ class StringServingEngine(ServingEngineBase):
             for d, s in summary.get("graduated", {}).items()}
         engine._replay_tail(summary)
         engine._grad_queue.sort(key=lambda dm: dm[1].seq)
+        engine.flush()
+        return engine
+
+
+class MapServingEngine(ServingEngineBase):
+    """Sequencer + log + batched device merge for SharedMap documents, on
+    ``device`` (default the card; ``device="cpu"`` runs the plain
+    versions). Ops are the SharedMap wire dicts {"op": "set" | "delete" |
+    "clear", "key", "value"}; every apply is one launch of the map kernel
+    (``ops/map_kernel.py``). ``store`` adopts an existing store (``load``);
+    ``mesh`` is refused (ROADMAP B9)."""
+
+    _KINDS = {"set": OpKind.MAP_SET, "delete": OpKind.MAP_DELETE,
+              "clear": OpKind.MAP_CLEAR}
+
+    def __init__(self, n_docs: int, n_keys: int = 64,
+                 batch_window: int = 64, n_partitions: int = 8,
+                 log: Optional[PartitionedLog] = None,
+                 store: Optional[TensorMapStore] = None,
+                 sequencer: str = "python", device="cuda", mesh=None):
+        refuse_mesh(mesh)
+        self.store = store if store is not None \
+            else TensorMapStore(n_docs, n_keys, device)
+        super().__init__(n_docs, batch_window, n_partitions, log=log,
+                         sequencer=sequencer)
+        # per-(rows, key vocabulary) key-slot table: steady-state ingest
+        # with a stable vocabulary does no interning
+        self._lut_cache: Optional[tuple] = None
+
+    # ------------------------------------------------------- columnar ingest
+
+    def _key_lut(self, rows: np.ndarray, keys: List[str]) -> np.ndarray:
+        """(R, len(keys)) key → slot table of this batch's rows; mints
+        slots, so a key-capacity KeyError comes before any sequencing."""
+        ck = (tuple(keys), rows.tobytes())
+        if self._lut_cache is not None and self._lut_cache[0] == ck:
+            return self._lut_cache[1]
+        lut = np.empty((len(rows), len(keys)), np.int32)
+        for i, r in enumerate(rows):
+            for j, k in enumerate(keys):
+                lut[i, j] = self.store.key_slot(int(r), k)
+        self._lut_cache = (ck, lut)
+        return lut
+
+    def ingest_planes(self, rows, client, client_seq, ref_seq, kind,
+                      kidx, keys: List[str], values: Optional[list] = None,
+                      vidx=None) -> dict:
+        """The high-throughput map ingest: a dense (R, O) columnar batch of
+        RAW set/delete/clear ops — sequenced in ONE native call, copied to
+        the device as ONE packed buffer (~4-7 B/op) and merged in ONE kernel
+        launch, logged as ONE ``ColumnarOps(family="map")`` record.
+
+        rows: (R,) unique doc rows (allocate via ``doc_row``). kidx: (R, O)
+        indices into ``keys`` (ignored at clears); values / vidx: the value
+        table and (R, O) indices for sets. Everything is validated, and
+        key slots and value handles minted, before sequencing. Nacked slots
+        are skipped everywhere. Requires ``sequencer="native"``. Returns
+        {"seq": (R, O) int64 (negative = nack code), "nacked": int}."""
+        self._check_poisoned()
+        raw = getattr(self.deli, "raw", None)
+        if raw is None:
+            raise RuntimeError("columnar ingest requires sequencer='native'")
+        self.flush()
+        rows = np.ascontiguousarray(rows, np.int32)
+        R, O = kind.shape
+        if len(rows) != R or len(np.unique(rows)) != R:
+            raise ValueError("rows must be exactly one UNIQUE row per "
+                             "plane row")
+        kind = np.asarray(kind, np.int32)
+        if not np.isin(kind, [int(k) for k in self._KINDS.values()]).all():
+            raise ValueError("columnar map planes must be dense "
+                             "set/delete/clear")
+        if self.store.n_keys > 256:
+            raise ValueError("columnar map ingest packs key slots as u8 "
+                             "(store n_keys must be <= 256)")
+        kidx = np.asarray(kidx, np.int32)
+        keyed = kind != int(OpKind.MAP_CLEAR)
+        if keyed.any() and (int(kidx[keyed].min()) < 0
+                            or int(kidx[keyed].max()) >= len(keys)):
+            raise ValueError("kidx beyond the keys table")
+        sets = kind == int(OpKind.MAP_SET)
+        if sets.any():
+            if values is None or vidx is None:
+                raise ValueError("set slots require values + vidx")
+            vidx = np.asarray(vidx, np.int32)
+            if int(vidx[sets].min()) < 0 or \
+                    int(vidx[sets].max()) >= len(values):
+                raise ValueError("vidx beyond the values table")
+        lut = self._key_lut(rows, keys)
+        a0 = np.where(keyed, lut[np.arange(R)[:, None],
+                                 np.where(keyed, kidx, 0)], 0)
+        if sets.any():
+            handles_tab = np.fromiter(
+                (self.store.value_handle(v) for v in values), np.int32,
+                count=len(values))
+            a1 = np.where(sets, handles_tab[np.where(sets, vidx, 0)], 0)
+        else:
+            a1 = np.zeros((R, O), np.int32)
+
+        self._fill_row_handles(rows, raw)
+        flat = lambda p: np.ascontiguousarray(np.asarray(p, np.int32)
+                                              .reshape(-1))
+        out_seq, out_min, nacked, n_ok = self._sequence_columnar(
+            raw, np.repeat(self._row_handle[rows], O), flat(client),
+            flat(client_seq), flat(ref_seq))
+        valid_rs = (~nacked).reshape(R, O)
+        kind_eff = np.where(valid_rs, kind, int(OpKind.NOOP))
+        seq_rs = out_seq.reshape(R, O)
+        seq_base = (np.max(np.where(valid_rs, seq_rs, 0), axis=1)
+                    - valid_rs.sum(axis=1)).astype(np.int32)
+
+        buf, wide_vals = pack_map_batch(kind_eff, a0, a1, seq_base, rows)
+        scatter = not (R == self.n_docs
+                       and np.array_equal(rows, np.arange(R)))
+        self.store.apply_columnar(buf, R, O, scatter, wide_vals)
+
+        ok = ~nacked
+        self._append_columnar(ColumnarOps(
+            [self._row_doc_id[r] for r in rows],
+            np.repeat(np.arange(R, dtype=np.int32), O)[ok],
+            flat(client)[ok], flat(client_seq)[ok],
+            self._clamped_ref(flat(ref_seq), out_seq)[ok], out_seq[ok],
+            out_min[ok], kind.reshape(-1)[ok], flat(kidx)[ok],
+            (flat(vidx) if vidx is not None
+             else np.zeros(R * O, np.int32))[ok],
+            text="", timestamp=self.deli.clock(), family="map",
+            keys=list(keys),
+            values=list(values) if values is not None else []))
+        last_min = out_min.reshape(R, O)[:, -1]
+        for i, r in enumerate(rows):
+            self._min_seq[self._row_doc_id[r]] = int(last_min[i])
+        return {"seq": seq_rs, "nacked": int(nacked.sum())}
+
+    # ------------------------------------------------------ per-op route
+
+    def _valid_op(self, contents: Any) -> bool:
+        if not (isinstance(contents, dict)
+                and contents.get("op") in self._KINDS
+                and (contents["op"] == "clear" or
+                     isinstance(contents.get("key"), str))):
+            return False
+        if contents["op"] == "set":
+            try:  # the flush JSON-interns values: reject unserialisable now
+                json.dumps(contents.get("value"))
+            except (TypeError, ValueError):
+                return False
+        return True
+
+    def _admit(self, doc_id: str, contents: Any) -> None:
+        """Row and key-slot reservation: a key-capacity KeyError becomes a
+        CAPACITY nack before the op is logged."""
+        row = self.doc_row(doc_id)
+        if contents["op"] != "clear":
+            self.store.key_slot(row, contents["key"])
+
+    def _flush_impl(self) -> int:
+        n = len(self._queue)
+        if self._queue:
+            self.store.apply_batch(
+                (row, self._KINDS[m.contents["op"]],
+                 m.contents.get("key"), m.contents.get("value"), m.seq)
+                for row, m in self._queue)
+            self._queue.clear()
+        return n
+
+    # ----------------------------------------------------------------- reads
+
+    def read_doc(self, doc_id: str) -> dict:
+        self.flush()
+        return self.store.read_doc(self.doc_row(doc_id))
+
+    def get(self, doc_id: str, key: str, default=None):
+        return self.read_doc(doc_id).get(key, default)
+
+    # ----------------------------------------------------- summary / load
+
+    def summarize(self, incremental: bool = False) -> dict:
+        """The store snapshot plus the base summary (sequencer checkpoint,
+        log offsets, rows, window floors, dedup ledger, members).
+        ``incremental=True`` (after a summary of this engine) captures a
+        delta: only rows whose doc sequenced an op since the last summary
+        or whose mapping changed, plus the value table's new entries; the
+        rest rides by reference to ``base``. Past
+        ``max_incremental_chain`` deltas the summary is full again."""
+        self.flush()
+        prev = self._summ_bookkeeping
+        summary = self._base_summary()
+        if self._incremental_ok(incremental):
+            dirty_rows, cur_seqs = self._dirty_rows_since(prev)
+            self._mark_delta(summary, prev, cur_seqs)
+            summary["store_delta"] = self.store.snapshot_rows(
+                sorted(dirty_rows), prev["values_len"])
+            self._chain_depth += 1
+        else:
+            summary["kind"] = "full"
+            self._chain_depth = 0
+            summary["store"] = self.store.snapshot()
+            cur_seqs = {d: self.deli.doc_seq(d) for d in self._doc_rows}
+        self._note_summary(summary, cur_seqs,
+                           values_len=len(self.store._interner))
+        return summary
+
+    @classmethod
+    def load(cls, summary: dict, log: PartitionedLog, device="cuda",
+             **kwargs) -> "MapServingEngine":
+        """Resume from a summary (this package's or the JAX engine's, full
+        or incremental) and the log: the newest full summary's store, each
+        delta's rows over it, the sequencer and dedup state, then the log
+        tail replayed through the same apply path. The store is built on
+        ``device``."""
+        full, deltas = cls.resolve_summary_chain(summary)
+        store = TensorMapStore.from_jax_snapshot(full["store"], device)
+        for delta in deltas:
+            store.apply_row_snapshot(delta["store_delta"])
+        engine = cls(store.n_docs, store.n_keys, log=log, store=store,
+                     **kwargs)
+        engine._restore_base(summary)
+        engine._replay_tail(summary)
         engine.flush()
         return engine

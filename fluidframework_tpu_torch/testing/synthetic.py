@@ -164,3 +164,76 @@ def edge_storm(n_docs: int, n_ops: int, seed: int = 0,
     planes["kind"] = np.where(bad, rng.choice([-3, 3, 12, 99], size=shape),
                               planes["kind"]).astype(np.int32)
     return planes, nxt
+
+
+# ------------------------------------------------------------ SharedMap
+
+#: config #2's op mix, set : delete : clear = 8 : 2 : 1
+MAP_MIX = [int(OpKind.MAP_SET)] * 8 + [int(OpKind.MAP_DELETE)] * 2 \
+    + [int(OpKind.MAP_CLEAR)]
+
+
+def map_raw_batches(n_docs: int, n_keys: int, n_ops: int, n_batches: int,
+                    seed: int = 0) -> list:
+    """BASELINE config #2's raw kernel batches
+    (``benches/config2_map_storm.py:33-42``): a list of dense (D, O) int32
+    (kind, key slot, value handle, seq) planes, seqs round-robin across
+    docs and chained from 1."""
+    rng = np.random.default_rng(seed)
+    D, O = n_docs, n_ops
+    out, seq0 = [], 1
+    for _ in range(n_batches):
+        kind = rng.choice(MAP_MIX, size=(D, O)).astype(np.int32)
+        a0 = rng.integers(0, n_keys, size=(D, O), dtype=np.int32)
+        a1 = rng.integers(1, 1 << 20, size=(D, O), dtype=np.int32)
+        seq = (seq0 + np.arange(O, dtype=np.int32)[None, :] * D
+               + np.arange(D, dtype=np.int32)[:, None]).astype(np.int32)
+        seq0 += D * O
+        out.append((kind, a0, a1, seq))
+    return out
+
+
+def map_serving_batch(n_docs: int, n_ops: int, b: int, n_keys: int = 64,
+                      n_values: int = 64):
+    """Columnar serving batch ``b`` (seed b) of config #2
+    (``config2_map_storm.py:77-85``): (kind, kidx, keys, vidx, values) for
+    ``MapServingEngine.ingest_planes``; the clientSeqs of batch b are
+    b·O+1 .. (b+1)·O."""
+    rng = np.random.default_rng(b)
+    shape = (n_docs, n_ops)
+    kind = rng.choice(MAP_MIX, size=shape).astype(np.int32)
+    kidx = rng.integers(0, n_keys, size=shape, dtype=np.int32)
+    vidx = rng.integers(0, n_values, size=shape, dtype=np.int32)
+    keys = [f"k{j}" for j in range(n_keys)]
+    values = [f"v{j}" for j in range(n_values)]
+    return kind, kidx, keys, vidx, values
+
+
+# ---------------------------------------------------- SharedMatrix cells
+
+def cell_storm(n_rows: int, n_cols: int, n_ops: int, n_batches: int,
+               seed: int = 0) -> list:
+    """BASELINE config #3's set-cell storm
+    (``benches/config3_matrix_storm.py:30-36``): a list of (O,) int32
+    (cell key = row·cols + col, seq, value) batches, seqs chained from 1."""
+    rng = np.random.default_rng(seed)
+    O = n_ops
+    out = []
+    for b in range(n_batches):
+        key = (rng.integers(0, n_rows, O) * n_cols
+               + rng.integers(0, n_cols, O)).astype(np.int32)
+        seq = (b * O + np.arange(1, O + 1)).astype(np.int32)
+        val = rng.integers(1, 1 << 30, O, dtype=np.int32)
+        out.append((key, seq, val))
+    return out
+
+
+def cell_records(seed: int, n_ops: int, n_rows: int = 16, n_cols: int = 16,
+                 n_values: int = 40, seq0: int = 1) -> list:
+    """A small set-cell record stream, (row, col, value, seq) with seq
+    ascending: many writes per cell, for the LWW / FWW / overflow cases."""
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, n_rows, n_ops).tolist()
+    c = rng.integers(0, n_cols, n_ops).tolist()
+    v = rng.integers(0, n_values, n_ops).tolist()
+    return [(r[i], c[i], f"v{v[i]}", seq0 + i) for i in range(n_ops)]

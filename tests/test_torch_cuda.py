@@ -1,7 +1,9 @@
-"""Card-only tests of the hand-written Hopper kernel: every specialisation
-({no props, props} × {apply, apply+compact}) against its plain PyTorch
-version on the same CUDA inputs, and the store and engine on the card
-against the same on the CPU. Tolerance: exact (int32).
+"""Card-only tests of the hand-written Hopper kernels: every string_apply
+specialisation ({no props, props} × {apply, apply+compact}), the map apply
+(dense and packed) and the cell merge (prefix and full, LWW and FWW)
+against their plain PyTorch versions on the same CUDA inputs, and the
+stores and engines on the card against the same on the CPU. Tolerance:
+exact (int32).
 
 Run on a machine with a card: ``python -m pytest -m cuda
 tests/test_torch_cuda.py``. Without a card every test skips (the decision
@@ -11,8 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from fluidframework_tpu_torch.ops import cell_merge as cmk
+from fluidframework_tpu_torch.ops import map_apply as mak
+from fluidframework_tpu_torch.ops import map_kernel as mk
+from fluidframework_tpu_torch.ops import matrix_kernel as mx
 from fluidframework_tpu_torch.ops import merge_tree as mt
 from fluidframework_tpu_torch.ops import string_kernel as sk
+from fluidframework_tpu_torch.ops.schema import OpKind
 from fluidframework_tpu_torch.testing.synthetic import (
     conflict_storm, edge_storm, typing_storm,
 )
@@ -453,3 +460,308 @@ def test_windowed_rebuild_matches_one_shot_plain(cuda):
     assert len(cpu.last_op_windows) == 1 and cpu.last_op_windows[0] > limit
     for k, v in cpu.state.fields().items():
         assert torch.equal(getattr(card.state, k).cpu(), v), k
+
+
+# ------------------------------------------- map apply kernel (map_apply.cu)
+# Each case: the same inputs through the kernel (in place, on the card) and
+# the plain version (on the card); all three planes bit-identical.
+
+SET, DEL, CLR, NOOP = (int(OpKind.MAP_SET), int(OpKind.MAP_DELETE),
+                       int(OpKind.MAP_CLEAR), int(OpKind.NOOP))
+
+
+def _map_state(dev, D, K, seed):
+    rng = np.random.default_rng(seed)
+    planes = [rng.integers(0, 1 << 20, size=(D, K), dtype=np.int32)
+              for _ in range(3)]
+    planes[0] &= 1
+    return mk.MapState(*(torch.as_tensor(p).to(dev) for p in planes))
+
+
+def _map_clone(st):
+    return mk.MapState(*(v.clone() for v in st.fields().values()))
+
+
+def _map_same(st, ref, tag):
+    for k in mk.PLANES:
+        assert torch.equal(getattr(st, k), getattr(ref, k)), (tag, k)
+
+
+def _map_planes(rng, D, O, K, kinds):
+    kind = rng.choice(kinds, size=(D, O)).astype(np.int32)
+    a0 = rng.integers(-1, K + 1, size=(D, O), dtype=np.int32)
+    a1 = rng.integers(0, 1 << 30, size=(D, O), dtype=np.int32)
+    seq = rng.integers(-2**31, 2**31 - 1, size=(D, O), dtype=np.int64) \
+        .astype(np.int32)
+    return kind, a0, a1, seq
+
+
+@pytest.mark.parametrize("K,O", [(37, 64), (256, 64), (64, 1), (8, 300),
+                                 (200, 1000)])
+@pytest.mark.parametrize("kinds", ["mixed", "clears", "noop", "last_clear"])
+def test_map_kernel_dense_matches_plain(cuda, K, O, kinds):
+    D = 53
+    rng = np.random.default_rng(K + O)
+    mix = {"mixed": [SET, SET, DEL, CLR, NOOP, 0, 99],
+           "clears": [CLR], "noop": [NOOP],
+           "last_clear": [SET, SET, DEL]}[kinds]
+    st = _map_state(cuda, D, K, O)
+    ref = _map_clone(st)
+    for b in range(3):
+        planes = _map_planes(rng, D, O, K, mix)
+        if kinds == "last_clear":
+            planes[0][:, -1] = CLR
+        ops = [torch.as_tensor(p).to(cuda) for p in planes]
+        before = mak.launches
+        mk.apply_map_batch_fused(st, *ops)
+        assert mak.launches == before + 1
+        ref = mk.apply_map_batch(ref, *ops)
+        torch.cuda.synchronize()
+        _map_same(st, ref, (kinds, b))
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("R,O", [(1, 1), (37, 13), (200, 64), (5, 700)])
+def test_map_kernel_packed_scatter_matches_plain(cuda, wide, R, O):
+    D, K = 256, 64
+    rng = np.random.default_rng(R * O + wide)
+    kind = rng.choice([SET, SET, DEL, CLR, NOOP], size=(R, O)).astype(
+        np.int32)
+    a0 = rng.integers(0, K, size=(R, O), dtype=np.int32)
+    a1 = rng.integers(0, (1 << 24) if wide else (1 << 16), size=(R, O),
+                      dtype=np.int32)
+    base = rng.integers(0, 1 << 30, size=R, dtype=np.int32)
+    rows = rng.permutation(D)[:R].astype(np.int32)   # permuted order
+    buf, wide_vals = mk.pack_map_batch(kind, a0, a1, base, rows)
+    assert wide_vals == wide
+    st = _map_state(cuda, D, K, 1)
+    before = _map_clone(st)
+    b = torch.as_tensor(buf).to(cuda)
+    mk.map_columnar_apply_fused(st, b, R, O, True, wide)
+    ref = mk.map_columnar_apply(before, b, R, O, True, wide)
+    torch.cuda.synchronize()
+    _map_same(st, ref, "scatter")
+    untouched = torch.ones(D, dtype=torch.bool, device=cuda)
+    untouched[torch.as_tensor(rows).long().to(cuda)] = False
+    for k in mk.PLANES:   # rows outside the batch are byte-identical
+        assert torch.equal(getattr(st, k)[untouched],
+                           getattr(before, k)[untouched])
+
+
+def test_map_kernel_packed_all_rows_matches_plain(cuda):
+    D, K, O = 1024, 64, 64
+    st = mk.MapState.create(D, K, cuda)
+    ref = _map_clone(st)
+    rows = np.arange(D, dtype=np.int32)
+    rng = np.random.default_rng(2)
+    for b in range(3):
+        kind = rng.choice([SET, SET, DEL, CLR, NOOP], size=(D, O)).astype(
+            np.int32)
+        a0 = rng.integers(0, K, size=(D, O), dtype=np.int32)
+        a1 = rng.integers(0, 1 << 16, size=(D, O), dtype=np.int32)
+        base = np.full(D, 1 + b * O, np.int32)
+        buf = torch.as_tensor(mk.pack_map_batch(kind, a0, a1, base,
+                                                rows)[0]).to(cuda)
+        mk.map_columnar_apply_fused(st, buf, D, O, False, False)
+        ref = mk.map_columnar_apply(ref, buf, D, O, False, False)
+        torch.cuda.synchronize()
+        _map_same(st, ref, b)
+
+
+def test_map_kernel_refused_launch_raises(cuda):
+    """30,000 key slots need 240,000 B of shared memory, past the 227 KB a
+    block may use: the launch is refused and the wrapper raises."""
+    st = mk.MapState.create(1, 30_000, cuda)
+    ops = [torch.full((1, 8), v, dtype=torch.int32, device=cuda)
+           for v in (SET, 0, 5, 1)]
+    before = mak.launches
+    with pytest.raises(RuntimeError, match="map_apply launch failed"):
+        mk.apply_map_batch_fused(st, *ops)
+    assert mak.launches == before
+
+
+def test_map_engine_on_card_matches_cpu(cuda):
+    from fluidframework_tpu_torch.server.serving import MapServingEngine
+    from fluidframework_tpu_torch.testing.synthetic import map_serving_batch
+    R, O = 32, 16
+    engines = [MapServingEngine(n_docs=R, n_keys=16, batch_window=40,
+                                sequencer="native", device=dev)
+               for dev in (cuda, "cpu")]
+    docs = [f"m{i}" for i in range(R)]
+    for e in engines:
+        for d in docs:
+            e.connect(d, 1)
+        rows = np.array([e.doc_row(d) for d in docs], np.int32)
+        for b in range(3):
+            kind, kidx, keys, vidx, values = map_serving_batch(
+                R, O, b, n_keys=16)
+            cs = np.broadcast_to(np.arange(b * O + 1, (b + 1) * O + 1,
+                                           dtype=np.int32), (R, O))
+            res = e.ingest_planes(rows, np.ones((R, O), np.int32), cs,
+                                  np.zeros((R, O), np.int32), kind, kidx,
+                                  keys, values, vidx)
+            assert res["nacked"] == 0
+        for i in range(100):   # the per-op route, with clears
+            d = docs[i % 7]
+            c = {"op": "clear"} if i % 13 == 0 else \
+                {"op": "set", "key": f"k{i % 5}", "value": [i]}
+            _, nack = e.submit(d, 1, 3 * O + 1 + i // 7, 0, c)
+            assert nack is None
+    for d in docs:
+        assert engines[0].read_doc(d) == engines[1].read_doc(d), d
+    assert np.array_equal(engines[0].store.digests(),
+                          engines[1].store.digests())
+
+
+# ------------------------------------------ cell merge kernel (cell_merge.cu)
+
+def _cells_sorted_invariant(st):
+    """Live keys strictly ascending, EMPTY after ``count``, zero tail."""
+    n = int(st.count)
+    k = st.key.cpu().numpy()
+    assert (np.diff(k[:n].astype(np.int64)) > 0).all()
+    assert (k[n:] == int(mx.EMPTY_KEY)).all()
+
+
+def _cells_same(st, ref, L):
+    for k in mx.PLANES + ("count", "overflow"):
+        assert torch.equal(getattr(st, k), getattr(ref, k)), (L, k)
+
+
+def _cell_batch(rng, O, n_keys, seq0, pad=0.0):
+    key = rng.integers(0, n_keys, O).astype(np.int32)
+    key[rng.random(O) < pad] = int(mx.EMPTY_KEY)
+    seq = np.arange(seq0, seq0 + O, dtype=np.int32)
+    val = rng.integers(1, 1 << 30, O, dtype=np.int32)
+    return key, seq, val
+
+
+def _cell_chain(dev, T, L, O, n_keys, fww, batches=3, pad=0.1, seed=0):
+    rng = np.random.default_rng(seed)
+    st = mx.MatrixCellState.create(T, dev)
+    ref = mx.MatrixCellState.create(T, dev)
+    seq0 = 1
+    for _ in range(batches):
+        b = [torch.as_tensor(x).to(dev)
+             for x in _cell_batch(rng, O, n_keys, seq0, pad)]
+        seq0 += O
+        before = cmk.launches
+        mx.merge_cells_fused(st, *b, L=L, fww=fww)
+        assert cmk.launches == before + 1
+        ref = mx.merge_cells(ref, *b, L, fww)
+        torch.cuda.synchronize()
+        _cells_same(st, ref, L)
+        if not int(st.overflow):
+            _cells_sorted_invariant(st)
+    return st
+
+
+@pytest.mark.parametrize("O", [1, 4096, 4097, 65536])
+@pytest.mark.parametrize("L", [None, 1 << 17])
+@pytest.mark.parametrize("fww", [False, True])
+def test_cell_kernel_matches_plain(cuda, O, L, fww):
+    _cell_chain(cuda, 1 << 18, L, O, n_keys=100_000, fww=fww,
+                seed=O + bool(L))
+
+
+@pytest.mark.parametrize("L", [None, 64])
+def test_cell_kernel_duplicates_and_pads(cuda, L):
+    """Many writes per key inside one batch, and a batch of pads only."""
+    st = _cell_chain(cuda, 256, L, 1000, n_keys=40, fww=False, pad=0.3)
+    ref = mx.MatrixCellState(**{k: v.clone() for k, v in
+                                st.fields().items()})
+    pads = [torch.full((513,), int(mx.EMPTY_KEY), dtype=torch.int32,
+                       device=cuda)] + \
+        [torch.zeros(513, dtype=torch.int32, device=cuda)] * 2
+    mx.merge_cells_fused(st, *pads, L=L)
+    torch.cuda.synchronize()
+    _cells_same(st, ref, L)
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+@pytest.mark.parametrize("L", [None, 256])
+def test_cell_kernel_live_at_the_edge(cuda, extra, L):
+    """Live exactly Lt, then Lt + 1 (the sticky overflow), in both modes."""
+    T = 256 if L is None else 1024
+    Lt = T if L is None else L
+    n = Lt + extra
+    st = mx.MatrixCellState.create(T, cuda)
+    ref = mx.MatrixCellState.create(T, cuda)
+    for part in (slice(0, n // 2), slice(n // 2, n), slice(0, 0)):
+        keys = np.arange(n, dtype=np.int32)[::-1][part].copy()
+        b = [torch.as_tensor(x).to(cuda) for x in
+             (keys, np.arange(1, len(keys) + 1, dtype=np.int32) + n,
+              keys * 3)]
+        mx.merge_cells_fused(st, *b, L=L)
+        ref = mx.merge_cells(ref, *b, L, False)
+        torch.cuda.synchronize()
+        _cells_same(st, ref, L)
+    assert int(st.overflow) == extra
+    assert int(st.count) == Lt   # after the empty batch: the kept cells
+
+
+@pytest.mark.parametrize("L", [None, 1 << 19])
+def test_cell_kernel_replayed_in_a_cuda_graph(cuda, L):
+    """Merges captured in one CUDA graph (each restoring its input state
+    first, as the smoke run's timing does), replayed, and eager merges
+    queued back to back without a sync, at config #3 widths: every result
+    equals the plain merge of the same input."""
+    T, O = (1 << 20) + (1 << 16), 65536 if L is None else 4096
+    rng = np.random.default_rng(5)
+    st0 = mx.MatrixCellState.create(T, cuda)
+    for seq0 in (1, 1 + O):   # a table with live cells to merge into
+        b = [torch.as_tensor(x).to(cuda)
+             for x in _cell_batch(rng, O, 1 << 18, seq0, pad=0.05)]
+        mx.merge_cells_fused(st0, *b, L=L)
+    b = [torch.as_tensor(x).to(cuda)
+         for x in _cell_batch(rng, O, 1 << 18, 1 + 2 * O, pad=0.05)]
+    want = mx.merge_cells(st0, *b, L, False)
+    work = mx.MatrixCellState(**{k: v.clone() for k, v in
+                                 st0.fields().items()})
+
+    def run():
+        for name, t in work.fields().items():
+            t.copy_(getattr(st0, name))
+        mx.merge_cells_fused(work, *b, L=L)
+
+    run()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(10):
+            run()
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        _cells_same(work, want, L)
+    outs = []
+    for _ in range(8):   # eager, scratch blocks reused on one stream
+        run()
+        outs.append(mx.MatrixCellState(**{k: v.clone() for k, v in
+                                          work.fields().items()}))
+    torch.cuda.synchronize()
+    for out in outs:
+        _cells_same(out, want, L)
+    _cells_sorted_invariant(work)
+
+
+def test_cell_store_on_card_matches_cpu(cuda):
+    from fluidframework_tpu_torch.testing.synthetic import cell_records
+    stores = [mx.TensorMatrixStore(capacity=4096, batch_size=256,
+                                   device=dev) for dev in (cuda, "cpu")]
+    recs = cell_records(3, 6000, n_rows=64, n_cols=40)
+    for s in stores:
+        s.apply_batch_columnar([r for r, _, _, _ in recs],
+                               [c for _, c, _, _ in recs],
+                               [int(v[1:]) for _, _, v, _ in recs],
+                               [q for _, _, _, q in recs])
+        s.switch_set_cell_policy()
+        s.apply_batch(cell_records(4, 500, n_rows=80, n_cols=40,
+                                   seq0=7000))
+    snaps = [s.snapshot() for s in stores]
+    for k in ("key", "seq", "value"):
+        assert np.array_equal(snaps[0][k], snaps[1][k]), k
+    assert stores[0].read_cells() == stores[1].read_cells()
+    assert stores[0].digest() == stores[1].digest()
+    for cell in list(stores[1]._cell_ids)[:50:7]:
+        assert stores[0].read_cell(cell) == stores[1].read_cell(cell)

@@ -62,3 +62,33 @@ def test_kernel_wrapper_checks_its_inputs():
                                                            dtype=torch.int32))
     with pytest.raises(TypeError, match="int32"):
         apply_string_batch_fused(st, *ops[:6], ops[6].long())
+
+
+@pytest.mark.parametrize("entry", ["map_store", "map_engine", "cell_store"])
+def test_map_and_matrix_entry_points_need_a_card(entry):
+    from fluidframework_tpu_torch.ops.map_kernel import TensorMapStore
+    from fluidframework_tpu_torch.ops.matrix_kernel import TensorMatrixStore
+    from fluidframework_tpu_torch.server.serving import MapServingEngine
+    make = {"map_store": lambda **kw: TensorMapStore(8, **kw),
+            "map_engine": lambda **kw: MapServingEngine(n_docs=8, **kw),
+            "cell_store": lambda **kw: TensorMatrixStore(64, **kw)}[entry]
+    if torch.cuda.is_available():
+        make()
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    make(device="cpu")
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The bindings launch on CUDA tensors only: a CPU tensor never
+    reaches them (the entry points run the plain version for it)."""
+    from fluidframework_tpu_torch.ops import cell_merge, map_apply
+    from fluidframework_tpu_torch.ops.map_kernel import MapState
+    from fluidframework_tpu_torch.ops.matrix_kernel import MatrixCellState
+    ops = [torch.zeros((4, 8), dtype=torch.int32) for _ in range(4)]
+    with pytest.raises(ValueError, match="CUDA"):
+        map_apply.launch_dense(MapState.create(4, 8, "cpu"), *ops)
+    with pytest.raises(ValueError, match="CUDA"):
+        cell_merge.launch(MatrixCellState.create(16, "cpu"),
+                          *ops[0][0:3], L=None, fww=False)
