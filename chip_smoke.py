@@ -435,9 +435,14 @@ def graph_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def bytes_bound(nbytes):
-    """(ms, "bytes") for a function that must move ``nbytes``."""
-    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+def work_bound(nbytes, n_ops):
+    """(ms, "bytes" or "operations"): the least time for a function that
+    must move ``nbytes`` and do ``n_ops`` int32 operations, the larger of
+    the two at the card's peak rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def map_phase(smi, dev):
@@ -449,6 +454,7 @@ def map_phase(smi, dev):
 
     from fluidframework_tpu_torch.ops import map_apply as mak
     from fluidframework_tpu_torch.ops import map_kernel as mk
+    from fluidframework_tpu_torch.ops.schema import OpKind
     from fluidframework_tpu_torch.server.serving import MapServingEngine
     from fluidframework_tpu_torch.testing.synthetic import (
         map_raw_batches, map_serving_batch,
@@ -483,6 +489,22 @@ def map_phase(smi, dev):
     # config #2 (the serving shape)
     rows_specs = []
 
+    def bound(kind, a0, op_bytes):
+        """The op input read once and the state planes written once where
+        this batch writes them: every slot of a row with a clear, and each
+        slot a set or delete touches. The function never reads the state
+        (an untouched slot keeps its value in place)."""
+        keyed = ((kind == int(OpKind.MAP_SET))
+                 | (kind == int(OpKind.MAP_DELETE)))
+        hit = ((a0.long()[:, :, None]
+                == torch.arange(K, device=a0.device)) & keyed[:, :, None])
+        written = int((hit.any(1) | (kind == int(OpKind.MAP_CLEAR))
+                       .any(1, keepdim=True)).sum())
+        nbytes = op_bytes + 3 * 4 * written
+        b_ms, b_by = work_bound(nbytes, kind.numel() + written)
+        return {"bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "slots_written": written}
+
     def time_dense(d):
         b = map_raw_batches(d, K, O, 1, seed=d)[0]
         ops = [torch.as_tensor(p).to(dev) for p in b]
@@ -498,10 +520,9 @@ def map_phase(smi, dev):
         chk = mk.MapState(*(v.clone() for v in work.fields().values()))
         mk.apply_map_batch_fused(chk, *ops)
         e = diff(chk, out)
-        b_ms, b_by = bytes_bound(2 * 3 * d * K * 4 + 4 * d * O * 4)
         rows_specs.append({"spec": "dense", "D": d, "K": K, "O": O,
                            **t, "plain_ms": a.elapsed_time(z),
-                           "bound_ms": b_ms, "bound_by": b_by,
+                           **bound(ops[0], ops[1], 4 * d * O * 4),
                            "max_abs_err": e})
         return e
 
@@ -514,26 +535,26 @@ def map_phase(smi, dev):
     buf = torch.as_tensor(buf_np).to(dev)
     work = mk.MapState.create(D, K, dev)
     run = lambda: mk.map_columnar_apply_fused(  # noqa: E731
-        work, buf, D, O, False, wide)
+        work, buf, D, O, wide)
     t = {"ms": graph_ms(run, 50), "call_ms": timed_events(run, 20)}
     a = torch.cuda.Event(enable_timing=True)
     z = torch.cuda.Event(enable_timing=True)
     a.record()
-    out = mk.map_columnar_apply(work, buf, D, O, False, wide)
+    out = mk.map_columnar_apply(work, buf, D, O, wide)
     z.record()
     torch.cuda.synchronize()
     chk = mk.MapState(*(v.clone() for v in work.fields().values()))
-    mk.map_columnar_apply_fused(chk, buf, D, O, False, wide)
+    mk.map_columnar_apply_fused(chk, buf, D, O, wide)
     err = max(err, diff(chk, out))
-    b_ms, b_by = bytes_bound(2 * 3 * D * K * 4 + buf.numel() * 4)
+    unpacked = mk.map_unpack(buf, D, O, D, True, wide)
     packed = {"spec": "packed (serving)", "D": D, "K": K, "O": O,
-              **t, "plain_ms": a.elapsed_time(z), "bound_ms": b_ms,
-              "bound_by": b_by, "max_abs_err": err,
-              "wire_bytes": buf.numel() * 4}
+              **t, "plain_ms": a.elapsed_time(z),
+              **bound(unpacked[0], unpacked[1], buf.numel() * 4),
+              "max_abs_err": err, "wire_bytes": buf.numel() * 4}
     rows_specs.append(packed)
     if err:
         raise AssertionError(f"map kernel != plain: max abs err {err}")
-    del raw, st, ref, work, chk, out
+    del raw, st, ref, work, chk, out, unpacked
 
     # columnar serving on the card against the same batches on the CPU
     docs = [f"map-{i}" for i in range(D)]
@@ -749,15 +770,19 @@ def matrix_phase(smi, dev):
         t = {"ms": graph_ms(run, 10) - graph_ms(copy, 10),
              "call_ms": timed_events(run, 10) - timed_events(copy, 10)}
         e = check("after timing")
-        Lt = T if L is None else L
-        nbytes = 2 * 3 * Lt * 4 + 3 * b[0].numel() * 4 + 4 * 4
-        b_ms, b_by = bytes_bound(nbytes)
-        rows_specs.append({"spec": label, "T": T, "L": Lt,
-                           "O": b[0].numel(), **t,
+        # the live cells read before and written after (the EMPTY tail
+        # is EMPTY on both sides), the batch read once, count / overflow
+        # read and written; a comparison sort of the batch and one merge
+        live_in, live_out, n = int(state0.count), int(out.count), b[0].numel()
+        nbytes = 3 * 4 * (live_in + live_out + n) + 4 * 4
+        n_ops = live_in + n + n * max(n - 1, 1).bit_length()
+        b_ms, b_by = work_bound(nbytes, n_ops)
+        rows_specs.append({"spec": label, "T": T,
+                           "L": T if L is None else L, "O": n, **t,
                            "plain_ms": a.elapsed_time(z), "bound_ms": b_ms,
                            "bound_by": b_by, "bytes": nbytes,
-                           "max_abs_err": e,
-                           "live_in": int(state0.count)})
+                           "max_abs_err": e, "live_in": live_in,
+                           "live_out": live_out})
         return e
 
     err = max(err, time_merge(inputs[-1], batches[-1], None,
@@ -778,11 +803,22 @@ def matrix_phase(smi, dev):
                 fww_storm[1] + MX_BATCHES * O3)
     stores = []
     fused = mx.merge_cells_fused
+    n_chunks = -(-len(row_keys) // MX_STORE_BATCH)
+    last_chunk = {}
+
+    def keep_last(state, k, s, v, L=None, fww=False):
+        """The store's merge entry point, keeping the input state, the
+        chunk and L of the storm's last merge (the timed prefix shape)."""
+        keep_last.calls += 1
+        if keep_last.calls == n_chunks:
+            last_chunk.update(state=clone(state), batch=(k, s, v), L=L)
+        return fused(state, k, s, v, L, fww)
+    keep_last.calls = 0
+
     cmk.launches = 0   # the matrix path starts here
     t0 = time.perf_counter()
     for plain in (False, True):
-        if plain:
-            mx.merge_cells_fused = plain_in_place
+        mx.merge_cells_fused = plain_in_place if plain else keep_last
         try:
             s = mx.TensorMatrixStore(capacity=T, batch_size=MX_STORE_BATCH,
                                      device=dev)
@@ -791,10 +827,7 @@ def matrix_phase(smi, dev):
             if not plain:
                 store_s = time.perf_counter() - t0
                 launches = cmk.launches   # the matrix path ends here
-                L_final = 8
-                while L_final < min(len(s._cell_ids) + 1, T):
-                    L_final *= 2
-                pre_fww = (s.snapshot(), s.table_bases(), clone(s.state))
+                pre_fww = (s.snapshot(), s.table_bases())
             s.switch_set_cell_policy()
             s.apply_batch_columnar(*fww_cols)
             stores.append(s)
@@ -809,16 +842,18 @@ def matrix_phase(smi, dev):
         raise AssertionError("store route overflowed")
     if launches != -(-len(row_keys) // MX_STORE_BATCH):
         raise AssertionError(f"store route launched {launches} merges")
-    # the store's last prefix shape, timed on its state before the FWW storm
-    last = [torch.as_tensor(np.ascontiguousarray(x[-MX_STORE_BATCH:]))
-            .to(dev) for x in (recs[0], recs[1] + MX_BATCHES * O3 * 2,
-                               recs[2])]
-    err = max(err, time_merge(pre_fww[2], last, L_final,
-                              "prefix (store route, last L)"))
+    # the storm's last merge, on the state and the chunk (interned ids,
+    # padded, the store's seqs) that _merge_chunk gave the kernel
+    L_final = last_chunk["L"]
+    if L_final is None:
+        raise AssertionError("the store route's last merge is not prefix")
+    err = max(err, time_merge(last_chunk["state"], last_chunk["batch"],
+                              L_final, "prefix (store route, last chunk)"))
     main = rows_specs[-1]
+    del last_chunk
 
     # round trip: the pre-FWW snapshot plus the delta since equals live
-    snap, bases, _ = pre_fww
+    snap, bases = pre_fww
     t0 = time.perf_counter()
     delta = kern.snapshot_delta(bases)
     back = mx.TensorMatrixStore.restore(snap, device=dev)

@@ -14,10 +14,11 @@
 // prefix mode. count = min(live, T); overflow is set (sticky) when
 // live > Lt.
 //
-// What bounds it. Bytes: the table prefix read and written once and the
-// batch read once — prefix mode at L = 2^20, O = 4,096 about 25 MB,
-// ≈ 7.5 µs at 3.35 TB/s; full mode at config #3 (T = 1,114,112,
-// O = 65,536) about 27.6 MB, ≈ 8.2 µs.
+// What bounds it. Bytes: the live cells read once before and written once
+// after (the EMPTY tail is EMPTY on both sides) and the batch read once —
+// config #3's last full merge (371,278 live in, 412,288 out, O = 65,536)
+// about 10.2 MB, ≈ 3.0 µs at 3.35 TB/s; the store's last prefix merge
+// (L = 2^19, O = 4,096, about 410 K live) about 9.9 MB, ≈ 3.0 µs.
 //
 // What the design does. A simple design that is right, in a few launches
 // on the caller's stream: (1) the batch is sorted by (key, seq, value) —
@@ -30,9 +31,11 @@
 // are marked against the neighbouring merged element, counted per block of
 // 1,024, the block counts scanned by one block (which also writes count
 // and overflow), and each block writes its winners straight into the
-// table; (4) the slots past the winners get EMPTY / 0 / 0. The merged
-// array makes the table about 2× its bytes bound in traffic; the sort
-// passes are small beside it at these O.
+// table; (4) the slots past the winners get EMPTY / 0 / 0. Reading and
+// rewriting the whole prefix [0, Lt), not only the live cells, and the
+// merged array in scratch make about 60 MB of traffic at config #3's full
+// merge, about 6× the bound's bytes; the sort passes are small beside it
+// at these O.
 //
 // C interface (ctypes): ``cell_merge_launch`` returns cudaGetLastError()
 // after its last launch (0 on success); the scratch is a caller-allocated

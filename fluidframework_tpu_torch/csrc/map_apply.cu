@@ -8,9 +8,11 @@
 // on the LAST set/delete of that slot after the doc's LAST clear, so a batch
 // is a reduction over the op axis.
 //
-// What bounds it. Bytes: the three (D, K) int32 state planes read and
-// written once plus the ops read once — at config #2 (D = 1,024, K = 64,
-// O = 64) 1.57 MB of state and 0.27 MB of packed wire, ≈ 0.55 µs at
+// What bounds it. Bytes: the ops read once and the three int32 state
+// planes written once where the batch writes them (every slot of a row
+// with a clear, each slot a set / delete touches); the state is never
+// read. At config #2 (D = 1,024, K = 64, O = 64, nearly every row has a
+// clear) that is 0.79 MB of state and 0.27 MB of packed wire, ≈ 0.32 µs at
 // 3.35 TB/s, so one launch is bound by launch latency rather than by the
 // card.
 //

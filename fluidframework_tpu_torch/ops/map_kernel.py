@@ -132,7 +132,8 @@ def map_unpack(buf: torch.Tensor, R: int, O: int, n_docs: int,
                scatter_rows: bool, wide_vals: bool):
     """Plain version of the wire unpack: one int32 word buffer → dense
     (kind, a0, a1, seq) planes, (R, O), or (n_docs, O) with NOOP planes on
-    rows the batch does not carry when ``scatter_rows``.
+    rows the batch does not carry when ``scatter_rows`` (the apply always
+    scatters; the unscattered form is JAX's, kept for the parity tests).
 
     Buffer: R·O kind bytes, R·O key-slot bytes, R·O values (u16, or i32
     when ``wide_vals``), R seq bases, R row ids, each section padded to
@@ -182,10 +183,12 @@ def map_unpack(buf: torch.Tensor, R: int, O: int, n_docs: int,
 
 
 def map_columnar_apply(state: MapState, buf, R: int, O: int,
-                       scatter_rows: bool, wide_vals: bool) -> MapState:
-    """Plain version of the fused unpack + apply of one packed batch."""
+                       wide_vals: bool) -> MapState:
+    """Plain version of the fused unpack + apply of one packed batch:
+    plane row i lands on state row ``rows[i]`` (the buffer's row ids), as
+    in the kernel; rows the batch does not carry are untouched."""
     return apply_map_batch(state, *map_unpack(
-        buf, R, O, state.present.shape[0], scatter_rows, wide_vals))
+        buf, R, O, state.present.shape[0], True, wide_vals))
 
 
 def map_state_digest(state: MapState) -> torch.Tensor:
@@ -214,13 +217,12 @@ def apply_map_batch_fused(state: MapState, kind, a0, a1, seq) -> MapState:
 
 
 def map_columnar_apply_fused(state: MapState, buf, R: int, O: int,
-                             scatter_rows: bool, wide_vals: bool) -> MapState:
-    """Apply one packed batch to ``state`` IN PLACE and return it. The
-    kernel lands plane row i on state row ``rows[i]`` in both modes
-    (without ``scatter_rows`` the rows are 0..R-1 and R = D)."""
+                             wide_vals: bool) -> MapState:
+    """Apply one packed batch to ``state`` IN PLACE and return it: plane
+    row i lands on state row ``rows[i]`` (the buffer's row ids)."""
     if state.present.device.type == "cpu":
-        return _copy_into(state, map_columnar_apply(
-            state, buf, R, O, scatter_rows, wide_vals))
+        return _copy_into(state, map_columnar_apply(state, buf, R, O,
+                                                    wide_vals))
     map_apply.launch_packed(state, buf, R, O, wide_vals)
     return state
 
@@ -296,10 +298,9 @@ class TensorMapStore:
                                             for p in (kind, a0, a1, seq)))
 
     def apply_columnar(self, buf: np.ndarray, R: int, O: int,
-                       scatter_rows: bool, wide_vals: bool) -> None:
+                       wide_vals: bool) -> None:
         """One packed batch: one host→device copy, one launch."""
-        map_columnar_apply_fused(self.state, self._dev(buf), R, O,
-                                 scatter_rows, wide_vals)
+        map_columnar_apply_fused(self.state, self._dev(buf), R, O, wide_vals)
 
     # ----------------------------------------------------------------- reads
 

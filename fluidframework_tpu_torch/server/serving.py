@@ -1382,9 +1382,7 @@ class MapServingEngine(ServingEngineBase):
                     - valid_rs.sum(axis=1)).astype(np.int32)
 
         buf, wide_vals = pack_map_batch(kind_eff, a0, a1, seq_base, rows)
-        scatter = not (R == self.n_docs
-                       and np.array_equal(rows, np.arange(R)))
-        self.store.apply_columnar(buf, R, O, scatter, wide_vals)
+        self.store.apply_columnar(buf, R, O, wide_vals)
 
         ok = ~nacked
         self._append_columnar(ColumnarOps(

@@ -537,8 +537,8 @@ def test_map_kernel_packed_scatter_matches_plain(cuda, wide, R, O):
     st = _map_state(cuda, D, K, 1)
     before = _map_clone(st)
     b = torch.as_tensor(buf).to(cuda)
-    mk.map_columnar_apply_fused(st, b, R, O, True, wide)
-    ref = mk.map_columnar_apply(before, b, R, O, True, wide)
+    mk.map_columnar_apply_fused(st, b, R, O, wide)
+    ref = mk.map_columnar_apply(before, b, R, O, wide)
     torch.cuda.synchronize()
     _map_same(st, ref, "scatter")
     untouched = torch.ones(D, dtype=torch.bool, device=cuda)
@@ -562,8 +562,8 @@ def test_map_kernel_packed_all_rows_matches_plain(cuda):
         base = np.full(D, 1 + b * O, np.int32)
         buf = torch.as_tensor(mk.pack_map_batch(kind, a0, a1, base,
                                                 rows)[0]).to(cuda)
-        mk.map_columnar_apply_fused(st, buf, D, O, False, False)
-        ref = mk.map_columnar_apply(ref, buf, D, O, False, False)
+        mk.map_columnar_apply_fused(st, buf, D, O, False)
+        ref = mk.map_columnar_apply(ref, buf, D, O, False)
         torch.cuda.synchronize()
         _map_same(st, ref, b)
 
@@ -765,3 +765,15 @@ def test_cell_store_on_card_matches_cpu(cuda):
     assert stores[0].digest() == stores[1].digest()
     for cell in list(stores[1]._cell_ids)[:50:7]:
         assert stores[0].read_cell(cell) == stores[1].read_cell(cell)
+
+
+def test_cell_kernel_chained_stress(cuda):
+    """Chained full and prefix merges fed as the store feeds them, and
+    merges repeated eagerly and in a CUDA graph without restoring the
+    input: every one equals the plain merge of the same input
+    (``testing/cell_merge_stress.py`` at a reduced grid)."""
+    from fluidframework_tpu_torch.testing import cell_merge_stress as cs
+    res = cs.run("cuda", seeds=2, grid=256, ops=8192, batches=4,
+                 store_batch=1024, repeats=3)
+    assert res["mismatches"] == 0, res["first_mismatches"]
+    assert res["kernel_launches"] > 0

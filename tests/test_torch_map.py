@@ -134,7 +134,9 @@ def test_map_unpack_and_columnar_apply_match_jax(wide, scatter):
         jmk.MapState(*(jnp.asarray(p) for p in start)), jnp.asarray(buf),
         R=R, O=O, n_docs=n_docs, scatter_rows=scatter, wide_vals=wide)
     ts = tmk.MapState(*(_t(p) for p in start))
-    tmk.map_columnar_apply_fused(ts, _t(buf), R, O, scatter, wide)
+    # the port always lands plane row i on rows[i]; JAX's unscattered form
+    # (rows 0..R-1, R = n_docs) must give the same planes
+    tmk.map_columnar_apply_fused(ts, _t(buf), R, O, wide)
     _same_planes(js, ts)
     if scatter:   # rows the batch does not carry are untouched
         for r in set(range(n_docs)) - set(rows.tolist()):

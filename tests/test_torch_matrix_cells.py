@@ -257,3 +257,23 @@ def test_store_snapshot_delta_restore_like_jax():
     assert old.digest() == ts.digest() == \
         int(jmx.matrix_cells_digest(base.state))
     assert not np.shares_memory(back.state.key.numpy(), snap["key"])
+
+
+def test_stress_harness_feeds_merges_as_the_store_does():
+    """The card stress (``testing/cell_merge_stress.py``) interns cell ids
+    in first-write order and picks L as ``TensorMatrixStore`` does; on the
+    CPU every one of its merges agrees and every table stays sorted."""
+    from fluidframework_tpu_torch.testing import cell_merge_stress as cs
+    recs = cell_records(5, 300, n_rows=12, n_cols=9)
+    store = tmx.TensorMatrixStore(capacity=256, batch_size=32, device="cpu")
+    store.apply_batch(recs)
+    raw = np.array([r * 9 + c for r, c, _, _ in recs], np.int32)
+    want = [store._cell_ids[(r, c)] for r, c, _, _ in recs]
+    assert cs.first_write_ids(raw).tolist() == want
+    for n, L in ((0, 8), (7, 8), (8, 16), (100, 128), (255, None)):
+        assert cs.prefix_L(n, 256) == L
+    res = cs.run("cpu", seeds=2, grid=8, ops=32, batches=2, store_batch=8,
+                 repeats=2)
+    assert res["mismatches"] == 0, res["first_mismatches"]
+    assert res["merges"]["prefix"] == res["merges"]["prefix-growing"] \
+        == 2 * (2 * 32 + 32) // 8
