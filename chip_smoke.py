@@ -4,12 +4,12 @@
 Drives the port's paths once at full width — BASELINE config #4
 (SharedString ops sequenced by Deli and merged into a (doc × segment)
 merge-tree state on the card), config #2 (SharedMap) and config #3 (the
-SharedMatrix cell table) — and holds each hand-written kernel against its
-plain PyTorch version. Phases (one JSON line each):
+SharedMatrix cell table, then the whole matrix engine) — and holds each
+hand-written kernel against its plain PyTorch version. Phases (one JSON line each):
 
 1. device — card name, count, ``nvidia-smi`` name and power limit, build
    seconds and the ``-Xptxas -v`` report: registers, stack-frame and
-   spill-store bytes of every instantiation (the three kernels are built
+   spill-store bytes of every instantiation (the four sources are built
    with one nvcc each and the native sequencer with g++, all in parallel,
    into the package's git-ignored build directory);
 2. parity — D=10,240 docs, S=384 slots, O=64 ops, 4 chained typing_storm
@@ -63,14 +63,32 @@ plain PyTorch version. Phases (one JSON line each):
    ``TensorMatrixStore.apply_batch_columnar`` (batch 4,096: 128 prefix
    merges) against a store whose merges run the plain version, a
    first-writer-wins storm, and ``snapshot_delta`` / ``apply_delta`` /
-   ``restore`` on the card equal to the live store. Both modes are timed.
+   ``restore`` on the card equal to the live store. Both modes are timed;
+8. matrix_engine — SharedMatrix served end to end by
+   ``MatrixServingEngine`` (config #3): (a) the reference bench's serving
+   shape (64 docs, each a 32 × 32 grid, cell capacity 1 << 17, axis
+   capacity 128, a warm-up and 6 storms of 4,096 setCells through
+   ``ingest_cells``); (b) config #3's 1,024 × 1,024 grid in one doc, both
+   axes built by 64 concurrent inserts of 16 from 4 clients, then 8 storms
+   of 65,536 setCells; (c) 3 per-op concurrent waves on (a)'s engine (4
+   clients a doc, 128 ops a doc a flush, ref_seq lagging by up to 16, FWW
+   on a quarter of the docs). Each engine equals a ``device="cpu"``
+   engine fed the same inputs (dims, every axis plane slot, the cell
+   table, 4,096 sampled cells, ``to_lists`` of (a)'s docs); then full and
+   incremental summaries of both card engines load on the card and equal
+   the live engine. Every launch of the axis kernels (``csrc/
+   axis_apply.cu``: K3 ``axis_apply``, K4 ``axis_resolve``) on these
+   paths is held against its plain version on its own input, and both are
+   timed. The line reports the ops/s of (a) and (b) and their host seconds
+   by part (sequencing, resolve, FWW filter, cell merge, log).
 
-Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (the three
-kernels: ``string_apply``, ``map_apply``, ``cell_merge``, each with its
-launches on its own paths, every count set to 0 just before a path and
-read just after: config #4 serving; config #2's kernel loop and its
-serving route; config #3's kernel loop and the store route), and as the
-last line ``{"ok": true, "device": {...}}``. Any failed phase raises, so
+Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (the five
+kernels: ``string_apply``, ``map_apply``, ``cell_merge``, ``axis_apply``,
+``axis_resolve``, each with its launches on its own paths, every count set
+to 0 just before a path and read just after: config #4 serving; config
+#2's kernel loop and its serving route; config #3's kernel loop, the store
+route and the matrix engine's paths), and as the last line ``{"ok": true,
+"device": {...}}``. Any failed phase raises, so
 the exit code is non-zero. Without a card it exits 2 and prints no result.
 
 Usage: ``python3 chip_smoke.py`` (one card).
@@ -99,6 +117,17 @@ MAP_SERVE_BATCHES = 12      # its serving loop: warm-up + 11 timed
 MAP_PER_OP = 320            # per-op submits across 16 maps
 MX_GRID, MX_OPS, MX_BATCHES = 1024, 1 << 16, 8   # config #3
 MX_STORE_BATCH = 4096       # TensorMatrixStore's default chunk
+MX_DOCS, MX_DOC_GRID = 64, 32          # config #3's serving shape
+MX_SERVE_STORMS = 6                    # timed storms after a warm-up
+MX_CELL_CAP_A, MX_AXIS_CAP_A = 1 << 17, 128
+MX_BIG_STORMS = 8                      # 8 × 65,536 = 524,288 setCells
+MX_WAVE_OPS, MX_WAVES = 128, 3         # (c): ops per doc per flush
+MX_SAMPLES = 4096                      # get_cell probes per check
+RESOLVE, NOOP = 13, 12                 # OpKind.AXIS_RESOLVE, OpKind.NOOP
+# the op bytes an axis window slot needs by kind: an insert reads all 7
+# planes, a remove all but a2, a resolve kind/a0/client/ref_seq, any
+# other kind (NOOP) only its kind
+AXIS_OP_BYTES = {0: 28, 1: 24, RESOLVE: 16}
 
 
 def emit(obj) -> None:
@@ -899,6 +928,621 @@ def matrix_phase(smi, dev):
         "specialisations": rows_specs}
 
 
+def _axis_clone(st):
+    from fluidframework_tpu_torch.ops import merge_tree as mt
+    return mt.StringState(**{k: v.clone() for k, v in st.fields().items()})
+
+
+def _axis_op_bytes(kind):
+    """Bytes the window's op planes must supply, counted per slot from its
+    kind (AXIS_OP_BYTES; 4 B for any other kind)."""
+    import torch
+    per = torch.full_like(kind, 4, dtype=torch.long)
+    for k, b in AXIS_OP_BYTES.items():
+        per = torch.where(kind == k, b, per)
+    return int(per.sum())
+
+
+def _live_extent(st):
+    """Per axis row: max(count, 1 + the last slot differing from fill)."""
+    import torch
+    from fluidframework_tpu_torch.core.constants import NOT_REMOVED
+    from fluidframework_tpu_torch.ops import merge_tree as mt
+    S = st.seq.shape[1]
+    nonfill = torch.zeros_like(st.seq, dtype=torch.bool)
+    for k in mt.PLANES:
+        fill = NOT_REMOVED if k == "removed_seq" else 0
+        nonfill |= getattr(st, k) != fill
+    idx = torch.arange(1, S + 1, device=st.seq.device)
+    last = torch.where(nonfill, idx, 0).amax(dim=1)
+    return torch.maximum(last, st.count.long())
+
+
+def _resolve_walk(st, kind, pos, client, ref):
+    """Slots a resolve must examine, summed over the window's resolves:
+    up to and including the visible slot holding pos, or the row's count
+    when none does (the work K4's data needs)."""
+    import torch
+    from fluidframework_tpu_torch.ops import merge_tree as mt
+    D, S = st.seq.shape
+    step = max((1 << 24) // max(D * S, 1), 1)
+    iota = torch.arange(S, device=st.seq.device)
+    active = (iota[None, :] < st.count[:, None])[:, None, :]
+    pl = {k: getattr(st, k)[:, None, :] for k in mt.PLANES}
+    total = 0
+    for o0 in range(0, pos.shape[1], step):
+        sl = slice(o0, o0 + step)
+        p, cl, rs = (x[:, sl, None] for x in (pos, client, ref))
+        bit = (pl["removers"] >> cl.clamp(0, 31)) & 1
+        vis = active & ((pl["seq"] <= rs) | (pl["client"] == cl)) & ~(
+            (pl["removed_seq"] <= rs) | ((bit != 0) & (cl >= 0)))
+        ln = torch.where(vis, pl["length"], 0)
+        end = torch.cumsum(ln, dim=2)
+        inside = vis & (end - ln <= p) & (p < end)
+        first = torch.where(inside, iota, S).amin(dim=2)
+        walk = torch.where(first < S, first + 1,
+                           st.count[:, None].long().expand_as(first))
+        total += int(torch.where(kind[:, sl] == RESOLVE, walk, 0).sum())
+    return total
+
+
+def matrix_engine_phase(smi, dev, docs_a=MX_DOCS, grid_a=MX_DOC_GRID,
+                        storms_a=MX_SERVE_STORMS, grid_b=MX_GRID,
+                        ops_b=MX_OPS, storms_b=MX_BIG_STORMS,
+                        wave_ops=MX_WAVE_OPS, waves=MX_WAVES,
+                        samples=MX_SAMPLES):
+    """Phase 8: SharedMatrix served end to end (config #3). (a) the
+    reference bench's serving shape: ``docs_a`` docs, each a grid_a ×
+    grid_a grid made by per-op inserts, a warm-up and ``storms_a`` storms
+    of 64 setCells per doc through ``ingest_cells``; (b) config #3's
+    grid_b × grid_b grid in one doc, both axes built by 64 concurrent
+    inserts of grid_b / 64 from 4 clients, then ``storms_b`` storms of
+    ``ops_b`` setCells; (c) ``waves`` per-op concurrent waves on (a)'s
+    engine (4 clients per doc, ``wave_ops`` ops per doc per flush, ref_seq
+    lagging by up to 16, FWW on a quarter of the docs). Every engine is
+    held against a ``device="cpu"`` engine fed the same inputs; then each
+    card engine is summarized (full, then incremental after more ops) and
+    both summaries load on the card and equal the live engine. Every K3 /
+    K4 launch of the paths is held against its plain version on its own
+    input afterwards, and both kernels are timed. Returns the
+    ``axis_apply`` and ``axis_resolve`` kernels-line entries."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import axis_apply as axk
+    from fluidframework_tpu_torch.ops import axis_kernel as ak
+    from fluidframework_tpu_torch.ops import cell_merge as cmk
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+    from fluidframework_tpu_torch.ops import merge_tree as mt
+    from fluidframework_tpu_torch.server.serving import MatrixServingEngine
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    rng = np.random.default_rng(3)
+    calls = {"apply": [], "resolve": []}
+    capture = [False]
+    fused_apply, fused_resolve = ak.apply_axis_batch_fused, \
+        ak.resolve_axis_fused
+
+    def keep_apply(state, *ops):
+        """K3's entry point, keeping each card launch's input and output."""
+        if not (capture[0] and state.seq.is_cuda):
+            return fused_apply(state, *ops)
+        before = _axis_clone(state)
+        run, off = fused_apply(state, *ops)
+        calls["apply"].append((path[0], before, ops, _axis_clone(state),
+                               run, off))
+        return run, off
+
+    def keep_resolve(state, kind, pos, client, ref):
+        """K4's entry point, keeping each card launch's input and output."""
+        run, off = fused_resolve(state, kind, pos, client, ref)
+        if capture[0] and state.seq.is_cuda:
+            calls["resolve"].append((path[0], _axis_clone(state),
+                                     (kind, pos, client, ref), run, off))
+        return run, off
+
+    path = [""]
+    launches = {"apply": collections.Counter(),
+                "resolve": collections.Counter(),
+                "cell_merge": collections.Counter()}
+
+    def begin(name):
+        """Counts to 0 just before a path; ``end`` reads them just after
+        (the cell merges the engine launches are reported beside them)."""
+        path[0] = name
+        capture[0] = True
+        axk.apply_launches = axk.resolve_launches = cmk.launches = 0
+
+    def end():
+        if on_card:
+            torch.cuda.synchronize()
+        launches["apply"][path[0]] += axk.apply_launches
+        launches["resolve"][path[0]] += axk.resolve_launches
+        launches["cell_merge"][path[0]] += cmk.launches
+        capture[0] = False
+
+    parts = collections.defaultdict(float)
+    timing_on = [False]
+
+    def time_parts(e):
+        """Host seconds by part of the columnar cell route."""
+        def wrap(obj, name, part):
+            fn = getattr(obj, name)
+
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    if timing_on[0]:
+                        parts[part] += time.perf_counter() - t0
+            setattr(obj, name, timed)
+        wrap(e, "_sequence_columnar", "sequencing")
+        wrap(e, "_cell_resolve", "resolve (planes, launch)")
+        wrap(e, "_fww_filter_columnar", "fww_filter")
+        wrap(e.store, "apply_batch_columnar", "cell_merge")
+        wrap(e, "_cell_record", "log")
+
+    result_fn = ak.PendingResolve.result
+
+    def timed_result(self):
+        t0 = time.perf_counter()
+        try:
+            return result_fn(self)
+        finally:
+            if timing_on[0]:
+                parts["resolve (wait)"] += time.perf_counter() - t0
+
+    def engine(device, n_docs, cell_capacity, axis_capacity):
+        return MatrixServingEngine(
+            n_docs=n_docs, cell_capacity=cell_capacity,
+            axis_capacity=axis_capacity, batch_window=10 ** 9,
+            sequencer="native", device=device)
+
+    def submit_all(e, items):
+        """Per-op submits (doc, client, clientSeq, ref_seq, op); none may
+        be nacked."""
+        for d, c, cs, ref, op in items:
+            _, nack = e.submit(d, c, cs, ref, op)
+            if nack is not None:
+                raise AssertionError(f"{d}: {op} nacked ({nack})")
+
+    def ingest(e, batch):
+        nacked = e.ingest_cells(*batch)["nacked"]
+        if nacked:
+            raise AssertionError(f"cell ingest: {nacked} nacks")
+
+    def same(card, cpu, docs, lists):
+        """The card engine against its CPU twin: dims, axis planes (all
+        slots), the cell table, sampled cells, and to_lists of ``lists``."""
+        for d in docs:
+            if card.dims(d) != cpu.dims(d):
+                raise AssertionError(f"{d}: dims differ from CPU")
+        for k in mt.FIELDS:
+            if not torch.equal(getattr(card.axis_store.state, k).cpu(),
+                               getattr(cpu.axis_store.state, k)):
+                raise AssertionError(f"axis plane {k} differs from CPU")
+        n = int(cpu.store.state.count)
+        if int(card.store.state.count) != n or \
+                card.store.digest() != cpu.store.digest():
+            raise AssertionError("cell table count / digest differ")
+        for k in mxk.PLANES:
+            if not torch.equal(getattr(card.store.state, k)[:n].cpu(),
+                               getattr(cpu.store.state, k)[:n]):
+                raise AssertionError(f"cell plane {k} differs from CPU")
+        probe(card, cpu, docs)
+        for d in lists:
+            if card.to_lists(d) != cpu.to_lists(d):
+                raise AssertionError(f"{d}: to_lists differs from CPU")
+
+    def probe(a, b, docs):
+        prng = np.random.default_rng(11)
+        dims = {d: a.dims(d) for d in docs}
+        for i in range(samples):
+            d = docs[i % len(docs)]
+            nr, nc = dims[d]
+            r, c = int(prng.integers(0, nr)), int(prng.integers(0, nc))
+            if a.get_cell(d, r, c) != b.get_cell(d, r, c):
+                raise AssertionError(f"{d}: get_cell({r}, {c}) differs")
+
+    def storm(docs, cs, grid, n_per_doc, clients, refs):
+        """``n_per_doc`` setCells per doc, docs interleaved, clients in
+        turn, every client at the doc's ref ``refs[d]``."""
+        ids = [d for _ in range(n_per_doc) for d in docs]
+        cl = [clients[i % len(clients)] for i in range(n_per_doc)
+              for _ in docs]
+        cseq = []
+        for d, c in zip(ids, cl):
+            cs[d, c] += 1
+            cseq.append(cs[d, c])
+        n = len(ids)
+        return (ids, cl, cseq, [refs[d] for d in ids],
+                rng.integers(0, grid, n).tolist(),
+                rng.integers(0, grid, n).tolist(),
+                rng.integers(0, 1 << 20, n).tolist())
+
+    ak.apply_axis_batch_fused, ak.resolve_axis_fused = keep_apply, \
+        keep_resolve
+    ak.PendingResolve.result = timed_result
+    try:
+        # (a) config #3's serving shape: the reference bench's grid storms
+        docs_a_ids = [f"mx-{i}" for i in range(docs_a)]
+        eng_a = engine(dev, docs_a, MX_CELL_CAP_A, MX_AXIS_CAP_A)
+        cpu_a = engine("cpu", docs_a, MX_CELL_CAP_A, MX_AXIS_CAP_A)
+        if type(eng_a.deli).__name__ != "NativeDeliAdapter":
+            raise AssertionError("matrix serving must run the native "
+                                 "sequencer")
+        time_parts(eng_a)
+        cs_a = collections.Counter()   # clientSeqs by (doc, client)
+        setup = []
+        for d in docs_a_ids:
+            for e in (eng_a, cpu_a):
+                e.connect(d, 7)
+            for mx in ("insRow", "insCol"):
+                cs_a[d, 7] += 1
+                setup.append((d, 7, cs_a[d, 7], 0,
+                              {"mx": mx, "pos": 0, "count": grid_a,
+                               "opKey": (7, cs_a[d, 7])}))
+        begin("(a) setup: per-op inserts, one flush")
+        submit_all(eng_a, setup)
+        eng_a.flush()
+        end()
+        submit_all(cpu_a, setup)
+        cpu_a.flush()
+        zero = {d: 0 for d in docs_a_ids}
+        a_batches = [storm(docs_a_ids, cs_a, grid_a, 64, [7], zero)
+                     for _ in range(storms_a + 1)]
+        begin("(a) ingest_cells storms")
+        ingest(eng_a, a_batches[0])                 # warm-up
+        eng_a.dims(docs_a_ids[0])
+        timing_on[0] = True
+        t0 = time.perf_counter()
+        for b in a_batches[1:]:
+            ingest(eng_a, b)
+        eng_a.dims(docs_a_ids[0])      # end sync: harvests the newest
+        a_s = time.perf_counter() - t0
+        timing_on[0] = False
+        end()
+        parts["other"] = a_s - sum(parts.values())
+        a_parts = dict(parts)
+        parts.clear()
+        for b in a_batches:
+            ingest(cpu_a, b)
+
+        # (c) per-op concurrent waves on (a)'s engine
+        clients = (7, 8, 9, 10)
+        refs_c, seq_a = {}, {}
+        for d in docs_a_ids:
+            for c in clients[1:]:
+                for e in (eng_a, cpu_a):
+                    s = e.connect(d, c).seq
+                seq_a[d] = s
+            for c in clients:
+                refs_c[d, c] = seq_a[d]
+        wave_s = []
+        min_axis_ops = None   # real ops of the emptiest axis row a flush
+        for w in range(waves):
+            items = []
+            dims = {d: eng_a.dims(d) for d in docs_a_ids}
+            for i in range(wave_ops):
+                for di, d in enumerate(docs_a_ids):
+                    c = clients[int(rng.integers(0, 4))]
+                    cs_a[d, c] += 1
+                    refs_c[d, c] = max(refs_c[d, c],
+                                       seq_a[d] - int(rng.integers(0, 17)))
+                    nr, nc = dims[d]
+                    roll = rng.random()
+                    if w == 0 and i == 0 and di % 4 == 0:
+                        op = {"mx": "policy"}
+                    elif roll < 0.82:
+                        op = {"mx": "setCell",
+                              "row": int(rng.integers(0, nr)),
+                              "col": int(rng.integers(0, nc)),
+                              "value": f"{d}/{w}/{i}"}
+                    elif roll < 0.91:
+                        ax = "insRow" if roll < 0.865 else "insCol"
+                        op = {"mx": ax, "pos": int(rng.integers(
+                            0, (nr if ax == "insRow" else nc) + 1)),
+                            "count": int(rng.integers(1, 3)),
+                            "opKey": (c, 1000 * w + i)}
+                    else:
+                        ax = "rmRow" if roll < 0.955 else "rmCol"
+                        n = nr if ax == "rmRow" else nc
+                        op = {"mx": ax,
+                              "start": int(rng.integers(0, n - 2)),
+                              "count": 1}
+                    items.append((d, c, cs_a[d, c], refs_c[d, c], op))
+                    seq_a[d] += 1
+            per_axis = collections.Counter()
+            for d, _, _, _, op in items:
+                mx = op["mx"]
+                for a, hit in ((0, ("setCell", "insRow", "rmRow")),
+                               (1, ("setCell", "insCol", "rmCol"))):
+                    per_axis[d, a] += mx in hit
+            least = min(per_axis[d, a] for d in docs_a_ids for a in (0, 1))
+            min_axis_ops = least if min_axis_ops is None else min(
+                min_axis_ops, least)
+            begin("(c) per-op concurrent waves")
+            t0 = time.perf_counter()
+            submit_all(eng_a, items)
+            eng_a.flush()
+            end()
+            wave_s.append(time.perf_counter() - t0)
+            submit_all(cpu_a, items)
+            cpu_a.flush()
+        same(eng_a, cpu_a, docs_a_ids, docs_a_ids)
+
+        # (b) config #3's grid in one doc
+        eng_b = engine(dev, 1, grid_b * grid_b + ops_b, grid_b)
+        cpu_b = engine("cpu", 1, grid_b * grid_b + ops_b, grid_b)
+        time_parts(eng_b)
+        doc = "mx-grid"
+        bclients = (1, 2, 3, 4)
+        seq_b = 0
+        refs_b = {}
+        for c in bclients:
+            for e in (eng_b, cpu_b):
+                seq_b = e.connect(doc, c).seq
+            refs_b[c] = seq_b
+        run_len = grid_b // 64
+        axes = {"insRow": [], "insCol": []}   # (seq, client) per insert
+        items, cs_b = [], collections.Counter()   # by (doc, client)
+        for i in range(128):
+            ax = ("insRow", "insCol")[i % 2]
+            c = bclients[int(rng.integers(0, 4))]
+            refs_b[c] = max(refs_b[c], seq_b - int(rng.integers(0, 17)))
+            seen = sum(1 for s, cl in axes[ax]
+                       if s <= refs_b[c] or cl == c)
+            cs_b[doc, c] += 1
+            seq_b += 1
+            items.append((doc, c, cs_b[doc, c], refs_b[c],
+                          {"mx": ax,
+                           "pos": int(rng.integers(0, seen * run_len + 1)),
+                           "count": run_len, "opKey": (c, cs_b[doc, c])}))
+            axes[ax].append((seq_b, c))
+        begin("(b) axis build: 128 concurrent inserts, one flush")
+        submit_all(eng_b, items)
+        eng_b.flush()
+        end()
+        submit_all(cpu_b, items)
+        cpu_b.flush()
+        if eng_b.dims(doc) != (grid_b, grid_b):
+            raise AssertionError(f"grid is {eng_b.dims(doc)}")
+        refs_all = {doc: seq_b}
+        b_batches = [storm([doc], cs_b, grid_b, ops_b, bclients, refs_all)
+                     for _ in range(storms_b)]
+        begin("(b) ingest_cells storms")
+        timing_on[0] = True
+        t0 = time.perf_counter()
+        for b in b_batches:
+            ingest(eng_b, b)
+        eng_b.dims(doc)
+        b_s = time.perf_counter() - t0
+        timing_on[0] = False
+        end()
+        parts["other"] = b_s - sum(parts.values())
+        b_parts = dict(parts)
+        parts.clear()
+        t0 = time.perf_counter()
+        for b in b_batches:
+            ingest(cpu_b, b)
+        cpu_b.dims(doc)
+        b_cpu_s = time.perf_counter() - t0
+        same(eng_b, cpu_b, [doc], [])
+
+        # summaries: full, more ops, incremental; load both on the card
+        begin("summaries and loads")
+        reloads = []
+        for e, docs, more in (
+                (eng_a, docs_a_ids, lambda e: storm(
+                    docs_a_ids, cs_a, grid_a, 8, [7],
+                    {d: e.deli.doc_seq(d) for d in docs_a_ids})),
+                (eng_b, [doc], lambda e: storm(
+                    [doc], cs_b, grid_b, min(ops_b, 4096), bclients,
+                    {doc: e.deli.doc_seq(doc)}))):
+            full = e.summarize()
+            ingest(e, more(e))
+            inc = e.summarize(incremental=True)
+            if inc.get("kind") != "delta":
+                raise AssertionError("the second summary is not a delta")
+            ingest(e, more(e))   # a log tail past both summaries
+            for s in (full, inc):
+                back = MatrixServingEngine.load(s, e.log, device=dev,
+                                                sequencer="native")
+                reloads.append((e, back, docs))
+        end()
+        for e, back, docs in reloads:
+            for d in docs:
+                if back.dims(d) != e.dims(d):
+                    raise AssertionError(f"{d}: reloaded dims differ")
+            if back.store.read_cells() != e.store.read_cells():
+                raise AssertionError("reloaded cells differ from live")
+            probe(back, e, docs)
+            if len(docs) > 1:
+                for d in docs:
+                    if back.to_lists(d) != e.to_lists(d):
+                        raise AssertionError(f"{d}: reload to_lists")
+    finally:
+        ak.apply_axis_batch_fused, ak.resolve_axis_fused = fused_apply, \
+            fused_resolve
+        ak.PendingResolve.result = result_fn
+
+    if on_card:
+        if launches["resolve"]["(b) ingest_cells storms"] != storms_b:
+            raise AssertionError("(b) storms: one K4 launch each expected")
+        if launches["apply"]["(c) per-op concurrent waves"] < waves:
+            raise AssertionError("(c) waves: K3 not launched every flush")
+        for kind in ("apply", "resolve"):
+            if sum(launches[kind].values()) <= 0:
+                raise AssertionError(f"axis {kind} kernel never launched")
+    if wave_ops >= MX_WAVE_OPS and min_axis_ops < 64:
+        raise AssertionError(f"(c): an axis row got {min_axis_ops} ops")
+
+    # every card launch of the paths against the plain version
+    err = {"apply": 0, "resolve": 0}
+
+    def diff(a, b):
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    for tag, before, ops, after, run, off in calls["apply"]:
+        ref, rr, ro = ak.apply_axis_batch(before, *ops)
+        e = max([diff(getattr(after, k), getattr(ref, k))
+                 for k in mt.FIELDS] + [diff(run, rr), diff(off, ro)])
+        err["apply"] = max(err["apply"], e)
+    for tag, st, (kind, pos, client, ref), run, off in calls["resolve"]:
+        rr, ro = ak.resolve_axis_positions(st, pos, client, ref)
+        is_res = kind == RESOLVE
+        e = max(diff(run, torch.where(is_res, rr, -1)),
+                diff(off, torch.where(is_res, ro, -1)))
+        err["resolve"] = max(err["resolve"], e)
+    if err["apply"] or err["resolve"]:
+        raise AssertionError(f"axis kernels != plain: {err}")
+
+    # timing, on the largest launch of (c) (K3) and of (b) (K4)
+    rows = {"apply": [], "resolve": []}
+
+    def events_ms(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        z.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(z), out
+
+    def time_apply(tag, before, ops):
+        work = _axis_clone(before)
+
+        def copy():
+            for k, v in work.fields().items():
+                v.copy_(getattr(before, k))
+
+        def run():
+            copy()
+            fused_apply(work, *ops)
+
+        t = {"ms": graph_ms(run, 20) - graph_ms(copy, 20),
+             "call_ms": timed_events(run, 10) - timed_events(copy, 10)}
+        plain_ms, (ref, _, _) = events_ms(
+            lambda: ak.apply_axis_batch(before, *ops))
+        run()
+        torch.cuda.synchronize()
+        e = max(diff(getattr(work, k), getattr(ref, k)) for k in mt.FIELDS)
+        D, S = before.seq.shape
+        O = ops[0].shape[1]
+        real = (ops[0] != NOOP).sum(dim=1).long()
+        hi_in, hi_out = _live_extent(before), _live_extent(ref)
+        nbytes = int(7 * 4 * (hi_in + hi_out).sum()) + 4 * 4 * D + \
+            _axis_op_bytes(ops[0]) + 2 * 4 * D * O
+        n_ops = int((real * (before.count.long() + ref.count.long())
+                     ).sum()) // 2
+        b_ms, b_by = work_bound(nbytes, n_ops)
+        rows["apply"].append({"spec": tag, "D": D, "S": S, "O": O, **t,
+                              "plain_ms": plain_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "bytes": nbytes,
+                              "int_ops": n_ops, "max_abs_err": e,
+                              "mean_count": float(before.count.float()
+                                                  .mean())})
+
+    def time_resolve(tag, st, ops):
+        kind, pos, client, ref = ops
+        fn = lambda: fused_resolve(st, *ops)  # noqa: E731
+        t = {"ms": graph_ms(fn, 20), "call_ms": timed_events(fn, 10)}
+        plain_ms, (rr, ro) = events_ms(
+            lambda: ak.resolve_axis_positions(st, pos, client, ref))
+        run, off = fn()
+        is_res = kind == RESOLVE
+        e = max(diff(run, torch.where(is_res, rr, -1)),
+                diff(off, torch.where(is_res, ro, -1)))
+        D, S = st.seq.shape
+        O = kind.shape[1]
+        nbytes = _axis_op_bytes(torch.where(is_res, RESOLVE, NOOP)) + \
+            2 * 4 * D * O + 7 * 4 * int(st.count.long().sum()) + 4 * D
+        n_ops = _resolve_walk(st, kind, pos, client, ref)
+        b_ms, b_by = work_bound(nbytes, n_ops)
+        rows["resolve"].append({"spec": tag, "D": D, "S": S, "O": O, **t,
+                                "plain_ms": plain_ms, "bound_ms": b_ms,
+                                "bound_by": b_by, "bytes": nbytes,
+                                "int_ops": n_ops,
+                                "resolves": int(is_res.sum()),
+                                "max_abs_err": e})
+
+    if on_card:
+        def largest(kind, tag):
+            """The path's widest launch (the last of equal widths)."""
+            c = [x for x in calls[kind] if x[0] == tag]
+            return max(reversed(c), key=lambda x: x[2][0].numel()) \
+                if c else None
+
+        for tag in ("(c) per-op concurrent waves",
+                    "(b) axis build: 128 concurrent inserts, one flush",
+                    "(a) setup: per-op inserts, one flush"):
+            x = largest("apply", tag)
+            if x is not None:
+                time_apply(tag, x[1], x[2])
+        for tag in ("(b) ingest_cells storms", "(a) ingest_cells storms"):
+            x = largest("resolve", tag)
+            if x is not None:
+                time_resolve(tag, x[1], x[2])
+        for kind in ("apply", "resolve"):
+            err[kind] = max([err[kind]] + [r["max_abs_err"]
+                                           for r in rows[kind]])
+        if err["apply"] or err["resolve"]:
+            raise AssertionError(f"axis kernels != plain after timing: "
+                                 f"{err}")
+    del calls
+
+    n_a = storms_a * docs_a * 64
+    n_b = storms_b * ops_b
+    emit({"phase": "matrix_engine",
+          "a": {"docs": docs_a, "grid": [grid_a, grid_a],
+                "cell_capacity": MX_CELL_CAP_A,
+                "axis_capacity": MX_AXIS_CAP_A, "storms": storms_a,
+                "ops_per_storm": docs_a * 64, "ops_per_s": n_a / a_s,
+                "storms_s": a_s, "seconds_by_part": a_parts},
+          "b": {"docs": 1, "grid": [grid_b, grid_b],
+                "cell_capacity": grid_b * grid_b + ops_b,
+                "axis_capacity": grid_b, "storms": storms_b,
+                "ops_per_storm": ops_b, "ops_per_s": n_b / b_s,
+                "storms_s": b_s, "cpu_twin_storms_s": b_cpu_s,
+                "live_cells": int(eng_b.store.state.count),
+                "seconds_by_part": b_parts},
+          "c": {"waves": waves, "ops_per_doc_per_flush": wave_ops,
+                "clients_per_doc": 4, "fww_docs": (docs_a + 3) // 4,
+                "min_real_ops_per_axis_row": min_axis_ops,
+                "wave_s": wave_s},
+          "nacked": 0, "engines_equal_cpu": True, "reloads_equal_live": 4,
+          "sampled_cells_per_check": samples,
+          "launches": {k: dict(v) for k, v in launches.items()},
+          "max_abs_err": err, "timing": rows,
+          "total_s": time.perf_counter() - t_phase, "card": smi})
+
+    def entry(kind, name, replaces, main):
+        m = main or {}
+        return {"name": name, "route": "cuda",
+                "source": "fluidframework_tpu_torch/csrc/axis_apply.cu",
+                "replaces": replaces,
+                "launches": sum(launches[kind].values()),
+                "launches_by_path": dict(launches[kind]),
+                "max_abs_err": err[kind],
+                "ms": m.get("ms"), "plain_ms": m.get("plain_ms"),
+                "bound_ms": m.get("bound_ms"),
+                "bound_by": m.get("bound_by"), "library_ms": None,
+                "shape": {k: m.get(k) for k in ("D", "S", "O", "spec")},
+                "specialisations": rows[kind]}
+
+    return (entry("apply", "axis_apply",
+                  "fluidframework_tpu/ops/axis_kernel.py:62",
+                  rows["apply"][0] if rows["apply"] else None),
+            entry("resolve", "axis_resolve",
+                  "fluidframework_tpu/ops/axis_kernel.py:114",
+                  rows["resolve"][0] if rows["resolve"] else None))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1210,6 +1854,8 @@ def main() -> int:
     map_entry = map_phase(smi, dev)
     torch.cuda.empty_cache()
     cell_entry = matrix_phase(smi, dev)
+    torch.cuda.empty_cache()
+    axis_entries = matrix_engine_phase(smi, dev)
 
     main_t = timing[("no-props+compact", S_SERVE, "chained")]
     print(smi, flush=True)
@@ -1230,7 +1876,7 @@ def main() -> int:
             {"spec": name, "S": S, "state": state, **t}
             for (name, S, state), t in timing.items()] + rebuild_rows,
         "total_s": time.perf_counter() - t_start,
-    }, map_entry, cell_entry]})
+    }, map_entry, cell_entry, *axis_entries]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

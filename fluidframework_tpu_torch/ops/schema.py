@@ -133,3 +133,17 @@ class ValueInterner:
         for v in values[1:]:
             it.handle(v)
         return it
+
+
+def positions_in_doc(rows):
+    """Per-record position among its doc's records (flat order preserved
+    per doc); returns (pos, widest_doc_count)."""
+    rows = np.asarray(rows)
+    order = np.argsort(rows, kind="stable")
+    r_sorted = rows[order]
+    starts = np.r_[0, np.flatnonzero(np.diff(r_sorted)) + 1]
+    sizes = np.diff(np.r_[starts, len(r_sorted)])
+    pos_sorted = np.arange(len(r_sorted)) - np.repeat(starts, sizes)
+    pos = np.empty_like(pos_sorted)
+    pos[order] = pos_sorted
+    return pos, (int(sizes.max()) if len(sizes) else 0)

@@ -1,6 +1,7 @@
 """The replica serving engines: sequencer + partitioned log + batched device
-merge, for many SharedString documents (``StringServingEngine``) or many
-SharedMap documents (``MapServingEngine``).
+merge, for many SharedString documents (``StringServingEngine``), SharedMap
+documents (``MapServingEngine``) or SharedMatrix documents
+(``MatrixServingEngine``).
 
 Reference counterpart: the Routerlicious pipeline around the op-merge hot
 path — Alfred ingress → Deli sequencing → Kafka → broadcast — with the
@@ -44,8 +45,10 @@ import torch
 
 from ..core.protocol import MessageType, SequencedDocumentMessage
 from ..ops import string_kernel
+from ..ops.axis_kernel import TensorAxisStore
 from ..ops.map_kernel import TensorMapStore, pack_map_batch, refuse_mesh
-from ..ops.schema import OpKind
+from ..ops.matrix_kernel import TensorMatrixStore, tuple_key
+from ..ops.schema import OpKind, positions_in_doc
 from ..ops.string_store import TensorStringStore
 from .deli import DeliSequencer, Nack, NackReason
 from .oplog import OplogCorruptionError, PartitionedLog, partition_of
@@ -163,8 +166,9 @@ class ColumnarOps:
     one object per op. ``family`` names the op dialect ``expand`` rebuilds:
     "str" (merge-tree ops; payloads are the broadcast ``text``, or per-op
     ``texts`` + ``tidx``, and annotate slots index the single-key ``props``
-    table through ``tidx``) or "map" (set/delete/clear: ``a0`` indexes the
-    ``keys`` table, ``a1`` the ``values`` table)."""
+    table through ``tidx``), "map" (set/delete/clear: ``a0`` indexes the
+    ``keys`` table, ``a1`` the ``values`` table) or "ops" (generic op dicts:
+    ``a0`` indexes the ``values`` table, which holds each op's contents)."""
 
     doc_ids: List[str]          # row-local doc-id table
     doc: np.ndarray             # (N,) index into doc_ids
@@ -206,7 +210,10 @@ class ColumnarOps:
                     else np.asarray(self.tidx)[idxs].tolist())
         out = []
         for doc, cl, cs, rs, sq, ms, k, a0, a1, ti in zip(*cols):
-            if self.family == "map":
+            if self.family == "ops":
+                # generic op-dict batch: contents ride the values table
+                contents = self.values[a0]
+            elif self.family == "map":
                 if k == OpKind.MAP_CLEAR:
                     contents = {"op": "clear"}
                 elif k == OpKind.MAP_DELETE:
@@ -417,7 +424,7 @@ class ServingEngineBase:
             return None, Nack(doc_id, client_id, client_seq,
                               NackReason.MALFORMED)
         try:
-            self._admit(doc_id, contents)
+            self._admit(doc_id, contents, client_id)
         except KeyError:
             return None, Nack(doc_id, client_id, client_seq,
                               NackReason.CAPACITY)
@@ -451,7 +458,8 @@ class ServingEngineBase:
     def _is_nat(v, lo: int = 0) -> bool:
         return isinstance(v, int) and not isinstance(v, bool) and v >= lo
 
-    def _admit(self, doc_id: str, contents: Any) -> None:
+    def _admit(self, doc_id: str, contents: Any,
+               client_id: int = -1) -> None:
         """Reserve the capacity the op will need at flush; KeyError → the
         op is nacked before it is logged."""
         self.doc_row(doc_id)
@@ -589,8 +597,8 @@ class ServingEngineBase:
     def _replay_tail(self, summary: dict) -> None:
         """Replay every tail message through the sequencer (so sequencing
         resumes past the tail), the member set and the dedup ledger; OPs
-        queue for the device merge. Columnar records of either family
-        ("str" or "map") expand to their per-op messages, which the
+        queue for the device merge. Columnar records of any family
+        ("str", "map" or "ops") expand to their per-op messages, which the
         engine's own ``_flush_impl`` applies. The tail is sorted by (doc,
         seq): columnar records round-robin across partitions while
         JOIN/LEAVE stay in the doc's own partition, so the scan order is
@@ -714,7 +722,8 @@ class StringServingEngine(ServingEngineBase):
                         contents.get("props"), required=True)))
         return False
 
-    def _admit(self, doc_id: str, contents: Any) -> None:
+    def _admit(self, doc_id: str, contents: Any,
+               client_id: int = -1) -> None:
         """Row + property-plane reservation (in the doc's own store once
         it graduated), refunded by ``_unadmit``."""
         if doc_id not in self._graduated:  # a graduated doc holds no row
@@ -1416,7 +1425,8 @@ class MapServingEngine(ServingEngineBase):
                 return False
         return True
 
-    def _admit(self, doc_id: str, contents: Any) -> None:
+    def _admit(self, doc_id: str, contents: Any,
+               client_id: int = -1) -> None:
         """Row and key-slot reservation: a key-capacity KeyError becomes a
         CAPACITY nack before the op is logged."""
         row = self.doc_row(doc_id)
@@ -1485,6 +1495,635 @@ class MapServingEngine(ServingEngineBase):
         engine = cls(store.n_docs, store.n_keys, log=log, store=store,
                      **kwargs)
         engine._restore_base(summary)
+        engine._replay_tail(summary)
+        engine.flush()
+        return engine
+
+
+class MatrixServingEngine(ServingEngineBase):
+    """Sequencer + log + device merge for SharedMatrix documents, on
+    ``device`` (default the card; ``device="cpu"`` runs the plain
+    versions). Ops are the matrix wire dicts {"mx": "insRow" | "insCol" |
+    "rmRow" | "rmCol" | "setCell" | "policy", ...}.
+
+    The permutation state (row / col axes) lives in ``TensorAxisStore`` (2
+    axis rows per doc) and position→key resolution at each op's (ref_seq,
+    client) perspective happens inside the device scan that applies the
+    axis mutations (the ``AXIS_RESOLVE`` op): one dispatch and one
+    device→host read per flush. Cell writes merge into the sort-based
+    cell table (``TensorMatrixStore``), shared across documents by
+    interning (doc, rowKey, colKey) identities.
+
+    FWW fidelity: the DDS's first-writer-wins rejects a write only when
+    the writer had NOT seen the current value and is not its author. The
+    engine tracks per-cell (seq, writer) host-side and filters FWW losers
+    on the resolved key stream before the cell apply; the device always
+    merges LWW, and the surviving stream's latest write is the DDS's
+    answer. ``store`` / ``axis_store`` adopt existing stores (``load``);
+    ``mesh`` is refused (ROADMAP B9)."""
+
+    _MX = {"insRow", "insCol", "rmRow", "rmCol", "setCell", "policy"}
+
+    #: latest-view perspective for reads (every acked op visible)
+    _READ_REF = 1 << 30
+
+    # structural bound on one axis op (an insert allocates count slots on
+    # the axis: an unbounded count is a memory-exhaustion vector)
+    MAX_AXIS_COUNT = 1 << 20
+
+    def __init__(self, n_docs: int, cell_capacity: int = 1 << 16,
+                 batch_window: int = 64, n_partitions: int = 8,
+                 log: Optional[PartitionedLog] = None,
+                 store: Optional[TensorMatrixStore] = None,
+                 axis_capacity: int = 256,
+                 axis_store: Optional[TensorAxisStore] = None,
+                 sequencer: str = "python", device="cuda", mesh=None):
+        refuse_mesh(mesh)
+        self.store = store if store is not None \
+            else TensorMatrixStore(cell_capacity, device=device)
+        self.axis_store = axis_store if axis_store is not None \
+            else TensorAxisStore(n_docs, axis_capacity, device)
+        super().__init__(n_docs, batch_window, n_partitions, log=log,
+                         sequencer=sequencer)
+        self._fww: Dict[int, bool] = {}
+        # per-doc {cell: (seq, writer)}: the FWW visibility metadata
+        self._cell_meta: Dict[int, Dict] = {}
+        self._pending_setcells = 0  # queued setCells (capacity reservation)
+        # deferred cell-ingest batches awaiting their resolve harvest
+        self._pending_cells: List[dict] = []
+        self._pending_cell_count = 0
+        # conservative per-axis slot usage bound (each admitted axis op
+        # adds at most 2 slots: an insert, or a remove's two splits);
+        # re-based to the measured device counts at every compact()
+        self._axis_used = np.zeros(2 * n_docs, np.int64)
+
+    def _valid_op(self, contents: Any) -> bool:
+        """Full structural validation BEFORE sequencing and logging: every
+        field the flush path touches must have the type and range it
+        assumes (a logged op that raises in flush poisons the engine and
+        its recovery replay)."""
+        if not (isinstance(contents, dict)
+                and contents.get("mx") in self._MX):
+            return False
+        mx = contents["mx"]
+        if mx in ("insRow", "insCol"):
+            key = contents.get("opKey")
+            return (self._is_nat(contents.get("pos"))
+                    and self._is_nat(contents.get("count"), 1)
+                    and contents["count"] <= self.MAX_AXIS_COUNT
+                    and isinstance(key, (list, tuple)) and len(key) == 2
+                    and all(self._is_nat(k, -(1 << 62)) for k in key)
+                    and self._is_nat(contents.get("off", 0)))
+        if mx in ("rmRow", "rmCol"):
+            return (self._is_nat(contents.get("start"))
+                    and self._is_nat(contents.get("count"), 1))
+        if mx == "setCell":
+            if not (self._is_nat(contents.get("row"))
+                    and self._is_nat(contents.get("col"))):
+                return False
+            try:
+                json.dumps(contents.get("value"))
+                return True
+            except (TypeError, ValueError):
+                return False
+        return True  # policy
+
+    def _admit(self, doc_id: str, contents: Any,
+               client_id: int = -1) -> None:
+        row = self.doc_row(doc_id)
+        if client_id >= 0 and contents["mx"] != "policy":
+            # per-axis client capacity (MAX_CLIENTS): mint now so an op
+            # that cannot be applied is CAPACITY-nacked, never acked
+            self.axis_store.client(2 * row, client_id)
+            self.axis_store.client(2 * row + 1, client_id)
+        if contents["mx"] in ("insRow", "insCol", "rmRow", "rmCol"):
+            # axis rows are fixed-capacity: an acked axis op the kernel
+            # must drop (sticky overflow) would corrupt dims and cells, so
+            # nack when the conservative bound says it may not fit
+            axis = 2 * row + (1 if contents["mx"].endswith("Col") else 0)
+            if self._axis_used[axis] + 2 > self.axis_store.capacity:
+                raise KeyError("axis slot capacity exhausted")
+            self._axis_used[axis] += 2
+        if contents["mx"] == "setCell":
+            # distinct interned identities never shrink and each queued
+            # setCell (or deferred columnar write) may mint one more: past
+            # this bound the table would drop acked live cells
+            if not self.store.conservative_room(
+                    self._pending_setcells + self._pending_cell_count):
+                raise KeyError("cell table capacity exhausted")
+            self._pending_setcells += 1
+
+    # ----------------------------------------------------------- device side
+
+    @staticmethod
+    def _mixed(op_key) -> int:
+        """The oracle's run identity mix (``opKey[0] · 1000003 +
+        opKey[1]``)."""
+        return op_key[0] * 1_000_003 + op_key[1]
+
+    def _flush_impl(self) -> int:
+        """Batch the window into per-axis-row op planes (axis mutations AND
+        setCell position resolves in one scan), then FWW-filter the
+        resolved key stream and merge the surviving cell writes. Deferred
+        columnar cell batches harvest first (they were sequenced before
+        anything in this queue)."""
+        self._harvest_cells()
+        n = len(self._queue)
+        if not n:
+            return n
+        self._queue.sort(key=lambda dm: dm[1].seq)
+        per_axis: Dict[int, list] = {}
+        setcells = []  # (row, msg, r_slot, c_slot)
+        dropped = set()
+        for row, msg in self._queue:
+            op = msg.contents
+            mx = op["mx"]
+            self._fww.setdefault(row, False)
+            self._cell_meta.setdefault(row, {})
+            ar, ac = 2 * row, 2 * row + 1
+            try:
+                self.axis_store.client(ar, msg.client_id)
+                self.axis_store.client(ac, msg.client_id)
+            except KeyError:
+                dropped.add(id(msg))  # per-axis client capacity
+                continue
+            if mx in ("insRow", "insCol"):
+                axis = ar if mx == "insRow" else ac
+                run = self.axis_store.run_handle(
+                    self._mixed(tuple(op["opKey"])), op.get("off", 0))
+                per_axis.setdefault(axis, []).append(
+                    (int(OpKind.STR_INSERT), op["pos"], op["count"], run,
+                     msg.seq, self.axis_store.client(axis, msg.client_id),
+                     msg.ref_seq))
+            elif mx in ("rmRow", "rmCol"):
+                axis = ar if mx == "rmRow" else ac
+                per_axis.setdefault(axis, []).append(
+                    (int(OpKind.STR_REMOVE), op["start"],
+                     op["start"] + op["count"], 0, msg.seq,
+                     self.axis_store.client(axis, msg.client_id),
+                     msg.ref_seq))
+            elif mx == "setCell":
+                rl = per_axis.setdefault(ar, [])
+                cl = per_axis.setdefault(ac, [])
+                rl.append((int(OpKind.AXIS_RESOLVE), op["row"], 0, 0,
+                           msg.seq,
+                           self.axis_store.client(ar, msg.client_id),
+                           msg.ref_seq))
+                cl.append((int(OpKind.AXIS_RESOLVE), op["col"], 0, 0,
+                           msg.seq,
+                           self.axis_store.client(ac, msg.client_id),
+                           msg.ref_seq))
+                setcells.append((row, msg, len(rl) - 1, len(cl) - 1))
+            # "policy" flips are applied in the seq-ordered pass below
+        self._pending_setcells = 0
+
+        rh = ro = None
+        if per_axis:
+            rh, ro = self._dispatch_axis(per_axis)
+
+        # seq-ordered pass: policy flips + FWW filter on resolved keys
+        records = []
+        sc_i = 0
+        for row, msg in self._queue:
+            op = msg.contents
+            if id(msg) in dropped:
+                continue
+            if op["mx"] == "policy":
+                self._fww[row] = True
+                continue
+            if op["mx"] != "setCell":
+                continue
+            _, _, rs, cs = setcells[sc_i]
+            sc_i += 1
+            ar, ac = 2 * row, 2 * row + 1
+            if rh[ar, rs] < 0 or rh[ac, cs] < 0:
+                continue  # out of range at the op's perspective: dropped
+            rk = self.axis_store.run_key(int(rh[ar, rs]), int(ro[ar, rs]))
+            ck = self.axis_store.run_key(int(rh[ac, cs]), int(ro[ac, cs]))
+            meta = self._cell_meta[row]
+            cell = (rk, ck)
+            if self._fww[row]:
+                seq, writer = meta.get(cell, (0, None))
+                if seq > msg.ref_seq and writer != msg.client_id:
+                    continue  # FWW: an unseen concurrent write loses
+            meta[cell] = (msg.seq, msg.client_id)
+            records.append(((row, rk), ck, op["value"], msg.seq))
+        self._queue.clear()
+        if records:
+            self.store.apply_batch(records)
+        return n
+
+    def ingest_cells(self, doc_ids: List[str], clients, client_seqs,
+                     ref_seqs, rpos, cpos, values) -> dict:
+        """High-throughput setCell ingest: N raw cell writes (op i targets
+        ``doc_ids[i]`` at row / col positions ``rpos[i]`` / ``cpos[i]``):
+        ONE native sequencing call, one resolve launch (K4) whose host
+        copy is left in flight, ONE whole-batch durable record, and the
+        harvest of every earlier batch (FWW filter on the resolved keys,
+        one cell-table merge). Axis mutations and policy flips go through
+        ``submit``. Requires ``sequencer="native"``. Returns {"seq": (N,)
+        (negative = nack code), "nacked": int}."""
+        self._check_poisoned()
+        raw = getattr(self.deli, "raw", None)
+        if raw is None:
+            raise RuntimeError("cell ingest requires sequencer='native'")
+        n = len(doc_ids)
+        if not (len(clients) == len(client_seqs) == len(ref_seqs)
+                == len(rpos) == len(cpos) == len(values) == n):
+            raise ValueError("batch fields must have equal length")
+        try:  # the log and the value interner both JSON-encode values:
+            json.dumps(values)  # reject unserialisable BEFORE sequencing
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"unserializable cell value: {e}") from None
+        rpos = np.ascontiguousarray(rpos, np.int32)
+        cpos = np.ascontiguousarray(cpos, np.int32)
+        if len(rpos) and (int(rpos.min()) < 0 or int(cpos.min()) < 0):
+            raise ValueError("negative cell position")
+        if self._queue:   # per-op queue first: per-doc seq order holds
+            self.flush()  # (also harvests any deferred cell batches)
+        rows_l = list(map(self._doc_rows.get, doc_ids))
+        if None in rows_l:  # unseen docs: the minting slow path
+            rows = np.fromiter((self.doc_row(d) for d in doc_ids),
+                               np.int32, count=n)
+        else:
+            rows = np.asarray(rows_l, np.int32)
+        if not self.store.conservative_room(
+                n + self._pending_cell_count):
+            raise KeyError("cell table capacity exhausted")
+        client = np.ascontiguousarray(clients, np.int32)
+        # mint axis client slots BEFORE sequencing (a capacity failure
+        # must reject the batch): one interner hit per unique (row, client)
+        for p in np.unique(rows.astype(np.int64) * 4294967296
+                           + (client.astype(np.int64)
+                              & 0xFFFFFFFF)).tolist():
+            row = p >> 32
+            cid = int(np.uint32(p & 0xFFFFFFFF).astype(np.int32))
+            self.axis_store.client(2 * row, cid)
+            self.axis_store.client(2 * row + 1, cid)
+        self._fill_row_handles(np.unique(rows), raw)
+        cseq = np.ascontiguousarray(client_seqs, np.int32)
+        ref = np.ascontiguousarray(ref_seqs, np.int32)
+        out_seq, out_min, nacked, n_ok = self._sequence_columnar(
+            raw, self._row_handle[rows], client, cseq, ref)
+        ok = np.flatnonzero(~nacked)
+        # the CLAMPED ref is what the log records and what recovery
+        # replays: the live resolve and the FWW comparison use it too
+        ref_clamped = self._clamped_ref(ref, out_seq)
+
+        pend = self._cell_resolve(rows, client, rpos, cpos, values, ok,
+                                  out_seq, ref_clamped) if len(ok) else None
+        # the durable record is appended before the deferred harvest
+        self._cell_record(doc_ids, ok, rpos, cpos, values, client, cseq,
+                          ref_clamped, out_seq, out_min)
+        self._min_seq.update(zip(map(doc_ids.__getitem__, ok.tolist()),
+                                 out_min[ok].tolist()))
+        if pend is not None:
+            self._pending_cells.append(pend)
+            self._pending_cell_count += len(pend["rows"])
+        # pipeline: harvest every batch but the newest (its resolve and
+        # its host copy overlap the caller's next batch)
+        self._harvest_cells(keep_newest=True)
+        return {"seq": out_seq, "nacked": int(nacked.sum())}
+
+    def _cell_resolve(self, rows, client, rpos, cpos, values, ok, out_seq,
+                      ref_clamped) -> dict:
+        """ONE mutation-free resolve launch for every accepted op of a cell
+        batch, its host copy left in flight: op i takes entry 2j (its row
+        axis) and 2j+1 (its col axis), and per-axis slot order is op
+        order. Returns the deferred batch for ``_harvest_cells``."""
+        rows_ok = rows[ok].astype(np.int64)
+        k2 = len(ok) * 2
+        axis_arr = np.empty(k2, np.int64)
+        axis_arr[0::2] = 2 * rows_ok
+        axis_arr[1::2] = 2 * rows_ok + 1
+        pos_in_axis, widest = positions_in_doc(axis_arr)
+        o = 8
+        while o < widest:
+            o *= 2
+        d2 = 2 * self.n_docs
+        planes = {name: np.zeros((d2, o), np.int32)
+                  for name in ("kind", "a0", "client", "ref_seq")}
+        planes["kind"][:] = int(OpKind.NOOP)
+        # client slot table: one interner hit per unique (axis, client)
+        cl2 = np.repeat(client[ok].astype(np.int64), 2)
+        uniq, inv = np.unique(axis_arr * (1 << 32) + cl2,
+                              return_inverse=True)
+        lut = np.fromiter(
+            (self.axis_store.client(int(p >> 32), int(p & 0xFFFFFFFF))
+             for p in uniq), np.int32, count=len(uniq))
+        a0 = np.empty(k2, np.int64)
+        a0[0::2] = rpos[ok]
+        a0[1::2] = cpos[ok]
+        planes["kind"][axis_arr, pos_in_axis] = int(OpKind.AXIS_RESOLVE)
+        planes["a0"][axis_arr, pos_in_axis] = a0
+        planes["client"][axis_arr, pos_in_axis] = lut[inv]
+        planes["ref_seq"][axis_arr, pos_in_axis] = np.repeat(
+            ref_clamped[ok], 2)
+        return {
+            "res": self.axis_store.resolve_async(planes),
+            "axis": axis_arr, "pos": pos_in_axis,
+            "rows": rows_ok, "client": client[ok].copy(),
+            "ref": ref_clamped[ok].copy(), "seq": out_seq[ok].copy(),
+            "values": [values[i] for i in ok],
+        }
+
+    def _cell_record(self, doc_ids, ok, rpos, cpos, values, client, cseq,
+                     ref_clamped, out_seq, out_min) -> None:
+        """The whole-batch durable record (family "ops"): it holds the RAW
+        setCells, and recovery replays them through the same resolve +
+        filter path."""
+        id_tab = sorted(set(doc_ids))
+        id_of = {d: i for i, d in enumerate(id_tab)}
+        contents_tab = [{"mx": "setCell", "row": int(rpos[i]),
+                         "col": int(cpos[i]), "value": values[i]}
+                        for i in ok]
+        self._append_columnar(ColumnarOps(
+            id_tab, np.fromiter((id_of[doc_ids[i]] for i in ok), np.int32,
+                                count=len(ok)),
+            client[ok], cseq[ok], ref_clamped[ok], out_seq[ok],
+            out_min[ok], np.zeros(len(ok), np.int32),
+            np.arange(len(ok), dtype=np.int32),
+            np.zeros(len(ok), np.int32),
+            text="", timestamp=self.deli.clock(), family="ops",
+            values=contents_tab))
+
+    def _harvest_cells(self, keep_newest: bool = False) -> None:
+        """Finish deferred cell-ingest batches in FIFO order: wait for
+        their resolve results, run the FWW filter on the resolved keys and
+        merge the survivors. ``keep_newest`` leaves the most recent batch
+        in flight."""
+        limit = len(self._pending_cells) - (1 if keep_newest else 0)
+        for _ in range(max(limit, 0)):
+            pend = self._pending_cells.pop(0)
+            self._pending_cell_count -= len(pend["rows"])
+            try:
+                rh, ro = pend["res"].result()
+            except Exception as e:   # device fault: state may lag the log
+                self._poisoned = f"cell resolve harvest failed: {e!r}"
+                self._pending_cells.clear()
+                raise
+            axis, pos = pend["axis"], pend["pos"]
+            rh2 = rh[axis, pos].astype(np.int64)
+            ro2 = ro[axis, pos].astype(np.int64)
+            hr, hc = rh2[0::2], rh2[1::2]
+            vi = np.flatnonzero((hr >= 0) & (hc >= 0))
+            if not len(vi):  # out of range at perspective: dropped
+                continue
+            # resolved run keys: two gathers over the interned run table
+            mixed, base = self.axis_store.runs_arrays()
+            hr_v, hc_v = hr[vi], hc[vi]
+            rkm, rkb = mixed[hr_v], base[hr_v] + ro2[0::2][vi]
+            ckm, ckb = mixed[hc_v], base[hc_v] + ro2[1::2][vi]
+            rows_v = pend["rows"][vi]
+            seq_v = pend["seq"][vi]
+            cl_v = pend["client"][vi]
+            keep = self._fww_filter_columnar(
+                rows_v, rkm, rkb, ckm, ckb, seq_v, cl_v, pend["ref"][vi])
+            kept = np.flatnonzero(keep)
+            if not len(kept):
+                continue
+            # key tuples built once, for survivors only: they feed the
+            # visibility metadata and the columnar merge
+            rk_pairs = list(zip(rkm[kept].tolist(), rkb[kept].tolist()))
+            ck_pairs = list(zip(ckm[kept].tolist(), ckb[kept].tolist()))
+            rows_l = rows_v[kept].tolist()
+            seq_l = seq_v[kept].tolist()
+            cells = list(zip(rk_pairs, ck_pairs))
+            pairs = list(zip(seq_l, cl_v[kept].tolist()))
+            # per-doc meta write-back in batch order (dict.update keeps
+            # the last write of a cell)
+            ri = rows_v[kept]
+            order = np.argsort(ri, kind="stable")
+            ri_sorted = ri[order]
+            urows = np.unique(ri_sorted)
+            bounds = np.append(np.searchsorted(ri_sorted, urows),
+                               len(ri_sorted))
+            for i, r in enumerate(urows.tolist()):
+                idxs = order[bounds[i]:bounds[i + 1]].tolist()
+                self._cell_meta[r].update(
+                    zip(map(cells.__getitem__, idxs),
+                        map(pairs.__getitem__, idxs)))
+            vals = pend["values"]
+            self.store.apply_batch_columnar(
+                list(zip(rows_l, rk_pairs)), ck_pairs,
+                list(map(vals.__getitem__, vi[kept].tolist())),
+                np.asarray(seq_l, np.int32))
+
+    def _fww_filter_columnar(self, rows, rkm, rkb, ckm, ckb, seqs,
+                             clients, refs) -> np.ndarray:
+        """First-writer-wins over one resolved, per-doc seq-ascending key
+        stream; returns the bool keep mask. An op is dropped when the
+        cell's current meta seq is newer than its ref AND held by another
+        writer; each survivor installs (seq, client) as the new meta (so
+        writes within the batch chain). Cells written once in the batch
+        are judged vectorised against the persistent meta; cells written
+        more than once replay the chain over their own ops."""
+        k = len(rows)
+        urows, row_inv = np.unique(rows, return_inverse=True)
+        fww_flags = np.empty(len(urows), bool)
+        for i, r in enumerate(urows.tolist()):
+            fww_flags[i] = self._fww.setdefault(r, False)
+            self._cell_meta.setdefault(r, {})
+        keep = np.ones(k, bool)
+        fww_op = fww_flags[row_inv]
+        if not fww_op.any():
+            return keep
+        ident = np.empty((k, 5), np.int64)
+        ident[:, 0] = rows
+        ident[:, 1] = rkm
+        ident[:, 2] = rkb
+        ident[:, 3] = ckm
+        ident[:, 4] = ckb
+        _, first, inv, counts = np.unique(
+            np.ascontiguousarray(ident).view([("", np.int64)] * 5).ravel(),
+            return_index=True, return_inverse=True, return_counts=True)
+        # the persistent meta probed once per unique FWW cell
+        nu = len(first)
+        prev_seq = np.zeros(nu, np.int64)
+        prev_writer = np.full(nu, -1, np.int64)  # absent: seq 0 passes
+        ufww = np.flatnonzero(fww_op[first])
+        for t in ufww.tolist():
+            j0 = int(first[t])
+            prev = self._cell_meta[int(rows[j0])].get(
+                ((int(rkm[j0]), int(rkb[j0])),
+                 (int(ckm[j0]), int(ckb[j0]))))
+            if prev is not None:
+                prev_seq[t], prev_writer[t] = prev
+        sing = fww_op & (counts[inv] == 1)
+        keep[sing] = ~((prev_seq[inv][sing] > refs[sing])
+                       & (prev_writer[inv][sing] != clients[sing]))
+        for t in np.intersect1d(ufww, np.flatnonzero(counts > 1)).tolist():
+            cs, cw = int(prev_seq[t]), int(prev_writer[t])
+            for j in np.flatnonzero(inv == t).tolist():
+                if cs > int(refs[j]) and cw != int(clients[j]):
+                    keep[j] = False
+                else:
+                    cs, cw = int(seqs[j]), int(clients[j])
+        return keep
+
+    def _dispatch_axis(self, per_axis: Dict[int, list]):
+        """Dense (2·D, O) planes from per-axis op lists → one launch."""
+        widest = max(len(v) for v in per_axis.values())
+        o = 8
+        while o < widest:
+            o *= 2
+        names = ("kind", "a0", "a1", "a2", "seq", "client", "ref_seq")
+        stack = np.zeros((7, 2 * self.n_docs, o), np.int32)
+        stack[0] = int(OpKind.NOOP)
+        for axis, recs in per_axis.items():
+            stack[:, axis, :len(recs)] = np.array(recs, np.int32).T
+        return self.axis_store.apply(
+            {name: stack[i] for i, name in enumerate(names)})
+
+    def overflowed(self) -> bool:
+        """Sticky device overflow (cell table or an axis row): True means
+        re-bucket with a larger table or axis capacity."""
+        self._harvest_cells()
+        return bool(self.store.overflowed()) or \
+            bool(self.axis_store.overflowed().any())
+
+    def compact(self) -> None:
+        """Zamboni the axes at each doc's window floor; re-base the
+        conservative axis-slot bound to the measured counts."""
+        self.flush()
+        ms = np.zeros((2 * self.n_docs,), np.int32)
+        for doc_id, row in self._doc_rows.items():
+            ms[2 * row] = ms[2 * row + 1] = self._min_seq.get(doc_id, 0)
+        self.axis_store.compact(ms)
+        self._axis_used = self.axis_store.state.count.cpu().numpy().astype(
+            np.int64)
+        super().compact()
+
+    # ----------------------------------------------------------------- reads
+
+    def _resolve_read(self, queries):
+        """Latest-view resolves [(axis_row, pos)] → [(run, off)] in one
+        non-mutating launch."""
+        per_axis: Dict[int, list] = {}
+        slots = []
+        for axis, pos in queries:
+            lst = per_axis.setdefault(axis, [])
+            lst.append((int(OpKind.AXIS_RESOLVE), pos, 0, 0, 0, -1,
+                        self._READ_REF))
+            slots.append((axis, len(lst) - 1))
+        rh, ro = self._dispatch_axis(per_axis)
+        return [(int(rh[a, j]), int(ro[a, j])) for a, j in slots]
+
+    def dims(self, doc_id: str):
+        self.flush()
+        row = self.doc_row(doc_id)
+        lens = self.axis_store.visible_lengths()
+        return int(lens[2 * row]), int(lens[2 * row + 1])
+
+    def get_cell(self, doc_id: str, r: int, c: int):
+        self.flush()
+        row = self.doc_row(doc_id)
+        (hr, orr), (hc, oc) = self._resolve_read(
+            [(2 * row, r), (2 * row + 1, c)])
+        if hr < 0 or hc < 0:
+            raise IndexError(f"cell ({r}, {c}) out of range")
+        return self.store.read_cell(
+            ((row, self.axis_store.run_key(hr, orr)),
+             self.axis_store.run_key(hc, oc)))
+
+    def to_lists(self, doc_id: str):
+        self.flush()
+        row = self.doc_row(doc_id)
+        nr, nc = self.dims(doc_id)
+        res = self._resolve_read(
+            [(2 * row, i) for i in range(nr)] +
+            [(2 * row + 1, j) for j in range(nc)])
+        rkeys = [self.axis_store.run_key(h, off) for h, off in res[:nr]]
+        ckeys = [self.axis_store.run_key(h, off) for h, off in res[nr:]]
+        cells = self.store.read_cells()
+        return [[cells.get(((row, rk), ck)) for ck in ckeys]
+                for rk in rkeys]
+
+    # ----------------------------------------------------- summary / recovery
+
+    def summarize(self, incremental: bool = False) -> dict:
+        """The compacted stores plus the base summary. ``incremental=True``
+        (after a summary of this engine) captures a delta: the dirty docs'
+        axis rows and their FWW / cell metadata, plus the cell pool's live
+        prefix (skipped when no doc is dirty: every merge rewrites the
+        pool, so its delta is the live set) and the append-only identity,
+        value and run tables' new entries; clean rows ride by reference to
+        ``base``. Past ``max_incremental_chain`` deltas it is full again."""
+        self.flush()
+        self.compact()
+        prev = self._summ_bookkeeping
+        summary = self._base_summary()
+        if self._incremental_ok(incremental):
+            dirty_rows, cur_seqs = self._dirty_rows_since(prev)
+            dirty = sorted(dirty_rows)
+            self._mark_delta(summary, prev, cur_seqs)
+            summary["cells_delta"] = self.store.snapshot_delta(
+                prev["mx_bases"]) if dirty else None
+            summary["axis_delta"] = self.axis_store.snapshot_rows(
+                [a for r in dirty for a in (2 * r, 2 * r + 1)],
+                prev["runs_len"])
+            # per-dirty-row host metadata overlays (None = clear)
+            summary["fww_delta"] = {r: self._fww.get(r) for r in dirty}
+            summary["cell_meta_delta"] = {
+                r: (list(self._cell_meta[r].items())
+                    if r in self._cell_meta else None) for r in dirty}
+            self._chain_depth += 1
+        else:
+            summary["kind"] = "full"
+            self._chain_depth = 0
+            summary["store"] = self.store.snapshot()
+            summary["axis_store"] = self.axis_store.snapshot()
+            summary["fww"] = dict(self._fww)
+            summary["cell_meta"] = {row: list(m.items())
+                                    for row, m in self._cell_meta.items()}
+            cur_seqs = {d: self.deli.doc_seq(d) for d in self._doc_rows}
+        summary["n_docs"] = self.n_docs
+        self._note_summary(summary, cur_seqs,
+                           mx_bases=self.store.table_bases(),
+                           runs_len=len(self.axis_store._runs))
+        return summary
+
+    @classmethod
+    def load(cls, summary: dict, log: PartitionedLog, device="cuda",
+             **kwargs) -> "MatrixServingEngine":
+        """Resume from a summary (this package's or the JAX engine's, full
+        or incremental) and the log: the newest full summary's stores, each
+        delta over them, the host metadata, the sequencer and dedup state,
+        then the log tail replayed through the same apply path. The stores
+        are built on ``device``."""
+        full, deltas = cls.resolve_summary_chain(summary)
+        if "sharded_docs" in full["store"]:
+            raise ValueError("sharded matrix summary: mesh= is not ported "
+                             "yet (ROADMAP B9)")
+        store = TensorMatrixStore.restore(full["store"], device)
+        axis = TensorAxisStore.restore(full["axis_store"], device)
+        fww = dict(full["fww"])
+        cell_meta = {
+            row: {tuple_key(cell): tuple(sw) for cell, sw in items}
+            for row, items in full["cell_meta"].items()}
+        for delta in deltas:
+            if delta["cells_delta"] is not None:
+                store.apply_delta(delta["cells_delta"])
+            axis.apply_row_snapshot(delta["axis_delta"])
+            for r, v in delta["fww_delta"].items():
+                if v is None:
+                    fww.pop(int(r), None)
+                else:
+                    fww[int(r)] = v
+            for r, items in delta["cell_meta_delta"].items():
+                if items is None:
+                    cell_meta.pop(int(r), None)
+                else:
+                    cell_meta[int(r)] = {tuple_key(cell): tuple(sw)
+                                         for cell, sw in items}
+        engine = cls(summary["n_docs"], log=log, store=store,
+                     axis_store=axis, device=device, **kwargs)
+        engine._restore_base(summary)
+        engine._fww = fww
+        engine._cell_meta = cell_meta
+        # re-base the axis-slot admission bound from the restored planes
+        # (a zeroed bound would admit ops the full axis cannot hold)
+        engine._axis_used = axis.state.count.cpu().numpy().astype(np.int64)
         engine._replay_tail(summary)
         engine.flush()
         return engine

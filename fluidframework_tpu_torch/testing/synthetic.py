@@ -237,3 +237,40 @@ def cell_records(seed: int, n_ops: int, n_rows: int = 16, n_cols: int = 16,
     c = rng.integers(0, n_cols, n_ops).tolist()
     v = rng.integers(0, n_values, n_ops).tolist()
     return [(r[i], c[i], f"v{v[i]}", seq0 + i) for i in range(n_ops)]
+
+
+def axis_window(rng, lengths, n_ops: int, start_seq: int = 1,
+                n_clients: int = 4, max_lag: int = 16,
+                mix=(0.4, 0.2, 0.3, 0.1)) -> Tuple[dict, int]:
+    """One dense (D, O) window of permutation-axis ops, D = len(lengths):
+    insert / remove / resolve / NOOP in proportions ``mix``, from
+    ``n_clients`` clients whose ref_seq lags the op's seq by up to
+    ``max_lag``; a fifth of the resolves are latest-view reads (client -1,
+    ref_seq 1 << 30). Positions are drawn from [0, L + 2], L the row's
+    visible length ``lengths`` plus half the window's earlier insert
+    counts (some inserts are dropped), so some inserts fall past the
+    visible length at their perspective (dropped) and some resolves out of
+    range. Inserts take 1-4 slots of a random run handle; removes span 1-4
+    positions. Seqs run per row from ``start_seq``. Returns (planes keyed
+    by OP_FIELDS, next seq)."""
+    D, O = len(lengths), n_ops
+    kinds = np.array([OpKind.STR_INSERT, OpKind.STR_REMOVE,
+                      OpKind.AXIS_RESOLVE, OpKind.NOOP], np.int32)
+    kind = rng.choice(kinds, size=(D, O), p=mix).astype(np.int32)
+    count = rng.integers(1, 5, size=(D, O)).astype(np.int32)
+    grown = np.cumsum(np.where(kind == OpKind.STR_INSERT, count, 0), axis=1)
+    est = np.asarray(lengths, np.int64)[:, None] + (grown - count) // 2
+    a0 = (rng.random((D, O)) * (est + 3)).astype(np.int32)
+    a1 = np.where(kind == OpKind.STR_REMOVE, a0 + count, count)
+    a2 = rng.integers(1, 1 << 16, size=(D, O)).astype(np.int32)
+    seq = np.broadcast_to(np.arange(start_seq, start_seq + O, dtype=np.int32),
+                          (D, O)).copy()
+    client = rng.integers(0, n_clients, size=(D, O)).astype(np.int32)
+    ref_seq = np.maximum(seq - rng.integers(0, max_lag + 1, size=(D, O)),
+                         0).astype(np.int32)
+    read = (kind == OpKind.AXIS_RESOLVE) & (rng.random((D, O)) < 0.2)
+    client[read] = -1
+    ref_seq[read] = 1 << 30
+    planes = {"kind": kind, "a0": a0, "a1": a1.astype(np.int32), "a2": a2,
+              "seq": seq, "client": client, "ref_seq": ref_seq}
+    return planes, start_seq + O

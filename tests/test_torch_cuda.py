@@ -777,3 +777,292 @@ def test_cell_kernel_chained_stress(cuda):
                  store_batch=1024, repeats=3)
     assert res["mismatches"] == 0, res["first_mismatches"]
     assert res["kernel_launches"] > 0
+
+
+# ------------------------------------------- permutation axes (K3 and K4)
+
+def _axis_same(st, ref, tag):
+    for k in mt.FIELDS:   # every plane, slots past count included
+        assert torch.equal(getattr(st, k), getattr(ref, k)), (tag, k)
+
+
+def _axis_step(st, ref, ops):
+    """One window through K3 (in place) and the plain version."""
+    from fluidframework_tpu_torch.ops import axis_apply as axk
+    from fluidframework_tpu_torch.ops import axis_kernel as ak
+    before = axk.apply_launches
+    run, off = ak.apply_axis_batch_fused(st, *ops)
+    assert axk.apply_launches == before + 1
+    ref, rr, ro = ak.apply_axis_batch(ref, *ops)
+    torch.cuda.synchronize()
+    assert torch.equal(run, rr) and torch.equal(off, ro)
+    return ref
+
+
+def _axis_chain(dev, D, S, O, seed, n_batches=3, noop_tail=0,
+                mix=(0.4, 0.2, 0.3, 0.1)):
+    from fluidframework_tpu_torch.ops import axis_kernel as ak
+    from fluidframework_tpu_torch.testing.synthetic import axis_window
+    rng = np.random.default_rng(seed)
+    st = mt.StringState.create(D, S, n_props=1, device=dev)
+    ref = _clone(st)
+    seq = 1
+    for b in range(n_batches):
+        lengths = ak.axis_visible_lengths(ref).cpu().numpy()
+        planes, seq = axis_window(rng, lengths, O, seq, mix=mix)
+        if noop_tail:
+            planes["kind"][:, -noop_tail:] = int(OpKind.NOOP)
+        ref = _axis_step(st, ref, [torch.as_tensor(planes[k]).to(dev)
+                                   for k in mt.OP_FIELDS])
+        _axis_same(st, ref, b)
+    return st
+
+
+@pytest.mark.parametrize("S", [32, 33, 128, 1024, 8192])
+def test_axis_apply_matches_plain(cuda, S):
+    """Random windows from 4 clients with stale ref_seqs and client -1
+    reads, a NOOP tail; S=32 / 33 overflow (sticky)."""
+    st = _axis_chain(cuda, 16, S, 96, seed=S, noop_tail=7)
+    if S <= 33:
+        assert int(st.overflow.sum()) > 0
+
+
+def test_axis_apply_deep_rows_at_the_limit(cuda):
+    """Rows of thousands of live slots at S = 8,192, the kernel's limit:
+    every pass runs many slots per thread and the roll many tiles."""
+    st = _axis_chain(cuda, 4, 8192, 512, seed=5, n_batches=6,
+                     mix=(0.7, 0.1, 0.15, 0.05))
+    assert int(st.count.min()) > 1000
+
+
+def _axis_planes(rows, O):
+    planes = {k: np.zeros((len(rows), O), np.int32) for k in mt.OP_FIELDS}
+    planes["kind"][:] = int(OpKind.NOOP)
+    for d, ops in enumerate(rows):
+        for o, op in enumerate(ops):
+            for k, v in zip(mt.OP_FIELDS, op):
+                planes[k][d, o] = v
+    return planes
+
+
+@pytest.mark.parametrize("S", [32, 33])
+def test_axis_apply_count_reaches_s_and_one_past(cuda, S):
+    """Row 0: boundary inserts until count == S, then one more (overflow).
+    Row 1: count == S - 1, then an insert inside a run (needs 2 slots:
+    overflow). Row 2: count == S - 1 and a remove whose second split
+    overflows (the first split and the marking stay). Row 3: a remove
+    spanning splits with room."""
+    ins = int(OpKind.STR_INSERT)
+    rem = int(OpKind.STR_REMOVE)
+    rows = [[(ins, 0, 1, 100 + i, 1 + i, 0, i) for i in range(S + 1)],
+            [(ins, 0, 2, 100 + i, 1 + i, 0, i) for i in range(S - 1)]
+            + [(ins, 1, 1, 999, S, 0, S - 1)],
+            [(ins, 0, 3, 100 + i, 1 + i, 0, i) for i in range(S - 1)]
+            + [(rem, 1, 5, 0, S, 1, S - 1)],
+            [(ins, 0, 4, 100 + i, 1 + i, 0, i) for i in range(4)]
+            + [(rem, 2, 13, 0, 5, 1, 4),
+               (int(OpKind.AXIS_RESOLVE), 2, 0, 0, 6, -1, 1 << 30)]]
+    planes = _axis_planes(rows, S + 1)
+    st = mt.StringState.create(4, S, n_props=1, device=cuda)
+    ref = _axis_step(st, _clone(st), [torch.as_tensor(planes[k]).to(cuda)
+                                      for k in mt.OP_FIELDS])
+    _axis_same(st, ref, "edges")
+    assert st.count.tolist()[:2] == [S, S - 1]
+    assert st.overflow.tolist() == [1, 1, 1, 0]
+
+
+def test_axis_apply_input_tail_not_fill(cuda):
+    """After the plain compaction the tail past count holds the dropped
+    slots (not fill): the kernel's live extent must cover them."""
+    from fluidframework_tpu_torch.ops import axis_kernel as ak
+    from fluidframework_tpu_torch.testing.synthetic import axis_window
+    st = _axis_chain(cuda, 16, 128, 64, seed=3, n_batches=2,
+                     mix=(0.4, 0.4, 0.1, 0.1))
+    st = mt.compact_string_state(st, torch.full((16,), 100, dtype=torch.int32,
+                                                device=cuda), False)
+    past = torch.arange(128, device=cuda)[None, :] >= st.count[:, None]
+    assert bool(((st.removed_seq != mt.NOT_REMOVED) & past).any())
+    ref = _clone(st)
+    rng = np.random.default_rng(4)
+    planes, _ = axis_window(rng, ak.axis_visible_lengths(st).cpu().numpy(),
+                            64, 200)
+    ref = _axis_step(st, ref, [torch.as_tensor(planes[k]).to(cuda)
+                               for k in mt.OP_FIELDS])
+    _axis_same(st, ref, "tail")
+
+
+@pytest.mark.parametrize("D,O", [(16, 1), (16, 77), (2, 65536)])
+def test_axis_resolve_matches_plain(cuda, D, O):
+    """K4 at O = 1, a non-multiple of its 64-op tile, and config #3's
+    65,536 resolves on 2 rows; NOOP slots give -1."""
+    from fluidframework_tpu_torch.ops import axis_apply as axk
+    from fluidframework_tpu_torch.ops import axis_kernel as ak
+    st = _axis_chain(cuda, D, 1024, 128, seed=O, n_batches=2,
+                     mix=(0.6, 0.15, 0.2, 0.05))
+    rng = np.random.default_rng(O)
+    lengths = ak.axis_visible_lengths(st).cpu().numpy()
+    pos = (rng.random((D, O)) * (lengths[:, None] + 3)).astype(np.int32)
+    client = rng.integers(-1, 4, size=(D, O)).astype(np.int32)
+    ref = rng.integers(0, 300, size=(D, O)).astype(np.int32)
+    ref[client < 0] = 1 << 30
+    kind = np.where(rng.random((D, O)) < 0.9, int(OpKind.AXIS_RESOLVE),
+                    int(OpKind.NOOP)).astype(np.int32)
+    t = [torch.as_tensor(x).to(cuda) for x in (kind, pos, client, ref)]
+    before = axk.resolve_launches
+    run, off = ak.resolve_axis_fused(st, *t)
+    assert axk.resolve_launches == before + 1
+    rr, ro = ak.resolve_axis_positions(st, *t[1:])
+    res = t[0] == int(OpKind.AXIS_RESOLVE)
+    torch.cuda.synchronize()
+    assert torch.equal(run, torch.where(res, rr, -1))
+    assert torch.equal(off, torch.where(res, ro, -1))
+    assert bool((run >= 0).any())
+
+
+def test_axis_kernels_refuse_past_the_limit(cuda):
+    from fluidframework_tpu_torch.ops import axis_kernel as ak
+    st = mt.StringState.create(2, 8193, n_props=1, device=cuda)
+    ops = [torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+           for _ in range(7)]
+    with pytest.raises(ValueError, match="8192"):
+        ak.apply_axis_batch_fused(st, *ops)
+    with pytest.raises(ValueError, match="8192"):
+        ak.resolve_axis_fused(st, ops[0], ops[1], ops[5], ops[6])
+
+
+def test_axis_capacity_refused_at_construction(cuda):
+    """A capacity past the kernels' limit is refused when the store or
+    the engine is built, before any op can be acked and logged."""
+    from fluidframework_tpu_torch.ops import axis_apply
+    from fluidframework_tpu_torch.ops.axis_kernel import TensorAxisStore
+    from fluidframework_tpu_torch.server.serving import MatrixServingEngine
+    assert axis_apply.max_slots() == 8192
+    with pytest.raises(ValueError, match="8192"):
+        TensorAxisStore(2, 8193, device=cuda)
+    with pytest.raises(ValueError, match="8192"):
+        MatrixServingEngine(n_docs=2, axis_capacity=8193, device=cuda)
+    snap = TensorAxisStore(2, 8193, device="cpu").snapshot()
+    with pytest.raises(ValueError, match="8192"):
+        TensorAxisStore.restore(snap, device=cuda)
+    TensorAxisStore(2, 8192, device=cuda)
+
+
+def _matrix_engines(dev, **kw):
+    from fluidframework_tpu_torch.server.serving import MatrixServingEngine
+    return [MatrixServingEngine(device=d, sequencer="native",
+                                batch_window=10 ** 9, **kw)
+            for d in (dev, "cpu")]
+
+
+def _matrix_same(card, cpu, docs):
+    for d in docs:
+        assert card.dims(d) == cpu.dims(d)
+        assert card.to_lists(d) == cpu.to_lists(d), d
+    for k in mt.FIELDS:
+        assert torch.equal(getattr(card.axis_store.state, k).cpu(),
+                           getattr(cpu.axis_store.state, k)), k
+    assert card.store.read_cells() == cpu.store.read_cells()
+    assert card.store.digest() == cpu.store.digest()
+
+
+def test_matrix_engine_on_card_matches_cpu(cuda):
+    """Per-op concurrent waves (K3) and ingest_cells storms (K4) on the
+    card against the same on the CPU, under LWW and FWW docs."""
+    engines = _matrix_engines(cuda, n_docs=4, cell_capacity=1 << 14,
+                              axis_capacity=128)
+    docs = [f"m{i}" for i in range(4)]
+    rng = np.random.default_rng(1)
+    cs = {}
+    seq = {}
+    for d in docs:
+        for c in (1, 2, 3, 4):
+            for e in engines:
+                seq[d] = e.connect(d, c).seq
+            cs[d, c] = 0
+        for c, mx in ((1, "insRow"), (2, "insCol")):
+            cs[d, c] += 1
+            for e in engines:
+                msg, nack = e.submit(d, c, cs[d, c], seq[d], {
+                    "mx": mx, "pos": 0, "count": 12, "opKey": (c, 0)})
+                assert nack is None
+            seq[d] = msg.seq
+        if d == "m1":
+            cs[d, 3] += 1
+            for e in engines:
+                msg, _ = e.submit(d, 3, cs[d, 3], seq[d], {"mx": "policy"})
+            seq[d] = msg.seq
+    refs = {k: seq[k[0]] for k in cs}
+    for wave in range(2):
+        for i in range(96):
+            for d in docs:
+                c = int(rng.integers(1, 5))
+                cs[d, c] += 1
+                refs[d, c] = max(refs[d, c], seq[d] - int(rng.integers(0, 9)))
+                roll = rng.random()
+                if roll < 0.7:
+                    op = {"mx": "setCell", "row": int(rng.integers(0, 12)),
+                          "col": int(rng.integers(0, 12)), "value": i}
+                elif roll < 0.85:
+                    op = {"mx": "insRow" if roll < 0.78 else "insCol",
+                          "pos": int(rng.integers(0, 12)), "count": 1,
+                          "opKey": (c, 100 * wave + i)}
+                else:
+                    op = {"mx": "rmRow" if roll < 0.93 else "rmCol",
+                          "start": int(rng.integers(0, 10)), "count": 1}
+                for e in engines:
+                    msg, nack = e.submit(d, c, cs[d, c], refs[d, c], op)
+                    assert nack is None, (op, nack)
+                seq[d] = msg.seq
+        for e in engines:
+            e.flush()
+        ids = [docs[i % 4] for i in range(2048)]
+        cls = [1] * 2048
+        cseq = []
+        for d in ids:
+            cs[d, 1] += 1
+            cseq.append(cs[d, 1])
+        rf = [seq[d] for d in ids]
+        rp, cp = rng.integers(0, 10, 2048).tolist(), \
+            rng.integers(0, 10, 2048).tolist()
+        vals = rng.integers(0, 1 << 20, 2048).tolist()
+        for e in engines:
+            assert e.ingest_cells(ids, cls, cseq, rf, rp, cp,
+                                  vals)["nacked"] == 0
+        for d in docs:
+            refs[d, 1] = seq[d]   # the native sequencer keeps the max
+            seq[d] += ids.count(d)
+    _matrix_same(*engines, docs)
+
+
+def test_pipelined_harvest_reads_the_first_batch(cuda):
+    """Two 65,536-cell batches back to back: the second call harvests the
+    first while its own resolve is in flight. The first batch's cells must
+    be those a CPU engine resolves, never run 0 from a host buffer read
+    before its copy landed."""
+    engines = _matrix_engines(cuda, n_docs=1, cell_capacity=1 << 18,
+                              axis_capacity=512)
+    for e in engines:
+        e.connect("g", 1)
+        for mx in ("insRow", "insCol"):
+            e.submit("g", 1, 1 if mx == "insRow" else 2, 0,
+                     {"mx": mx, "pos": 0, "count": 256,
+                      "opKey": (1, 1 if mx == "insRow" else 2)})
+        e.flush()
+    rng = np.random.default_rng(2)
+    n = 1 << 16
+    batches = []
+    for b in range(2):
+        batches.append((["g"] * n, [1] * n,
+                        list(range(3 + b * n, 3 + (b + 1) * n)), [2] * n,
+                        rng.integers(0, 256, n).tolist(),
+                        rng.integers(0, 256, n).tolist(),
+                        rng.integers(1, 1 << 20, n).tolist()))
+    for e in engines:
+        for b in batches:
+            assert e.ingest_cells(*b)["nacked"] == 0
+        assert len(e._pending_cells) == 1   # the second is in flight
+    card, cpu = engines
+    cells = card.store.read_cells()   # no flush: the first batch only
+    assert len(cells) > 0 and cells == cpu.store.read_cells()
+    assert all(rk[1][0] != 0 and ck[0] != 0 for rk, ck in cells)
+    _matrix_same(card, cpu, ["g"])

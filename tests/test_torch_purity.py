@@ -64,14 +64,21 @@ def test_kernel_wrapper_checks_its_inputs():
         apply_string_batch_fused(st, *ops[:6], ops[6].long())
 
 
-@pytest.mark.parametrize("entry", ["map_store", "map_engine", "cell_store"])
+@pytest.mark.parametrize("entry", ["map_store", "map_engine", "cell_store",
+                                   "axis_store", "matrix_engine"])
 def test_map_and_matrix_entry_points_need_a_card(entry):
+    from fluidframework_tpu_torch.ops.axis_kernel import TensorAxisStore
     from fluidframework_tpu_torch.ops.map_kernel import TensorMapStore
     from fluidframework_tpu_torch.ops.matrix_kernel import TensorMatrixStore
-    from fluidframework_tpu_torch.server.serving import MapServingEngine
+    from fluidframework_tpu_torch.server.serving import (
+        MapServingEngine, MatrixServingEngine,
+    )
     make = {"map_store": lambda **kw: TensorMapStore(8, **kw),
             "map_engine": lambda **kw: MapServingEngine(n_docs=8, **kw),
-            "cell_store": lambda **kw: TensorMatrixStore(64, **kw)}[entry]
+            "cell_store": lambda **kw: TensorMatrixStore(64, **kw),
+            "axis_store": lambda **kw: TensorAxisStore(8, 64, **kw),
+            "matrix_engine": lambda **kw: MatrixServingEngine(
+                n_docs=8, cell_capacity=64, axis_capacity=64, **kw)}[entry]
     if torch.cuda.is_available():
         make()
     else:
@@ -83,12 +90,19 @@ def test_map_and_matrix_entry_points_need_a_card(entry):
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The bindings launch on CUDA tensors only: a CPU tensor never
     reaches them (the entry points run the plain version for it)."""
-    from fluidframework_tpu_torch.ops import cell_merge, map_apply
+    from fluidframework_tpu_torch.ops import axis_apply, cell_merge, map_apply
     from fluidframework_tpu_torch.ops.map_kernel import MapState
     from fluidframework_tpu_torch.ops.matrix_kernel import MatrixCellState
+    from fluidframework_tpu_torch.ops.merge_tree import StringState
     ops = [torch.zeros((4, 8), dtype=torch.int32) for _ in range(4)]
     with pytest.raises(ValueError, match="CUDA"):
         map_apply.launch_dense(MapState.create(4, 8, "cpu"), *ops)
     with pytest.raises(ValueError, match="CUDA"):
         cell_merge.launch(MatrixCellState.create(16, "cpu"),
                           *ops[0][0:3], L=None, fww=False)
+    axes = StringState.create(4, 64, n_props=1, device="cpu")
+    out = [torch.zeros((4, 8), dtype=torch.int32) for _ in range(2)]
+    with pytest.raises(ValueError, match="CUDA"):
+        axis_apply.launch_apply(axes, ops + ops[:3], *out)
+    with pytest.raises(ValueError, match="CUDA"):
+        axis_apply.launch_resolve(axes, *ops, *out)
