@@ -3,8 +3,9 @@
 
 Drives the port's paths once at full width — BASELINE config #4
 (SharedString ops sequenced by Deli and merged into a (doc × segment)
-merge-tree state on the card), config #2 (SharedMap) and config #3 (the
-SharedMatrix cell table, then the whole matrix engine) — and holds each
+merge-tree state on the card), config #2 (SharedMap), config #3 (the
+SharedMatrix cell table, then the whole matrix engine) and SharedTree
+serving at ``benches/profile_tree.py``'s shapes — and holds each
 hand-written kernel against its plain PyTorch version. Phases (one JSON line each):
 
 1. device — card name, count, ``nvidia-smi`` name and power limit, build
@@ -80,15 +81,35 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    axis_apply.cu``: K3 ``axis_apply``, K4 ``axis_resolve``) on these
    paths is held against its plain version on its own input, and both are
    timed. The line reports the ops/s of (a) and (b) and their host seconds
-   by part (sequencing, resolve, FWW filter, cell merge, log).
+   by part (sequencing, resolve, FWW filter, cell merge, log);
+9. tree — SharedTree served end to end at ``benches/profile_tree.py``'s
+   shapes (8,192 docs, capacity 128, the native sequencer): (a) the tree
+   record scan (``csrc/tree_apply.cu``: K5 ``tree_apply``) against the
+   plain ``apply_tree_planes`` on 4 chained ``tree_record_storm`` batches
+   of 64 records a doc (every kind, docs overflowing), and the same
+   records through the wire at u16 and u32 id widths (K6 ``tree_expand``
+   + K5 wire mode) against the plain ``apply_tree_wire``; (b)
+   ``TreeServingEngine``: profile_tree.py's warm-up, dict, serial record
+   and 4 pipelined record waves, then 4 pipelined flat leaf waves on a
+   second engine, each equal to a ``device="cpu"`` twin (all planes,
+   sampled ``to_dict``), with ops/s per path and the ingest stages' busy
+   ms; (c) a 256-doc ``tree_op_storm`` through per-op ``submit`` (3
+   clients, lagging refs) and through ``ingest_batch``, equal to a CPU
+   twin; (d) a capacity-32 engine grown until docs overflow, recovered
+   (re-uploads and graduations) equal to a capacity-1,024 control, then
+   full and incremental summaries loaded on the card equal to the live
+   engine, and a dup-acked resubmit; (e) K5 (wire mode at the serving
+   wave's shape, planes mode at profile_tree.py's kernel-alone shape) and
+   K6 timed in CUDA graphs beside their plain versions and bounds.
 
-Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (the five
+Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (the seven
 kernels: ``string_apply``, ``map_apply``, ``cell_merge``, ``axis_apply``,
-``axis_resolve``, each with its launches on its own paths, every count set
-to 0 just before a path and read just after: config #4 serving; config
-#2's kernel loop and its serving route; config #3's kernel loop, the store
-route and the matrix engine's paths), and as the last line ``{"ok": true,
-"device": {...}}``. Any failed phase raises, so
+``axis_resolve``, ``tree_apply``, ``tree_expand``, each with its launches
+on its own paths, every count set to 0 just before a path and read just
+after: config #4 serving; config #2's kernel loop and its serving route;
+config #3's kernel loop, the store route and the matrix engine's paths;
+the tree phase's kernel loop, serving, flat serving, per-op, recovery and
+load paths), and as the last line ``{"ok": true, "device": {...}}``. Any failed phase raises, so
 the exit code is non-zero. Without a card it exits 2 and prints no result.
 
 Usage: ``python3 chip_smoke.py`` (one card).
@@ -1543,6 +1564,564 @@ def matrix_engine_phase(smi, dev, docs_a=MX_DOCS, grid_a=MX_DOC_GRID,
                   rows["resolve"][0] if rows["resolve"] else None))
 
 
+TREE_D, TREE_N, TREE_O = 8192, 128, 64   # profile_tree.py's serving shape
+TREE_BATCHES = 4                           # chained kernel-loop batches
+TREE_PIPE_WAVES = 4                        # pipelined record / leaf waves
+TREE_MIX_DOCS, TREE_MIX_OPS = 256, 8       # (c): docs, ops per doc
+TREE_REC_DOCS, TREE_REC_CAP = 256, 32      # (d): docs, tier capacity
+TREE_SAMPLES = 64                          # to_dict probes per check
+
+
+def tree_phase(smi, dev):
+    """Phase 9: SharedTree served end to end at ``benches/profile_tree.py``'s
+    shapes (8,192 docs, capacity 128, the native sequencer). (a) K5 in
+    planes mode against the plain ``apply_tree_planes`` on the card after
+    each of 4 chained ``tree_record_storm`` batches (O=64, every record
+    kind, some docs overflowing), and the same records through the wire
+    (``pack_wire_records`` at u16 and u32 id widths) by K6 + K5 wire mode
+    against the plain ``apply_tree_wire``; (b) ``TreeServingEngine``: a
+    warm-up ``ingest_batch`` wave, a dict wave, a serial ``ingest_records``
+    wave and 4 pre-encoded waves through ``PipelinedIngestExecutor(
+    depth=3)``, then on a second engine a seed ``ingest_leaves`` wave and 4
+    flat leaf waves pipelined with cached rows, each engine equal to a
+    ``device="cpu"`` twin (all planes, sampled ``to_dict``); (c) a
+    ``tree_op_storm`` on 256 docs through per-op ``submit`` (3 clients,
+    lagging refs) and the same kind of storm through ``ingest_batch``,
+    equal to a CPU twin; (d) a capacity-32 engine grown until docs
+    overflow, ``recover_overflowed`` (re-uploads and graduations) equal to
+    a capacity-1,024 control, full and incremental summaries loaded on the
+    card equal to the live engine, a dup-acked resubmit; (e) K5 (wire mode
+    at the serving wave's shape, planes mode at profile_tree.py's
+    kernel-alone shape) and K6 timed in CUDA graphs beside their plain
+    versions and bounds. Returns the ``tree_apply`` and ``tree_expand``
+    kernels-line entries."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import tree_apply as ta
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.ops import tree_store as tstore
+    from fluidframework_tpu_torch.server.ingest_pipeline import (
+        PipelinedIngestExecutor,
+    )
+    from fluidframework_tpu_torch.server.serving import TreeServingEngine
+    from fluidframework_tpu_torch.server.tree_wire import (
+        encode_leaf_records, encode_tree_batch,
+    )
+    from fluidframework_tpu_torch.testing.synthetic import (
+        profile_tree_waves, tree_op_storm, tree_record_storm,
+        tree_storm_flat,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    D, N, O = TREE_D, TREE_N, TREE_O
+    ALL = tk.TREE_PLANES + ("overflow",)
+    launches = {"apply": collections.Counter(),
+                "expand": collections.Counter()}
+    path = [""]
+    err = {"apply": 0, "expand": 0}
+
+    def begin(name):
+        """Counts to 0 just before a path; ``end`` reads them just after."""
+        path[0] = name
+        ta.apply_launches = ta.expand_launches = 0
+
+    def end():
+        torch.cuda.synchronize()
+        launches["apply"][path[0]] += ta.apply_launches
+        launches["expand"][path[0]] += ta.expand_launches
+
+    def diff(a, b):
+        return int((a.long().cpu() - b.long().cpu()).abs().max()) \
+            if a.numel() else 0
+
+    def state_err(a, b):
+        return max(diff(getattr(a, k), getattr(b, k)) for k in ALL)
+
+    # ------------------------------------------- (a) kernel parity
+    storms = [tree_record_storm(D, O, seed=b, capacity=N,
+                                start_seq=1 + 1000 * b)
+              for b in range(TREE_BATCHES)]
+    st = tk.TreeState.create(D, N, device=dev)
+    ref = st.clone()
+    begin("kernel loop: planes")
+    for b, p in enumerate(storms):
+        pd = torch.from_numpy(p).to(dev)
+        tk.apply_tree_planes_fused(st, pd)
+        ref = tk.apply_tree_planes(ref, pd)
+        torch.cuda.synchronize()
+        err["apply"] = max(err["apply"], state_err(st, ref))
+    end()
+    kernel_ovf = int(st.overflow.sum())
+    if err["apply"] or not kernel_ovf:
+        raise AssertionError(f"K5 planes != plain ({err['apply']}) or no "
+                             f"overflow ({kernel_ovf})")
+    wire_rows = []
+    for width in (np.uint16, np.uint32):
+        ws = tk.TreeState.create(D, N, device=dev)
+        wref = ws.clone()
+        begin(f"kernel loop: wire {np.dtype(width).name}")
+        for b, p in enumerate(storms):
+            recs, rec_op, rows = tree_storm_flat(p)
+            cols, ids, vals, row, pos, o = tstore.pack_wire_records(
+                recs, rec_op, rows, id_t=width, val_t=width)
+            m = np.arange(int(recs.max()) + 2, dtype=np.int32)
+            base = np.full(D, 1 + 1000 * b, np.int32)
+            wd = [torch.from_numpy(x).to(dev) for x in (
+                cols, ids, vals, row, pos, base, m, m, m, m)]
+            n0 = ta.expand_launches   # a comparison launch: not counted
+            got = tk.expand_tree_wire_fused(*wd[:5], *wd[6:], n_docs=D,
+                                            o=o)
+            ta.expand_launches = n0
+            want = tk.expand_tree_wire(*wd[:5], *wd[6:], n_docs=D, o=o)
+            err["expand"] = max(err["expand"], diff(got, want))
+            tk.apply_tree_wire_fused(ws, *wd, o=o)
+            wref = tk.apply_tree_wire(wref, *wd, o=o)
+            torch.cuda.synchronize()
+            err["apply"] = max(err["apply"], state_err(ws, wref),
+                               state_err(ws, ref) if b == 3 else 0)
+        end()
+        wire_rows.append({"ids": np.dtype(width).name, "records": len(recs),
+                          "o": o, "pos": np.dtype(pos.dtype).name})
+    if err["apply"] or err["expand"]:
+        raise AssertionError(f"tree kernels != plain: {err}")
+    del st, ref, ws, wref
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- (b) serving
+    captured = {}
+    wire_fused = tstore.apply_tree_wire_fused
+
+    def keep_wire(state, *args, o):
+        """The serving path's wire apply, keeping the last launch's input
+        (the state before it and the uploaded wire) for timing."""
+        if state.node_id.device.type == dev.type and \
+                state.node_id.shape[0] == D:
+            captured["wire"] = (state.clone(), args, o)
+        return wire_fused(state, *args, o=o)
+
+    tstore.apply_tree_wire_fused = keep_wire
+    docs = [f"t-{i}" for i in range(D)]
+    ones, zeros = [1] * D, [0] * D
+
+    def serving_engine(device):
+        e = TreeServingEngine(n_docs=D, capacity=N, batch_window=10 ** 9,
+                              sequencer="native", device=device)
+        if type(e.deli).__name__ != "NativeDeliAdapter":
+            raise AssertionError("tree serving must run the native "
+                                 "sequencer")
+        for d in docs:
+            e.connect(d, 1)
+        return e
+
+    waves = [profile_tree_waves(docs, w)[1] for w in range(3 +
+                                                           TREE_PIPE_WAVES)]
+    pre = [encode_tree_batch(w) for w in waves[2:]]
+    eng, twin = serving_engine(dev), serving_engine("cpu")
+    rows = np.array([eng.doc_row(d) for d in docs], np.int32)
+    for d in docs:
+        twin.doc_row(d)
+    serve = {}
+    begin("serving")
+    t0 = time.perf_counter()
+    eng.ingest_batch(docs, ones, ones, zeros, waves[0])
+    torch.cuda.synchronize()
+    serve["warmup_wave_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r1 = eng.ingest_batch(docs, ones, [2] * D, zeros, waves[1])
+    eng.sync()
+    serve["dict_wave_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r2 = eng.ingest_records(None, ones, [3] * D, zeros, pre[0], rows=rows)
+    eng.sync()
+    serve["records_wave_s"] = time.perf_counter() - t0
+    ex = PipelinedIngestExecutor(eng, depth=3)
+    t0 = time.perf_counter()
+    tickets = [ex.submit(None, ones, [w + 4] * D, zeros, b, rows=rows)
+               for w, b in enumerate(pre[1:])]
+    ex.drain()
+    eng.sync()
+    pipe_s = time.perf_counter() - t0
+    results = [r1, r2] + [t.result() for t in tickets]
+    pipe = ex.stats()
+    ex.close()
+    end()
+    nacked = sum(r["nacked"] for r in results)
+    twin.ingest_batch(docs, ones, ones, zeros, waves[0])
+    twin.ingest_batch(docs, ones, [2] * D, zeros, waves[1])
+    for w, b in enumerate(pre):
+        twin.ingest_records(None, ones, [w + 3] * D, zeros, b, rows=rows)
+    over = eng.overflowed_docs()
+    e = state_err(eng.store.state, twin.store.state)
+    sample = sorted({0, 1, D // 2, D - 1} |
+                    set(np.random.default_rng(0).integers(
+                        0, D, TREE_SAMPLES).tolist()))
+    if nacked or over or e or launches["apply"]["serving"] <= 0 or \
+            launches["expand"]["serving"] <= 0:
+        raise AssertionError(f"tree serving: {nacked} nacks, {len(over)} "
+                             f"overflowed, planes err {e}, launches "
+                             f"{dict(launches['apply'])}")
+    for i in sample:
+        if eng.to_dict(docs[i]) != twin.to_dict(docs[i]):
+            raise AssertionError(f"{docs[i]}: to_dict differs from CPU")
+    if len(eng.to_dict(docs[7])["children"]["kids"]) != \
+            3 + TREE_PIPE_WAVES:
+        raise AssertionError("tree serving: the waves did not all apply")
+    serve.update({
+        "dict_ops_per_s": D / serve["dict_wave_s"],
+        "records_ops_per_s": D / serve["records_wave_s"],
+        "pipelined_ops_per_s": TREE_PIPE_WAVES * D / pipe_s,
+        "pipelined_s": pipe_s, "pipeline_max_inflight": pipe["max_inflight"],
+        "pipeline_overlap": pipe["overlap"],
+        "pipeline_stage_busy_ms": pipe["stage_busy_ms"],
+        "stage_ms_by_wave": [r["stage_ms"] for r in results]})
+    serve_wire = captured.pop("wire")
+    del twin
+
+    # flat leaves on a second engine, with cached rows
+    leng, ltwin = serving_engine(dev), serving_engine("cpu")
+    lrows = np.array([leng.doc_row(d) for d in docs], np.int32)
+    for d in docs:
+        ltwin.doc_row(d)
+    flat = [encode_leaf_records(["root"] * D, ["kids"] * D,
+                                [f"{d}-f{w}" for d in docs], [w] * D, None,
+                                [f"{d}-f{w - 1}" for d in docs])
+            for w in range(1, TREE_PIPE_WAVES + 1)]
+    seed_args = (docs, ones, ones, zeros, ["root"] * D, ["kids"] * D,
+                 [f"{d}-f0" for d in docs], zeros)
+    begin("flat serving")
+    leng.ingest_leaves(*seed_args)
+    leng.sync()
+    lex = PipelinedIngestExecutor(leng, depth=3)
+    t0 = time.perf_counter()
+    lt = [lex.submit(None, ones, [w + 2] * D, zeros, b, rows=lrows)
+          for w, b in enumerate(flat)]
+    lex.drain()
+    leng.sync()
+    flat_s = time.perf_counter() - t0
+    lres = [t.result() for t in lt]
+    lpipe = lex.stats()
+    lex.close()
+    end()
+    ltwin.ingest_leaves(*seed_args)
+    for w, b in enumerate(flat):
+        ltwin.ingest_records(None, ones, [w + 2] * D, zeros, b, rows=lrows)
+    e = state_err(leng.store.state, ltwin.store.state)
+    if e or sum(r["nacked"] for r in lres) or leng.overflowed_docs():
+        raise AssertionError(f"flat serving: planes err {e}")
+    for i in sample[:8]:
+        if leng.to_dict(docs[i]) != ltwin.to_dict(docs[i]):
+            raise AssertionError(f"{docs[i]}: flat to_dict differs")
+    serve.update({"flat_ops_per_s": TREE_PIPE_WAVES * D / flat_s,
+                  "flat_s": flat_s,
+                  "flat_pipeline_max_inflight": lpipe["max_inflight"],
+                  "flat_stage_busy_ms": lpipe["stage_busy_ms"]})
+    tstore.apply_tree_wire_fused = wire_fused
+    batch9 = encode_tree_batch(profile_tree_waves(docs, 9)[1])
+    kernel_planes = eng.store.pack_records(
+        np.arange(D, dtype=np.int64)[batch9["rec_op"]],
+        eng._map_records(batch9["recs"], batch9),
+        np.full(len(batch9["rec_op"]), 50, np.int64))
+    serve_state = eng.store.state.clone()
+    del eng, leng, ltwin
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- (c) mixed per-op
+    mdocs = [f"m-{i}" for i in range(TREE_MIX_DOCS)]
+    mixed = [TreeServingEngine(n_docs=TREE_MIX_DOCS, capacity=N,
+                               batch_window=10 ** 9, sequencer="native",
+                               device=d) for d in (dev, "cpu")]
+    for e_ in mixed:
+        for d in mdocs:
+            for c in (1, 2, 3):
+                e_.connect(d, c)
+    pools = {}
+    storm = tree_op_storm(mdocs, TREE_MIX_OPS, seed=5, pools=pools)
+    rng = np.random.default_rng(5)
+    plan, cseq, refs, out = [], {}, {}, []
+    card_e = mixed[0]
+    begin("per-op")
+    t0 = time.perf_counter()
+    for d, op in storm:
+        # client c joined at seq c; its ref lags the doc by up to 5 and
+        # never goes back
+        c = int(rng.integers(1, 4))
+        cseq[d, c] = cseq.get((d, c), 0) + 1
+        refs[d, c] = max(refs.get((d, c), c), card_e.deli.doc_seq(d) -
+                         int(rng.integers(0, 6)))
+        plan.append((d, c, cseq[d, c], refs[d, c], op))
+        out.append(card_e.submit(*plan[-1]))
+    card_e.flush()
+    end()
+    per_op_s = time.perf_counter() - t0
+    out_cpu = [mixed[1].submit(*x) for x in plan]
+    mixed[1].flush()
+    outcomes = [[(m.seq if m else None, n.reason.name if n else None)
+                 for m, n in o_] for o_ in (out, out_cpu)]
+    if outcomes[0] != outcomes[1]:
+        raise AssertionError("per-op outcomes differ from the CPU twin")
+    storm2 = tree_op_storm(mdocs, TREE_MIX_OPS, seed=6, pools=pools)
+    ids = [d for d, _ in storm2]
+    cs2 = []
+    for d in ids:
+        cseq[d, 1] = cseq.get((d, 1), 0) + 1
+        cs2.append(cseq[d, 1])
+    begin("per-op: ingest_batch")
+    mres = [e_.ingest_batch(ids, [1] * len(ids), cs2, [0] * len(ids),
+                            [op for _d, op in storm2]) for e_ in mixed]
+    end()
+    if not np.array_equal(mres[0]["seq"], mres[1]["seq"]):
+        raise AssertionError("mixed ingest_batch acks differ from CPU")
+    e = state_err(mixed[0].store.state, mixed[1].store.state)
+    if e:
+        raise AssertionError(f"mixed storms: planes err {e}")
+    for d in mdocs[:TREE_SAMPLES]:
+        if mixed[0].to_dict(d) != mixed[1].to_dict(d):
+            raise AssertionError(f"{d}: mixed to_dict differs from CPU")
+    kinds = collections.Counter(op["op"] for _d, op in storm + storm2)
+    applied = sum(1 for s, _ in outcomes[0] if s is not None)
+    del mixed
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- (d) recovery, summary, load
+    rdocs = [f"r-{i}" for i in range(TREE_REC_DOCS)]
+    rec_e = TreeServingEngine(n_docs=TREE_REC_DOCS, capacity=TREE_REC_CAP,
+                              batch_window=10 ** 9, sequencer="native",
+                              device=dev)
+    ctl = TreeServingEngine(n_docs=TREE_REC_DOCS, capacity=1024,
+                            batch_window=10 ** 9, sequencer="native",
+                            device=dev)
+    for e_ in (rec_e, ctl):
+        for d in rdocs:
+            e_.connect(d, 1)
+            e_.doc_row(d)
+    rcs = {}
+
+    def grow_wave(w):
+        """Wave 0: 20 inserts a doc; wave 1: 15 more and, on every 4th
+        doc, 10 removes (they overflow, then fit after the rebuild); every
+        16th doc also inserts 40 (it graduates)."""
+        ops = []
+        for i, d in enumerate(rdocs):
+            n = 20 if w == 0 else 15 + (40 if i % 16 == 0 else 0)
+            if w == 1 and i % 4:
+                n = 4
+            ops += [(d, {"op": "insert", "parent": "root",
+                         "field": "kids", "after": None,
+                         "nodes": [{"id": f"{d}-{w}-{k}", "value": k}]})
+                    for k in range(n)]
+            if w == 1 and i % 4 == 0:
+                ops += [(d, {"op": "remove", "id": f"{d}-0-{k}"})
+                        for k in range(10)]
+        return ops
+
+    def run_wave(ops, engines):
+        ids = [d for d, _ in ops]
+        cs = []
+        for d in ids:
+            rcs[d] = rcs.get(d, 0) + 1
+            cs.append(rcs[d])
+        for e_ in engines:
+            r = e_.ingest_batch(ids, [1] * len(ids), cs, [0] * len(ids),
+                                [op for _d, op in ops])
+            if r["nacked"]:
+                raise AssertionError("recovery wave nacked")
+        return cs
+
+    begin("recovery")
+    t0 = time.perf_counter()
+    for w in range(2):
+        run_wave(grow_wave(w), (rec_e, ctl))
+    overflowed = len(rec_e.overflowed_docs())
+    t1 = time.perf_counter()
+    report = rec_e.recover_overflowed()
+    recover_s = time.perf_counter() - t1
+    end()
+    grown_s = t1 - t0
+    kinds_rec = collections.Counter(report.values())
+    if not (kinds_rec["reuploaded"] and kinds_rec["graduated"]) or \
+            rec_e.overflowed_docs():
+        raise AssertionError(f"tree recovery: {dict(kinds_rec)}")
+    for d in rdocs:
+        if rec_e.to_dict(d) != ctl.to_dict(d):
+            raise AssertionError(f"{d}: recovered to_dict != control")
+    # summaries and loads
+    t1 = time.perf_counter()
+    full = rec_e.summarize()
+    tail1 = [(d, {"op": "setValue", "id": f"{d}-1-0", "value": "t1"})
+             for d in rdocs[1::4]]   # flat docs only (i % 4 == 1)
+    run_wave(tail1, (rec_e,))
+    inc = rec_e.summarize(incremental=True)
+    summ_s = time.perf_counter() - t1
+    tail2 = [(d, {"op": "insert", "parent": "root", "field": "tail",
+                  "after": None, "nodes": [{"id": f"{d}-tail"}]})
+             for d in rdocs[2::4]]
+    tail_cs = run_wave(tail2, (rec_e,))
+    grad = [d for d, k in report.items() if k == "graduated"]
+    for d in grad:
+        rcs[d] += 1
+        msg, nack = rec_e.submit(d, 1, rcs[d], 0, {
+            "op": "setValue", "id": f"{d}-0-15", "value": "g"})
+        if nack is not None:
+            raise AssertionError(f"{d}: graduated submit nacked")
+    # rows the tails wrote: a load re-applies them from the log and may
+    # intern their handles in another order, so only their trees compare
+    touched = {d for d, _ in tail1 + tail2} | set(grad)
+    loads = []
+    begin("load")
+    for s in (full, inc):
+        t1 = time.perf_counter()
+        ld = TreeServingEngine.load(s, rec_e.log, device=dev,
+                                    sequencer="native")
+        loads.append(time.perf_counter() - t1)
+        dg, ldg = rec_e.store.digests(), ld.store.digests()
+        for d in rdocs:
+            if ld.to_dict(d) != rec_e.to_dict(d) or \
+                    ld.deli.doc_seq(d) != rec_e.deli.doc_seq(d):
+                raise AssertionError(f"{d}: load differs from live")
+            if d not in touched and d not in ld._graduated and \
+                    dg[rec_e.doc_row(d)] != ldg[ld.doc_row(d)]:
+                raise AssertionError(f"{d}: digest differs after load")
+        msg, nack = ld.submit(tail2[0][0], 1, tail_cs[0], 0,
+                              {"op": "remove", "id": "x"})
+        if msg is not None or nack.seq != rec_e.deli.doc_seq(tail2[0][0]):
+            raise AssertionError("resubmit was not dup-acked with its seq")
+    end()
+    recovery = {"docs": TREE_REC_DOCS, "capacity": TREE_REC_CAP,
+                "overflowed": overflowed, "report": dict(kinds_rec),
+                "grow_s": grown_s, "recover_s": recover_s,
+                "summarize_s": summ_s, "load_s": loads,
+                "reloads_equal_live": len(loads)}
+    del rec_e, ctl
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- (e) timing
+    def events_ms(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        z.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(z), out
+
+    def apply_bound(before, planes, wire):
+        """Bytes: the eight planes and the flag of every doc with a
+        non-NOOP record read and written once, the (9, D, O) records read
+        once (and the (D,) base in wire mode); operations: one N-wide
+        pass per real record (the least any lookup takes)."""
+        active = int((planes[0] != 0).any(dim=1).sum())
+        real = int((planes[0] != 0).sum())
+        Dn, Nn = before.node_id.shape
+        nbytes = 2 * (8 * 4 * Nn + 4) * active + planes.numel() * 4 + \
+            (4 * Dn if wire else 0)
+        return work_bound(nbytes, real * Nn), nbytes, active, real
+
+    def time_apply(tag, before, planes, base):
+        work = before.clone()
+
+        def copy():
+            for k, v in work.fields().items():
+                v.copy_(getattr(before, k))
+
+        def run():
+            copy()
+            ta.launch_apply(work, planes, base)
+
+        t = {"ms": graph_ms(run, 20) - graph_ms(copy, 20),
+             "call_ms": timed_events(run, 10) - timed_events(copy, 10)}
+        if base is None:
+            plain_ms, want = events_ms(lambda: tk.apply_tree_planes(
+                before, planes))
+        else:
+            seq = tk.wire_seq(planes[8], base)
+            plain_ms, want = events_ms(lambda: tk.apply_tree_batch(
+                before, *planes[:7], seq, planes[7]))
+        run()
+        torch.cuda.synchronize()
+        e = state_err(work, want)
+        (b_ms, b_by), nbytes, active, real = apply_bound(
+            before, planes, base is not None)
+        return {"spec": tag, "D": planes.shape[1], "N": N,
+                "O": planes.shape[2], **t, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "active_docs": active, "records": real,
+                "max_abs_err": e}
+
+    before, wire_args, o = serve_wire
+    cols, ids_, vals, row, pos, base = wire_args[:6]
+    maps = wire_args[6:]
+    dense = tk.expand_tree_wire(cols, ids_, vals, row, pos, *maps,
+                                n_docs=D, o=o)
+    fn = lambda: tk.expand_tree_wire_fused(  # noqa: E731
+        cols, ids_, vals, row, pos, *maps, n_docs=D, o=o)
+    kept = int((pos.long() < o).sum())
+    wire_bytes = kept * (3 + 3 * ids_.element_size() + vals.element_size()
+                         + 2 + pos.element_size()) + \
+        sum(4 * m.numel() for m in maps)
+    x_bytes = wire_bytes + dense.numel() * 4
+    xb_ms, xb_by = work_bound(x_bytes, 10 * kept)
+    plain_x_ms, _ = events_ms(lambda: tk.expand_tree_wire(
+        cols, ids_, vals, row, pos, *maps, n_docs=D, o=o))
+    expand_row = {"spec": "serving wire wave", "D": D, "o": o,
+                  "records": kept, "ids": str(ids_.dtype),
+                  "pos": str(pos.dtype), "ms": graph_ms(fn, 20),
+                  "call_ms": timed_events(fn, 10), "plain_ms": plain_x_ms,
+                  "bound_ms": xb_ms, "bound_by": xb_by, "bytes": x_bytes,
+                  "max_abs_err": diff(fn(), dense)}
+    apply_rows = [
+        time_apply("wire mode: serving wave", before, dense, base),
+        time_apply("planes mode: profile_tree kernel-alone shape",
+                   serve_state, torch.from_numpy(kernel_planes).to(dev),
+                   None)]
+    err["apply"] = max([err["apply"]] + [r["max_abs_err"]
+                                         for r in apply_rows])
+    err["expand"] = max(err["expand"], expand_row["max_abs_err"])
+    if err["apply"] or err["expand"]:
+        raise AssertionError(f"tree kernels != plain after timing: {err}")
+    # profile_tree.py's kernel-only loop: 8 applies back to back
+    planes9 = torch.from_numpy(kernel_planes).to(dev)
+    loop = serve_state.clone()
+    t8, _ = events_ms(lambda: [ta.launch_apply(loop, planes9)
+                               for _ in range(8)])
+    emit({"phase": "tree", "docs": D, "capacity": N,
+          "kernel_loop": {"batches": TREE_BATCHES, "O": O,
+                          "overflowed_docs": kernel_ovf,
+                          "wire": wire_rows},
+          "serving": serve, "nacked": nacked,
+          "mixed": {"docs": TREE_MIX_DOCS, "ops": len(plan),
+                    "batch_ops": len(storm2), "acked_per_op": applied,
+                    "per_op_s": per_op_s, "kinds": dict(kinds)},
+          "recovery": recovery,
+          "launches": {k: dict(v) for k, v in launches.items()},
+          "max_abs_err": err, "timing": {"apply": apply_rows,
+                                         "expand": [expand_row]},
+          "kernel_only_8_applies_ms": t8,
+          "total_s": time.perf_counter() - t_phase, "card": smi})
+
+    def entry(kind, name, replaces, main):
+        return {"name": name, "route": "cuda",
+                "source": "fluidframework_tpu_torch/csrc/tree_apply.cu",
+                "replaces": replaces,
+                "launches": sum(launches[kind].values()),
+                "launches_by_path": dict(launches[kind]),
+                "max_abs_err": err[kind], "ms": main["ms"],
+                "call_ms": main["call_ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": None,
+                "shape": {k: main.get(k) for k in ("D", "N", "O", "o",
+                                                   "spec")}}
+
+    return (entry("apply", "tree_apply",
+                  "fluidframework_tpu/ops/tree_kernel.py:321,367",
+                  apply_rows[0]),
+            entry("expand", "tree_expand",
+                  "fluidframework_tpu/ops/tree_kernel.py:379", expand_row))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1856,6 +2435,8 @@ def main() -> int:
     cell_entry = matrix_phase(smi, dev)
     torch.cuda.empty_cache()
     axis_entries = matrix_engine_phase(smi, dev)
+    torch.cuda.empty_cache()
+    tree_entries = tree_phase(smi, dev)
 
     main_t = timing[("no-props+compact", S_SERVE, "chained")]
     print(smi, flush=True)
@@ -1876,7 +2457,7 @@ def main() -> int:
             {"spec": name, "S": S, "state": state, **t}
             for (name, S, state), t in timing.items()] + rebuild_rows,
         "total_s": time.perf_counter() - t_start,
-    }, map_entry, cell_entry, *axis_entries]})
+    }, map_entry, cell_entry, *axis_entries, *tree_entries]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

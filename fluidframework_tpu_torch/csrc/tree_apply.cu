@@ -1,0 +1,517 @@
+// SharedTree record scan for NVIDIA Hopper (sm_90a): two kernels.
+//
+// Replaces the XLA programs of the JAX package's
+// fluidframework_tpu/ops/tree_kernel.py:
+// - K5 tree_apply (apply_tree_batch, :321, through apply_tree_planes, :367,
+//   and the scan half of apply_tree_wire, :379): per doc, a serial scan of
+//   its (9, D, O) record column in order. Group flags (ok_ins / ok_txn,
+//   reset to 1 at the start of every launch, as in every JAX apply call),
+//   INSERT into the lowest free slot (a nested record also needs its
+//   parent's created_seq == seq; an insert that would apply but finds no
+//   free slot sets the sticky overflow flag and changes nothing), REMOVE
+//   of the whole subtree (splice, then all eight planes of every subtree
+//   slot cleared), MOVE unless the destination lies in the moved subtree
+//   (splice out, then attach), last-writer-wins SET_VALUE. Solo kinds
+//   (9-12) are their base kind (k - 4) without the flags; kind 13 resets
+//   both flags and ANDs ok_txn with "node exists". Two modes: planes (plane
+//   8 holds each record's seq) and wire (plane 8 holds each record's
+//   first-of-op bit and the seq is base[d] + the running count of those
+//   bits - 1, int32 wrapping, which fuses the JAX cumsum).
+// - K6 tree_expand (the expansion half of apply_tree_wire): one thread per
+//   wire record decodes kind = cols[r,0] & 0xF and meta = cols[r,0] >> 4,
+//   gathers node / parent / after / field / value / type through the four
+//   batch-local maps (an index past a map's end is clamped to its last
+//   entry, XLA's gather), and scatters kind, the six handles, meta & 1 and
+//   the first-of-op bit (meta >> 1) & 1 into the (9, D, o) buffer the
+//   wrapper zeroed, at (row, pos); a record with pos >= o or row >= D is
+//   padding and is dropped. Each lane is read at the width it was shipped
+//   (ids and values u16 or u32, pos u8 or u16: eight instantiations); the
+//   host never widens the wire.
+// The plain PyTorch versions they are held against live in
+// ops/tree_kernel.py.
+//
+// What bounds them on this card. K5: a doc's records are a serial chain
+// (each lookup reads the planes the previous record left); the bytes are
+// the planes of the docs that have a record, read and written once, and
+// the (9, D, O) record planes read once: tens of microseconds at the
+// serving shape (8,192 docs x 128 slots), against a few N-wide warp
+// passes per record. K6: bytes (the wire read once, the dense planes
+// written once).
+//
+// K5 layout. One warp per doc, 1 to 4 docs per CTA (as many as the
+// shared memory takes). A doc with no non-NOOP record is skipped: its
+// state is neither read nor written. Otherwise its eight planes are staged
+// in shared memory (plus one scratch plane, below); lane l owns the slots
+// j = l (mod 32), and every lookup (exists, the masked-sum slot value, the
+// field head, the lowest free slot) is a pass over the lane's own slots
+// and one warp reduction (__reduce_add_sync wraps like int32; the JAX
+// lookups are masked sums, so an absent id gives 0). Writes touch only the
+// lane's own slots. The records of a chunk of 32 columns are loaded one per
+// lane and broadcast with shuffles. Remove: the scratch plane gets each
+// live slot's parent slot (the slot whose id is its parent, -1 for none)
+// on the state before the record; after the splice each lane walks up from
+// each of its slots and clears the slot when the walk reaches the removed
+// node's slot. Live ids are unique (an insert requires the id to be
+// absent), so the walk marks exactly the JAX fixpoint's set (a slot joins
+// when its parent's id is marked); walks are bounded by N steps. Move: the
+// cycle test walks up from the destination with warp lookups. Capacity:
+// nine planes of 4 bytes a slot, N <= tree_max_slots() = 6,456 at 232,448
+// bytes; the wrappers refuse more.
+//
+// Plain C ABI (ctypes): the launch functions return a cudaError_t (0 =
+// launched) or a negative code for a refused shape.
+
+#include <cuda_runtime.h>
+#include <climits>
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRoot = 1;
+constexpr int kPlanes = 8;
+constexpr int kSmemPerSlot = (kPlanes + 1) * 4;  // + the parent-slot plane
+constexpr int kMaxSmem = 232448;
+constexpr int kMaxN = kMaxSmem / kSmemPerSlot;
+constexpr int kMaxWarps = 4;
+constexpr int kExpandThreads = 256;
+constexpr int kErrBadShape = -1;
+constexpr int kErrSmem = -2;
+
+// plane indices in shared memory (the order of TREE_PLANES), then scratch
+enum { NODE = 0, PARENT, FIELD, VALUE, TYPE, PREV, NEXT, CSEQ, PSLOT };
+// record kinds (TreeOpKind)
+enum {
+  kNoop = 0, kInsBegin, kInsGuardAbsent, kTxnBegin, kTxnGuardExists,
+  kInsert, kRemove, kMove, kSetValue, kInsertSolo, kRemoveSolo, kMoveSolo,
+  kSetSolo, kTxnBeginExists
+};
+
+struct ApplyArgs {
+  int* plane[kPlanes];  // (D, N) each
+  int* overflow;        // (D,)
+  const int* rec;       // (9, D, O)
+  const int* base;      // (D,) in wire mode, else null
+  int D, N, O;
+};
+
+// One doc's planes in shared memory, seen by one lane.
+struct Doc {
+  int* s;
+  int N;
+  int lane;
+
+  __device__ int& at(int p, int j) const { return s[p * N + j]; }
+
+  __device__ bool exists(int nid) const {
+    bool hit = false;
+    if (nid != 0)
+      for (int j = lane; j < N; j += 32) hit |= at(NODE, j) == nid;
+    return __any_sync(kFull, hit);
+  }
+
+  // plane[slot_of(nid)] as the JAX masked sum (0 when absent)
+  __device__ int slot_value(int nid, int p) const {
+    unsigned acc = 0;
+    for (int j = lane; j < N; j += 32)
+      if (at(NODE, j) == nid) acc += static_cast<unsigned>(at(p, j));
+    return static_cast<int>(__reduce_add_sync(kFull, acc));
+  }
+
+  __device__ int head_of(int parent, int field) const {
+    unsigned acc = 0;
+    for (int j = lane; j < N; j += 32) {
+      const int id = at(NODE, j);
+      if (id != 0 && at(PARENT, j) == parent && at(FIELD, j) == field &&
+          at(PREV, j) == 0)
+        acc += static_cast<unsigned>(id);
+    }
+    return static_cast<int>(__reduce_add_sync(kFull, acc));
+  }
+
+  // lowest free slot, N when the doc is full
+  __device__ int min_free() const {
+    unsigned best = static_cast<unsigned>(N);
+    for (int j = lane; j < N; j += 32)
+      if (at(NODE, j) == 0) {
+        best = static_cast<unsigned>(j);
+        break;
+      }
+    return static_cast<int>(__reduce_min_sync(kFull, best));
+  }
+
+  // the slot holding nid (INT_MAX when absent)
+  __device__ int slot_of(int nid) const {
+    unsigned best = INT_MAX;
+    for (int j = lane; j < N; j += 32)
+      if (at(NODE, j) == nid) {
+        best = static_cast<unsigned>(j);
+        break;
+      }
+    return static_cast<int>(__reduce_min_sync(kFull, best));
+  }
+
+  // unlink nid: neighbours bridge over it, its attachment planes reset
+  __device__ void splice_out(int nid) const {
+    const int prev = slot_value(nid, PREV);
+    const int nxt = slot_value(nid, NEXT);
+    for (int j = lane; j < N; j += 32) {
+      const int id = at(NODE, j);
+      int nn = at(NEXT, j), pp = at(PREV, j);
+      if (prev != 0 && id == prev) nn = nxt;
+      if (nxt != 0 && id == nxt) pp = prev;
+      if (id == nid) {
+        at(PARENT, j) = 0;
+        at(FIELD, j) = 0;
+        nn = 0;
+        pp = 0;
+      }
+      at(NEXT, j) = nn;
+      at(PREV, j) = pp;
+    }
+    __syncwarp();
+  }
+
+  // splice nid (already in a slot) after a live same-(parent, field)
+  // anchor, else at the field's head
+  __device__ void attach(int nid, int parent, int field, int after) const {
+    const bool anchor_ok = after != 0 && exists(after) &&
+                           slot_value(after, PARENT) == parent &&
+                           slot_value(after, FIELD) == field;
+    const int prev = anchor_ok ? after : 0;
+    int nxt = anchor_ok ? slot_value(after, NEXT) : head_of(parent, field);
+    if (nxt == nid) nxt = 0;  // self-link guard (fresh head)
+    for (int j = lane; j < N; j += 32) {
+      const int id = at(NODE, j);
+      if (id == nid) {
+        at(PARENT, j) = parent;
+        at(FIELD, j) = field;
+        at(PREV, j) = prev;
+        at(NEXT, j) = nxt;
+      }
+      if (prev != 0 && id == prev) at(NEXT, j) = nid;
+      if (nxt != 0 && id == nxt) at(PREV, j) = nid;
+    }
+    __syncwarp();
+  }
+
+  // returns true when the insert would apply but finds no free slot
+  __device__ bool insert(int nd, int pa, int af, int fi, int va, int ty,
+                         int seq, bool nested) const {
+    if (nd == 0) return false;
+    const bool parent_ok = pa == kRoot || exists(pa);
+    if (!parent_ok || exists(nd)) return false;
+    if (nested && slot_value(pa, CSEQ) != seq) return false;
+    const int slot = min_free();
+    if (slot >= N) return true;
+    if ((slot & 31) == lane) {
+      at(NODE, slot) = nd;
+      at(VALUE, slot) = va;
+      at(TYPE, slot) = ty;
+      at(CSEQ, slot) = seq;
+      at(PREV, slot) = 0;
+      at(NEXT, slot) = 0;
+      at(PARENT, slot) = 0;
+      at(FIELD, slot) = 0;
+    }
+    __syncwarp();
+    attach(nd, pa, fi, af);
+    return false;
+  }
+
+  __device__ void remove(int nd) const {
+    if (nd == kRoot || !exists(nd)) return;
+    // each live slot's parent slot, on the state before the splice
+    for (int i = lane; i < N; i += 32) {
+      const int p = at(PARENT, i);
+      int ps = -1;
+      if (at(NODE, i) != 0 && p != 0)
+        for (int j = 0; j < N; ++j)
+          if (at(NODE, j) == p) {
+            ps = j;
+            break;
+          }
+      at(PSLOT, i) = ps;
+    }
+    const int t = slot_of(nd);
+    __syncwarp();
+    splice_out(nd);
+    for (int i = lane; i < N; i += 32) {
+      if (at(NODE, i) == 0) continue;
+      int cur = i;
+      bool marked = false;
+      for (int step = 0; step <= N && cur >= 0; ++step) {
+        if (cur == t) {
+          marked = true;
+          break;
+        }
+        cur = at(PSLOT, cur);
+      }
+      if (marked)
+        for (int p = 0; p < kPlanes; ++p) at(p, i) = 0;
+    }
+    __syncwarp();
+  }
+
+  __device__ void move(int nd, int pa, int af, int fi) const {
+    if (nd == kRoot || !exists(nd) || !exists(pa)) return;
+    // is the destination inside nd's subtree (state before the move)?
+    int cur = pa;
+    for (int step = 0; step <= N; ++step) {
+      if (cur == nd) return;  // a cycle: the move drops
+      if (step > 0 && !exists(cur)) break;
+      const int p = slot_value(cur, PARENT);
+      if (p == 0) break;
+      cur = p;
+    }
+    splice_out(nd);
+    attach(nd, pa, fi, af);
+  }
+
+  __device__ void set_value(int nd, int va) const {
+    if (!exists(nd)) return;
+    for (int j = lane; j < N; j += 32)
+      if (at(NODE, j) == nd) at(VALUE, j) = va;
+    __syncwarp();
+  }
+};
+
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    tree_apply_kernel(ApplyArgs a) {
+  extern __shared__ int smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d = blockIdx.x * warps + warp;
+  if (d >= a.D) return;  // whole warps only: no block barrier below
+  const int N = a.N, O = a.O;
+  const size_t DO = static_cast<size_t>(a.D) * O;
+  const int* rk = a.rec + static_cast<size_t>(d) * O;
+  bool any = false;
+  for (int o = lane; o < O; o += 32) any |= rk[o] != kNoop;
+  if (!__any_sync(kFull, any)) return;
+
+  Doc doc{smem + static_cast<size_t>(warp) * (kPlanes + 1) * N, N, lane};
+  for (int p = 0; p < kPlanes; ++p) {
+    const int* g = a.plane[p] + static_cast<size_t>(d) * N;
+    for (int j = lane; j < N; j += 32) doc.at(p, j) = g[j];
+  }
+  __syncwarp();
+  int ovf = a.overflow[d];
+  bool ok_ins = true, ok_txn = true;
+  const bool wire = a.base != nullptr;
+  const unsigned base = wire ? static_cast<unsigned>(a.base[d]) : 0u;
+  unsigned run = 0;
+
+  for (int o0 = 0; o0 < O; o0 += 32) {
+    int f[9];
+    const int mine = o0 + lane;
+#pragma unroll
+    for (int p = 0; p < 9; ++p) f[p] = mine < O ? rk[p * DO + mine] : 0;
+    const int n = O - o0 < 32 ? O - o0 : 32;
+    for (int r = 0; r < n; ++r) {
+      const int k = __shfl_sync(kFull, f[0], r);
+      const int q = __shfl_sync(kFull, f[8], r);
+      int seq = q;
+      if (wire) {
+        run += static_cast<unsigned>(q);
+        seq = static_cast<int>(base + run - 1u);
+      }
+      if (k == kNoop) continue;
+      const int nd = __shfl_sync(kFull, f[1], r);
+      const int pa = __shfl_sync(kFull, f[2], r);
+      const int af = __shfl_sync(kFull, f[3], r);
+      const int fi = __shfl_sync(kFull, f[4], r);
+      const int va = __shfl_sync(kFull, f[5], r);
+      const int ty = __shfl_sync(kFull, f[6], r);
+      const int me = __shfl_sync(kFull, f[7], r);
+      const bool solo = k >= kInsertSolo && k <= kSetSolo;
+      const int b = solo ? k - 4 : k;
+      const bool begin = b == kTxnBegin || b == kTxnBeginExists;
+      if (b == kInsBegin || begin) ok_ins = true;
+      if (begin) ok_txn = true;
+      if (b == kInsGuardAbsent) ok_ins = ok_ins && !doc.exists(nd);
+      if (b == kTxnGuardExists || b == kTxnBeginExists)
+        ok_txn = ok_txn && doc.exists(nd);
+      const bool ok = (ok_ins && ok_txn) || solo;
+      if (!ok) continue;
+      if (b == kInsert) {
+        if (doc.insert(nd, pa, af, fi, va, ty, seq, (me & 1) != 0)) ovf = 1;
+      } else if (b == kRemove) {
+        doc.remove(nd);
+      } else if (b == kMove) {
+        doc.move(nd, pa, af, fi);
+      } else if (b == kSetValue) {
+        doc.set_value(nd, va);
+      }
+    }
+  }
+
+  for (int p = 0; p < kPlanes; ++p) {
+    int* g = a.plane[p] + static_cast<size_t>(d) * N;
+    for (int j = lane; j < N; j += 32) g[j] = doc.at(p, j);
+  }
+  if (lane == 0) a.overflow[d] = ovf;
+}
+
+struct ExpandArgs {
+  const uint8_t* cols;  // (R, 3)
+  const void* ids;      // (R, 3) u16 or u32
+  const void* vals;     // (R,) u16 or u32
+  const uint16_t* row;  // (R,)
+  const void* pos;      // (R,) u8 or u16
+  const int* id_map;
+  const int* f_map;
+  const int* t_map;
+  const int* v_map;
+  int id_n, f_n, t_n, v_n;
+  int* out;  // (9, D, o), zeroed by the wrapper
+  int R, D, o;
+};
+
+__device__ __forceinline__ int take(const int* map, int n, unsigned i) {
+  return map[i < static_cast<unsigned>(n) ? i : static_cast<unsigned>(n - 1)];
+}
+
+template <typename IdT, typename ValT, typename PosT>
+__global__ void __launch_bounds__(kExpandThreads)
+    tree_expand_kernel(ExpandArgs a) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= a.R) return;
+  const int p = static_cast<int>(static_cast<const PosT*>(a.pos)[r]);
+  const int d = static_cast<int>(a.row[r]);
+  if (p >= a.o || d >= a.D) return;
+  const IdT* ids = static_cast<const IdT*>(a.ids) + 3 * static_cast<size_t>(r);
+  const unsigned c0 = a.cols[3 * static_cast<size_t>(r)];
+  const unsigned c1 = a.cols[3 * static_cast<size_t>(r) + 1];
+  const unsigned c2 = a.cols[3 * static_cast<size_t>(r) + 2];
+  const unsigned meta = c0 >> 4;
+  const size_t DO = static_cast<size_t>(a.D) * a.o;
+  int* out = a.out + static_cast<size_t>(d) * a.o + p;
+  out[0] = static_cast<int>(c0 & 0xF);
+  out[DO] = take(a.id_map, a.id_n, ids[0]);
+  out[2 * DO] = take(a.id_map, a.id_n, ids[1]);
+  out[3 * DO] = take(a.id_map, a.id_n, ids[2]);
+  out[4 * DO] = take(a.f_map, a.f_n, c1);
+  out[5 * DO] = take(a.v_map, a.v_n, static_cast<const ValT*>(a.vals)[r]);
+  out[6 * DO] = take(a.t_map, a.t_n, c2);
+  out[7 * DO] = static_cast<int>(meta & 1);
+  out[8 * DO] = static_cast<int>((meta >> 1) & 1);
+}
+
+template <typename IdT, typename ValT, typename PosT>
+cudaError_t launch_expand(const ExpandArgs& a, cudaStream_t stream) {
+  const int blocks = (a.R + kExpandThreads - 1) / kExpandThreads;
+  tree_expand_kernel<IdT, ValT, PosT><<<blocks, kExpandThreads, 0, stream>>>(
+      a);
+  return cudaGetLastError();
+}
+
+template <typename IdT, typename ValT>
+cudaError_t launch_expand_pos(const ExpandArgs& a, int pos_bytes,
+                              cudaStream_t stream) {
+  return pos_bytes == 1 ? launch_expand<IdT, ValT, uint8_t>(a, stream)
+                        : launch_expand<IdT, ValT, uint16_t>(a, stream);
+}
+
+template <typename IdT>
+cudaError_t launch_expand_val(const ExpandArgs& a, int val_bytes,
+                              int pos_bytes, cudaStream_t stream) {
+  return val_bytes == 2
+             ? launch_expand_pos<IdT, uint16_t>(a, pos_bytes, stream)
+             : launch_expand_pos<IdT, uint32_t>(a, pos_bytes, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+int tree_max_slots() { return kMaxN; }
+
+// K5: the eight state planes (D, N) and overflow (D,), updated in place;
+// rec (9, D, O) in apply_tree_planes order; base (D,) selects wire mode
+// (plane 8 = first-of-op bits), null selects planes mode (plane 8 = seq).
+int tree_apply_launch(int* node_id, int* parent, int* field, int* value,
+                      int* type_, int* prev_sib, int* next_sib,
+                      int* created_seq, int* overflow, const int* rec,
+                      const int* base, int D, int N, int O, void* stream) {
+  if (D < 0 || O < 0 || N < 1 || N > kMaxN) return kErrBadShape;
+  if (D == 0 || O == 0) return 0;
+  ApplyArgs a;
+  int* planes[kPlanes] = {node_id, parent,   field,    value,
+                          type_,   prev_sib, next_sib, created_seq};
+  for (int p = 0; p < kPlanes; ++p) a.plane[p] = planes[p];
+  a.overflow = overflow;
+  a.rec = rec;
+  a.base = base;
+  a.D = D;
+  a.N = N;
+  a.O = O;
+  int warps = kMaxSmem / (kSmemPerSlot * N);
+  if (warps > kMaxWarps) warps = kMaxWarps;
+  const size_t smem = static_cast<size_t>(warps) * kSmemPerSlot * N;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        tree_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return kErrSmem;
+    }
+  }
+  const int blocks = (D + warps - 1) / warps;
+  tree_apply_kernel<<<blocks, warps * 32, smem,
+                      static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6: the wire (cols (R, 3) u8, ids (R, 3) and vals (R,) of id_bytes /
+// val_bytes, row (R,) u16, pos (R,) of pos_bytes) and the four maps into
+// out (9, D, o), which the caller zeroed.
+int tree_expand_launch(const void* cols, const void* ids, const void* vals,
+                       const void* row, const void* pos, const int* id_map,
+                       int id_n, const int* f_map, int f_n, const int* t_map,
+                       int t_n, const int* v_map, int v_n, int* out, int R,
+                       int D, int o, int id_bytes, int val_bytes,
+                       int pos_bytes, void* stream) {
+  if (R < 0 || D < 0 || o < 1 || id_n < 1 || f_n < 1 || t_n < 1 ||
+      v_n < 1 || (id_bytes != 2 && id_bytes != 4) ||
+      (val_bytes != 2 && val_bytes != 4) ||
+      (pos_bytes != 1 && pos_bytes != 2))
+    return kErrBadShape;
+  if (R == 0 || D == 0) return 0;
+  ExpandArgs a;
+  a.cols = static_cast<const uint8_t*>(cols);
+  a.ids = ids;
+  a.vals = vals;
+  a.row = static_cast<const uint16_t*>(row);
+  a.pos = pos;
+  a.id_map = id_map;
+  a.f_map = f_map;
+  a.t_map = t_map;
+  a.v_map = v_map;
+  a.id_n = id_n;
+  a.f_n = f_n;
+  a.t_n = t_n;
+  a.v_n = v_n;
+  a.out = out;
+  a.R = R;
+  a.D = D;
+  a.o = o;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      id_bytes == 2 ? launch_expand_val<uint16_t>(a, val_bytes, pos_bytes, s)
+                    : launch_expand_val<uint32_t>(a, val_bytes, pos_bytes, s);
+  return static_cast<int>(e);
+}
+
+const char* tree_error_string(int err) {
+  if (err == kErrBadShape)
+    return "refused shape: N must be in [1, tree_max_slots()], the wire "
+           "widths 2 or 4 bytes (ids, values) and 1 or 2 (pos), every map "
+           "non-empty";
+  if (err == kErrSmem) return "refused dynamic shared memory opt-in";
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

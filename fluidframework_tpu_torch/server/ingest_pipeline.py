@@ -7,7 +7,10 @@ executor runs the SAME stage methods on three worker threads so the stage
 sum becomes a max:
 
 - **pack worker** — ``_ingest_prepare(prepack=True)``: validation + the
-  interner/table build, FIFO, for wave N+1 while wave N is on the device;
+  interner/table build, FIFO, for wave N+1 while wave N is on the device.
+  A wave that could not be prepacked (a tree wave on the dense path, whose
+  table handles mint at dispatch) holds the worker until that wave has
+  dispatched, so handles are minted in submission order;
 - **seq/dispatch worker** — ``_ingest_sequence`` + ``_ingest_dispatch``:
   the native sequencing call and the asynchronous kernel launch share one
   thread (they share the sequencer and the compaction cursor). Kernels
@@ -63,11 +66,15 @@ class IngestTicket:
     result dict after the wave's log append commits, or with the stage
     exception."""
 
-    __slots__ = ("index", "_event", "_result", "_error", "wave", "t_done")
+    __slots__ = ("index", "_event", "_result", "_error", "wave", "t_done",
+                 "_dispatched")
 
     def __init__(self, index: int):
         self.index = index
         self.wave = None
+        # set once the wave has dispatched (or failed): the pack worker's
+        # barrier behind a wave it could not prepack
+        self._dispatched = threading.Event()
         #: perf_counter() when the ticket resolved (per-wave wall)
         self.t_done: Optional[float] = None
         self._event = threading.Event()
@@ -203,6 +210,7 @@ class PipelinedIngestExecutor:
 
     def _finish(self, ticket: IngestTicket, result: Optional[dict] = None,
                 error: Optional[BaseException] = None) -> None:
+        ticket._dispatched.set()   # release any pack-worker barrier
         ticket._resolve(result=result, error=error)
         self._sem.release()
         with self._cond:
@@ -245,6 +253,11 @@ class PipelinedIngestExecutor:
                 lambda: eng._ingest_prepare(*args, prepack=True, **kwargs))
             if ok:
                 self._seq_q.put(ticket)
+                if ticket.wave.prepacked is None:
+                    # its interner writes happen at dispatch: packing the
+                    # next wave's tables first would mint handles out of
+                    # submission order
+                    ticket._dispatched.wait()
 
     def _seq_worker(self) -> None:
         eng = self.engine
@@ -262,6 +275,7 @@ class PipelinedIngestExecutor:
                 eng._ingest_dispatch(ticket.wave)
 
             if self._stage("seq_dispatch", ticket, body)[0]:
+                ticket._dispatched.set()
                 self._log_q.put(ticket)
 
     def _log_worker(self) -> None:

@@ -1,7 +1,7 @@
 """The replica serving engines: sequencer + partitioned log + batched device
 merge, for many SharedString documents (``StringServingEngine``), SharedMap
-documents (``MapServingEngine``) or SharedMatrix documents
-(``MatrixServingEngine``).
+documents (``MapServingEngine``), SharedMatrix documents
+(``MatrixServingEngine``) or SharedTree documents (``TreeServingEngine``).
 
 Reference counterpart: the Routerlicious pipeline around the op-merge hot
 path — Alfred ingress → Deli sequencing → Kafka → broadcast — with the
@@ -50,8 +50,12 @@ from ..ops.map_kernel import TensorMapStore, pack_map_batch, refuse_mesh
 from ..ops.matrix_kernel import TensorMatrixStore, tuple_key
 from ..ops.schema import OpKind, positions_in_doc
 from ..ops.string_store import TensorStringStore
+from ..ops import tree_apply
+from ..ops.tree_kernel import TreeOpKind
+from ..ops.tree_store import ANON_BASE, TensorTreeStore
 from .deli import DeliSequencer, Nack, NackReason
 from .oplog import OplogCorruptionError, PartitionedLog, partition_of
+from .tree_wire import decode_records, encode_leaf_records, encode_tree_batch
 
 
 class DedupLedger:
@@ -2124,6 +2128,871 @@ class MatrixServingEngine(ServingEngineBase):
         # re-base the axis-slot admission bound from the restored planes
         # (a zeroed bound would admit ops the full axis cannot hold)
         engine._axis_used = axis.state.count.cpu().numpy().astype(np.int64)
+        engine._replay_tail(summary)
+        engine.flush()
+        return engine
+
+
+@dataclasses.dataclass
+class TreeRecordOps:
+    """A columnar run of sequenced tree ops in the log: per-op sequencing
+    planes plus the RAW record planes and their batch-local tables
+    (``server.tree_wire`` documents the wire). Recovery re-applies the
+    record planes bit for bit; ``expand`` decodes op dicts only for audit
+    and oracle replay."""
+
+    doc_ids: List[str]          # row-local doc-id table
+    doc: np.ndarray             # (N,) index into doc_ids
+    client: np.ndarray          # (N,)
+    client_seq: np.ndarray      # (N,)
+    ref_seq: np.ndarray         # (N,)
+    seq: np.ndarray             # (N,)
+    min_seq: np.ndarray         # (N,)
+    rec_op: np.ndarray          # (R,) op index per record, ascending
+    recs: np.ndarray            # (R, 8) kind, node, parent, after, field,
+    #                             value, type_, meta (batch-local handles)
+    ids: List[str]              # 1-based tables (handle h <-> table[h-1])
+    fields: List[str]
+    types: List[str]
+    values: list
+    timestamp: float = 0.0
+
+    def _op_slices(self):
+        """(start, end) record range per op (rec_op ascends)."""
+        n = len(self.seq)
+        starts = np.searchsorted(self.rec_op, np.arange(n), side="left")
+        ends = np.searchsorted(self.rec_op, np.arange(n), side="right")
+        return starts, ends
+
+    def expand(self, only_doc: Optional[str] = None
+               ) -> List[SequencedDocumentMessage]:
+        """Per-op messages with decoded dict contents (one vectorised
+        decode pass over the run), or only ``only_doc``'s."""
+        idxs = range(len(self.seq))
+        if only_doc is not None:
+            if only_doc not in self.doc_ids:
+                return []
+            want = self.doc_ids.index(only_doc)
+            idxs = np.flatnonzero(np.asarray(self.doc) == want)
+        ops = decode_records(self.rec_op, self.recs, self.ids,
+                             self.fields, self.types, self.values)
+        out = []
+        for i in idxs:
+            out.append(SequencedDocumentMessage(
+                doc_id=self.doc_ids[int(self.doc[i])],
+                client_id=int(self.client[i]),
+                client_seq=int(self.client_seq[i]),
+                ref_seq=int(self.ref_seq[i]), seq=int(self.seq[i]),
+                min_seq=int(self.min_seq[i]), type=MessageType.OP,
+                contents=ops[int(i)], timestamp=self.timestamp))
+        return out
+
+
+class _TreeIngestWave:
+    """Per-wave carrier threaded through the tree engine's four
+    columnar-ingest stages (the same ``PipelinedIngestExecutor`` hands it
+    from worker to worker; ``ingest_records`` walks it in place)."""
+    __slots__ = (
+        "t_start", "n", "rows", "uniq_rows", "batch", "rec_op", "recs",
+        "client", "cseq", "ref", "prepacked", "pipelined", "prep_ms",
+        "prepack_ms", "seq_ms", "dispatch_ms", "log_ms", "out_seq",
+        "out_min", "nacked", "n_ok", "keep", "ok")
+
+    def __init__(self):
+        self.prepacked = None
+        self.pipelined = False
+        self.prep_ms = 0.0
+        self.prepack_ms = 0.0
+        self.seq_ms = 0.0
+        self.dispatch_ms = 0.0
+        self.log_ms = 0.0
+
+
+class TreeServingEngine(ServingEngineBase):
+    """Sequencer + log + batched device merge for SharedTree documents, on
+    ``device`` (default the card; ``device="cpu"`` runs the plain
+    versions). Ops are the SharedTree wire dicts (insert / remove / move /
+    setValue / transaction), submitted one by one or as pre-encoded record
+    batches (``ingest_records`` / ``ingest_batch`` / ``ingest_leaves``);
+    every apply is one launch of the tree record scan (plus the wire
+    expansion on the compact-wire route). ``store`` adopts an existing
+    store (``load``); ``mesh`` is refused (ROADMAP B9).
+
+    Capacity: node slots are per doc row; an insert that finds no free
+    slot sets the doc's sticky overflow flag and drops on the device.
+    ``recover_overflowed`` rebuilds such a doc from its whole log history
+    at doubled capacity (the same apply), then re-uploads it into its row
+    when it fits or graduates it to a single-doc store of its own. Stores
+    recovery builds sit on the engine's device; on the card a rebuild past
+    what the kernel takes raises MemoryError."""
+
+    def __init__(self, n_docs: int, capacity: int = 256,
+                 batch_window: int = 64, n_partitions: int = 8,
+                 log: Optional[PartitionedLog] = None,
+                 store: Optional[TensorTreeStore] = None,
+                 sequencer: str = "python", mesh=None, device="cuda"):
+        refuse_mesh(mesh)
+        super().__init__(n_docs, batch_window, n_partitions, log=log,
+                         sequencer=sequencer)
+        self.store = store if store is not None \
+            else TensorTreeStore(n_docs, capacity, device)
+        self.device = self.store.device
+        self.capacity = self.store.capacity
+        # terminal tier: docs too big for the batched store, each in a
+        # single-doc store sharing the main store's interners
+        self._graduated: Dict[str, TensorTreeStore] = {}
+        self._grad_queue: Dict[str, List[SequencedDocumentMessage]] = {}
+
+    def allocate_node_ids(self, count: int) -> int:
+        """Reserve ``count`` numeric node ids; returns the base handle (ids
+        are ``#<base>`` .. ``#<base+count-1>``, never interned)."""
+        return self.store._ids.reserve(count)
+
+    def sync(self) -> np.ndarray:
+        """Device -> host read of the per-row overflow flags."""
+        return self.store.overflowed()
+
+    # ------------------------------------------------------------ validation
+
+    _EDIT_KINDS = ("insert", "remove", "move", "setValue", "transaction")
+
+    def _valid_spec(self, spec: Any, depth: int = 0) -> bool:
+        if depth > 64 or not isinstance(spec, dict) \
+                or not isinstance(spec.get("id"), str) or not spec["id"]:
+            return False
+        if spec.get("type") is not None \
+                and not isinstance(spec["type"], str):
+            return False
+        try:
+            json.dumps(spec.get("value"))
+        except (TypeError, ValueError):
+            return False
+        kids = spec.get("children")
+        if kids is None:
+            return True
+        if not isinstance(kids, dict):
+            return False
+        for field, specs in kids.items():
+            if not isinstance(field, str) or not isinstance(specs, list):
+                return False
+            if not all(self._valid_spec(c, depth + 1) for c in specs):
+                return False
+        return True
+
+    def _valid_edit(self, op: Any, depth: int = 0) -> bool:
+        if depth > 8 or not isinstance(op, dict) \
+                or op.get("op") not in self._EDIT_KINDS:
+            return False
+        kind = op["op"]
+        if kind == "insert":
+            return (isinstance(op.get("parent"), str)
+                    and isinstance(op.get("field"), str)
+                    and (op.get("after") is None
+                         or isinstance(op["after"], str))
+                    and isinstance(op.get("nodes"), list)
+                    and len(op["nodes"]) >= 1
+                    and all(self._valid_spec(s) for s in op["nodes"]))
+        if kind == "remove":
+            return isinstance(op.get("id"), str) and bool(op["id"])
+        if kind == "move":
+            return (isinstance(op.get("id"), str)
+                    and isinstance(op.get("parent"), str)
+                    and isinstance(op.get("field"), str)
+                    and (op.get("after") is None
+                         or isinstance(op["after"], str)))
+        if kind == "setValue":
+            # "value" must be present: a logged op that flush cannot apply
+            # poisons recovery
+            if not isinstance(op.get("id"), str) or "value" not in op:
+                return False
+            try:
+                json.dumps(op["value"])
+            except (TypeError, ValueError):
+                return False
+            return True
+        # transaction, top level only: a nested transaction's constraints
+        # cannot share the single device gate (ok_txn)
+        if depth > 0:
+            return False
+        cons = op.get("constraints", [])
+        if not (isinstance(cons, list)
+                and all(isinstance(c, dict)
+                        and isinstance(c.get("nodeExists"), str)
+                        for c in cons)):
+            return False
+        return (isinstance(op.get("edits"), list) and len(op["edits"]) >= 1
+                and all(self._valid_edit(e, depth + 1)
+                        for e in op["edits"]))
+
+    def _valid_op(self, contents: Any) -> bool:
+        return self._valid_edit(contents)
+
+    # ----------------------------------------------------------- device side
+
+    def _admit(self, doc_id: str, contents: Any,
+               client_id: int = -1) -> None:
+        if doc_id not in self._graduated:
+            # a graduated doc owns its store: no flat row is pinned again
+            self.doc_row(doc_id)
+
+    def _enqueue(self, doc_id: str, msg: SequencedDocumentMessage) -> None:
+        if doc_id in self._graduated:
+            self._grad_queue.setdefault(doc_id, []).append(msg)
+        else:
+            self._queue.append((self.doc_row(doc_id), msg))
+
+    def _queued(self) -> int:
+        return len(self._queue) + sum(map(len, self._grad_queue.values()))
+
+    def _flush_impl(self) -> int:
+        n = len(self._queue)
+        if self._queue:
+            self.store.apply_messages(self._queue)
+            self._queue.clear()
+        for doc_id, msgs in self._grad_queue.items():
+            if msgs:
+                self._graduated[doc_id].apply_messages(
+                    (0, m) for m in msgs)
+                n += len(msgs)
+                msgs.clear()
+        return n
+
+    # ------------------------------------------------------- columnar ingest
+
+    def _validate_record_batch(self, batch: dict, n_ops: int):
+        """Bounds-check a wire record batch. Only bounds matter for state
+        safety: the kernel guards every merge rule, and recovery re-applies
+        the same raw planes."""
+        rec_op = np.ascontiguousarray(batch["rec_op"], np.int64)
+        recs = np.ascontiguousarray(batch["recs"], np.int32)
+        if recs.ndim != 2 or recs.shape[1] != 8 \
+                or recs.shape[0] != len(rec_op):
+            raise ValueError("record planes malformed")
+        r = len(rec_op)
+        if r and (rec_op[0] < 0 or rec_op[-1] >= n_ops
+                  or np.any(np.diff(rec_op) < 0)):
+            raise ValueError("rec_op must ascend within the op batch")
+        # every op owns >= 1 record: a record-less op would be sequenced
+        # but invisible to the seq derivation and the decoder
+        if not np.array_equal(np.unique(rec_op), np.arange(n_ops)):
+            raise ValueError("rec_op must cover every op in the batch")
+        # id entries may be ints: numeric handles of the anonymous
+        # namespace, passed through without interning
+        if not all((isinstance(s, str) and s)
+                   or (isinstance(s, int) and not isinstance(s, bool)
+                       and ANON_BASE <= s < (1 << 31))
+                   for s in batch["ids"]):
+            raise ValueError("every id table entry must be a non-empty "
+                             "str or a numeric handle in the anonymous "
+                             "namespace")
+        for tab, what in ((batch["fields"], "field"),
+                          (batch["types"], "type")):
+            if not all(isinstance(s, str) and s for s in tab):
+                raise ValueError(
+                    f"every {what} table entry must be a non-empty str")
+        try:  # values land in the log record and the interner
+            json.dumps(batch["values"], sort_keys=True)
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"unserializable value table: {e}") from None
+        if r:
+            k = recs[:, 0]
+            if not ((k >= 1) &
+                    (k <= int(TreeOpKind.TXN_BEGIN_EXISTS))).all():
+                raise ValueError("record kind out of range")
+            for col, size, what in (
+                    (1, len(batch["ids"]), "node"),
+                    (2, len(batch["ids"]), "parent"),
+                    (3, len(batch["ids"]), "after"),
+                    (4, len(batch["fields"]), "field"),
+                    (5, len(batch["values"]), "value"),
+                    (6, len(batch["types"]), "type")):
+                c = recs[:, col]
+                if not ((c >= 0) & (c <= size)).all():
+                    raise ValueError(f"{what} handle out of table bounds")
+            me = recs[:, 7]
+            if not ((me >= 0) & (me <= 1)).all():
+                raise ValueError("record meta out of range")
+        return rec_op, recs
+
+    def _map_records(self, recs: np.ndarray, tables: dict) -> np.ndarray:
+        """Batch-local table indices -> store interner handles (ids, then
+        fields, types, values: the JAX engine's interning order)."""
+        def table_map(items, interner):
+            m = np.zeros(len(items) + 1, np.int32)
+            if items:
+                m[1:] = interner.bulk(items)
+            return m
+
+        id_map = table_map(tables["ids"], self.store._ids)
+        f_map = table_map(tables["fields"], self.store._fields)
+        t_map = table_map(tables["types"], self.store._types)
+        v_map = table_map(tables["values"], self.store._values)
+        g = np.empty_like(recs)
+        g[:, 0] = recs[:, 0]
+        g[:, 1] = id_map[recs[:, 1]]
+        g[:, 2] = id_map[recs[:, 2]]
+        g[:, 3] = id_map[recs[:, 3]]
+        g[:, 4] = f_map[recs[:, 4]]
+        g[:, 5] = v_map[recs[:, 5]]
+        g[:, 6] = t_map[recs[:, 6]]
+        g[:, 7] = recs[:, 7]
+        return g
+
+    def _wire_eligible(self, batch: dict) -> bool:
+        """Can this batch ride the compact wire? The id / value lanes widen
+        to u32, so only the u8 field / type lanes and the u16 row lane
+        bound it."""
+        return (len(batch["ids"]) < 0x7FFFFFFF
+                and len(batch["fields"]) < 0xFF
+                and len(batch["types"]) < 0xFF
+                and len(batch["values"]) < 0x7FFFFFFF
+                and self.n_docs <= 0x10000)
+
+    _WIRE_R_FLOOR = 256   # pow2 record-padding floor
+
+    def _wave_base(self, rows: np.ndarray, out_seq: np.ndarray,
+                   ok: np.ndarray) -> np.ndarray:
+        """(D,) each doc's first op seq of the wave (op seqs are
+        consecutive per doc within a wave)."""
+        base = np.zeros(self.n_docs, np.int32)
+        if len(ok):
+            uniq, firsti = np.unique(rows[ok], return_index=True)
+            base[uniq] = out_seq[ok][firsti].astype(np.int32)
+        return base
+
+    def _dispatch_wire(self, batch, recs, rec_op, keep, rows, out_seq,
+                       nacked):
+        """Pack the kept records into pooled wire buffers and dispatch the
+        compact-wire apply. Returns the prep / dispatch split time, or None
+        when the dense path must take the batch (o too wide)."""
+        rec_op_k = rec_op[keep]
+        pp = self.store.prepack_wire(recs[keep], rec_op_k,
+                                     rows[rec_op_k].astype(np.int64), batch,
+                                     r_floor=self._WIRE_R_FLOOR)
+        if pp is None:
+            return None
+        base = self._wave_base(rows, out_seq, np.flatnonzero(~nacked))
+        t_prep = time.perf_counter()
+        self.store.apply_wire_prepacked(pp, base)
+        return t_prep
+
+    def _ingest_prepare(self, doc_ids: Optional[List[str]], clients,
+                        client_seqs, ref_seqs, batch: dict,
+                        rows: Optional[np.ndarray] = None,
+                        prepack: bool = False) -> _TreeIngestWave:
+        """Stage 1: validation, row resolution, row handles and (pipelined
+        mode) the pooled wire pack and interner maps, all independent of
+        sequencing."""
+        raw = getattr(self.deli, "raw", None)
+        if raw is None:
+            raise RuntimeError("batch ingest requires sequencer='native'")
+        w = _TreeIngestWave()
+        w.t_start = time.perf_counter()
+        n = len(doc_ids) if rows is None else len(rows)
+        if not (len(clients) == len(client_seqs) == len(ref_seqs) == n):
+            raise ValueError("batch fields must have equal length")
+        w.rec_op, w.recs = self._validate_record_batch(batch, n)
+        if rows is None:
+            if self._graduated and any(d in self._graduated
+                                       for d in doc_ids):
+                raise ValueError("a targeted doc has graduated off the "
+                                 "flat tier; route its ops through "
+                                 "submit()")
+            rows = np.fromiter((self.doc_row(d) for d in doc_ids),
+                               np.int32, count=n)
+        else:
+            rows = np.ascontiguousarray(rows, np.int32)
+            if n and not ((rows >= 0) & (rows < self.n_docs)).all():
+                raise ValueError("row out of range")
+        w.rows, w.n = rows, n
+        w.uniq_rows = np.unique(rows)
+        # a row without a doc fails here (KeyError)
+        self._fill_row_handles(w.uniq_rows, raw)
+        w.batch = batch
+        w.client = np.ascontiguousarray(clients, np.int32)
+        w.cseq = np.ascontiguousarray(client_seqs, np.int32)
+        w.ref = np.ascontiguousarray(ref_seqs, np.int32)
+        w.prep_ms = (time.perf_counter() - w.t_start) * 1000
+        if prepack:
+            w.pipelined = True
+            if self._wire_eligible(batch):
+                t0 = time.perf_counter()
+                # every record, ahead of sequencing (a nacked wave discards
+                # it at dispatch); None -> the dense path, which mints
+                # table handles at dispatch (the executor then holds the
+                # next wave's pack until this wave has dispatched)
+                w.prepacked = self.store.prepack_wire(
+                    w.recs, w.rec_op, rows[w.rec_op].astype(np.int64),
+                    batch, r_floor=self._WIRE_R_FLOOR)
+                w.prepack_ms = (time.perf_counter() - t0) * 1000
+        return w
+
+    def _ingest_sequence(self, w: _TreeIngestWave) -> None:
+        """Stage 2: per-op queue flush, one native sequencing call, nack
+        masks and the per-doc window floors."""
+        self.flush()  # per-op queue first: per-doc seq order must hold
+        t0 = time.perf_counter()
+        w.out_seq, w.out_min, w.nacked, w.n_ok = self._sequence_columnar(
+            self.deli.raw, self._row_handle[w.rows], w.client, w.cseq,
+            w.ref)
+        w.keep = ~w.nacked[w.rec_op] if len(w.rec_op) \
+            else np.zeros(0, bool)
+        w.ok = np.flatnonzero(~w.nacked)
+        if len(w.ok):
+            # the last op of each doc carries its latest min_seq
+            rows_ok = w.rows[w.ok]
+            order = np.argsort(rows_ok, kind="stable")
+            rs = rows_ok[order]
+            ms = w.out_min[w.ok][order]
+            starts = np.r_[0, np.flatnonzero(np.diff(rs)) + 1]
+            lasts = np.r_[starts[1:] - 1, len(rs) - 1]
+            rdi = self._row_doc_id
+            self._min_seq.update(
+                zip((rdi[int(r)] for r in rs[starts]),
+                    (int(m) for m in ms[lasts])))
+        w.seq_ms = (time.perf_counter() - t0) * 1000
+
+    def _ingest_dispatch(self, w: _TreeIngestWave) -> None:
+        """Stage 3: the asynchronous device merge, by the prepacked wire,
+        the inline wire pack or the dense planes. It is dispatched before
+        the log append, which runs under it."""
+        t0 = time.perf_counter()
+        pp = w.prepacked
+        if pp is not None and w.nacked.any():
+            # rare: the prepack holds every record; drop it and repack
+            # inline below with the keep mask
+            self.store.release_wire(pp)
+            pp = w.prepacked = None
+        t_prep = None
+        if pp is not None:
+            base = self._wave_base(w.rows, w.out_seq, w.ok)
+            t_prep = time.perf_counter()
+            self.store.apply_wire_prepacked(pp, base)
+            w.prepacked = None
+        elif self._wire_eligible(w.batch):
+            t_prep = self._dispatch_wire(w.batch, w.recs, w.rec_op,
+                                         w.keep, w.rows, w.out_seq,
+                                         w.nacked)
+        if t_prep is None:
+            # dense path: tables mapped on the host, int32 planes
+            g = self._map_records(w.recs, w.batch)
+            rows_r = w.rows[w.rec_op][w.keep]
+            seq_r = w.out_seq[w.rec_op][w.keep]
+            t_prep = time.perf_counter()
+            self.store.apply_records(rows_r, g[w.keep], seq_r)
+        w.prep_ms += (t_prep - t0) * 1000
+        w.dispatch_ms = (time.perf_counter() - t_prep) * 1000
+
+    def _ingest_log(self, w: _TreeIngestWave) -> dict:
+        """Stage 4: the whole-batch log append (the ack barrier: the poison
+        clears and callers may ack only after it)."""
+        t0 = time.perf_counter()
+        ok = w.ok
+        doc_tab = [self._row_doc_id[int(r)] for r in w.uniq_rows]
+        doc_plane = np.searchsorted(w.uniq_rows,
+                                    w.rows[ok]).astype(np.int32)
+        new_idx = np.cumsum(~w.nacked) - 1   # op index among kept ops
+        ref_clamped = self._clamped_ref(w.ref, w.out_seq)
+        batch = w.batch
+        self._append_columnar(TreeRecordOps(
+            doc_tab, doc_plane,
+            w.client[ok], w.cseq[ok], ref_clamped[ok], w.out_seq[ok],
+            w.out_min[ok], new_idx[w.rec_op][w.keep],
+            np.ascontiguousarray(w.recs[w.keep]),
+            list(batch["ids"]), list(batch["fields"]),
+            list(batch["types"]), list(batch["values"]),
+            timestamp=self.deli.clock()))
+        w.log_ms = (time.perf_counter() - t0) * 1000
+        return {"seq": w.out_seq, "nacked": int(w.nacked.sum()),
+                "stage_ms": {"prep": w.prep_ms, "prepack": w.prepack_ms,
+                             "seq": w.seq_ms, "dispatch": w.dispatch_ms,
+                             "log": w.log_ms}}
+
+    def ingest_records(self, doc_ids: Optional[List[str]], clients,
+                       client_seqs, ref_seqs, batch: dict,
+                       rows: Optional[np.ndarray] = None) -> dict:
+        """The tree volume path: N edits of any kind (op i targets
+        ``doc_ids[i]``, or the cached row ``rows[i]``; per-doc order = list
+        order), pre-encoded in the record wire format
+        (``server.tree_wire``): one native sequencing call, one table ->
+        interner mapping, one batched device apply, one raw-plane log
+        record (``TreeRecordOps``). Nacked ops' records are dropped
+        everywhere. Cached rows go stale when ``recover_overflowed``
+        graduates a doc. Returns {"seq": (N,) (negative = nack code),
+        "nacked", "stage_ms"}.
+
+        The serial walk of the four stage methods above; the
+        ``PipelinedIngestExecutor`` runs the same stages on its workers
+        (``ex.submit(None, clients, client_seqs, ref_seqs, batch,
+        rows=rows)``)."""
+        self._check_poisoned()
+        w = self._ingest_prepare(doc_ids, clients, client_seqs,
+                                 ref_seqs, batch, rows=rows)
+        self._ingest_sequence(w)
+        self._ingest_dispatch(w)
+        return self._ingest_log(w)
+
+    def ingest_batch(self, doc_ids: List[str], clients, client_seqs,
+                     ref_seqs, ops: List[dict]) -> dict:
+        """Dict ops over ``ingest_records``: validate and encode each op
+        through the canonical ``RecordEmitter``, then the record path."""
+        if len(ops) != len(doc_ids):
+            raise ValueError("batch fields must have equal length")
+        for op in ops:
+            if not self._valid_op(op):
+                raise ValueError(f"malformed tree op {op!r}")
+        return self.ingest_records(doc_ids, clients, client_seqs, ref_seqs,
+                                   encode_tree_batch(ops))
+
+    def ingest_leaves(self, doc_ids: List[str], clients, client_seqs,
+                      ref_seqs, parents: List[str], fields: List[str],
+                      node_ids: List[str], values: list,
+                      types: Optional[List[str]] = None,
+                      afters: Optional[List[Optional[str]]] = None
+                      ) -> dict:
+        """The flat path: N single-node inserts (op i creates
+        ``node_ids[i]`` under ``parents[i]`` / ``fields[i]``), each one
+        ``INSERT_SOLO`` record: a validated front over
+        ``tree_wire.encode_leaf_records`` + ``ingest_records``."""
+        n = len(node_ids)
+        types = types if types is not None else [None] * n
+        afters = afters if afters is not None else [None] * n
+        if not (len(doc_ids) == len(clients) == len(client_seqs)
+                == len(ref_seqs) == len(parents) == len(fields)
+                == len(values) == len(types) == len(afters) == n):
+            raise ValueError("batch fields must have equal length")
+        for lst, what in ((parents, "parent"), (fields, "field"),
+                          (node_ids, "node id")):
+            if not all(isinstance(x, str) and x for x in lst):
+                raise ValueError(f"every {what} must be a non-empty str")
+        if not all(t is None or isinstance(t, str) for t in types):
+            raise ValueError("every type must be a str or None")
+        if not all(a is None or (isinstance(a, str) and a)
+                   for a in afters):
+            raise ValueError("every after must be a non-empty str or None")
+        try:  # values land in the log record and the interner
+            json.dumps(values, sort_keys=True)
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"unserializable node value: {e}") from None
+        return self.ingest_records(
+            doc_ids, clients, client_seqs, ref_seqs,
+            encode_leaf_records(parents, fields, node_ids, values,
+                                types, afters))
+
+    def _store_of(self, doc_id: str):
+        """(store, row) owning this doc."""
+        if doc_id in self._graduated:
+            return self._graduated[doc_id], 0
+        return self.store, self.doc_row(doc_id)
+
+    # ----------------------------------------------------------------- reads
+
+    def to_dict(self, doc_id: str) -> dict:
+        self.flush()
+        store, row = self._store_of(doc_id)
+        return store.to_dict(row)
+
+    def node_value(self, doc_id: str, node_id: str):
+        self.flush()
+        store, row = self._store_of(doc_id)
+        return store.node_value(row, node_id)
+
+    def has_node(self, doc_id: str, node_id: str) -> bool:
+        self.flush()
+        store, row = self._store_of(doc_id)
+        return store.has_node(row, node_id)
+
+    def node_count(self, doc_id: str) -> int:
+        self.flush()
+        store, row = self._store_of(doc_id)
+        return store.node_count(row)
+
+    # ----------------------------------------------------- overflow recovery
+
+    def overflowed_docs(self) -> List[str]:
+        flags = self.store.overflowed()
+        out = [d for d, row in self._doc_rows.items() if flags[row]]
+        out += [d for d, s in self._graduated.items()
+                if s.overflowed().any()]
+        return out
+
+    def _doc_log_messages(self, doc_id: str):
+        """Every sequenced OP message of one doc, seq-ascending, with
+        decoded dict contents (oracle replay / audit; the rebuild uses
+        ``_doc_log_records``). Whole-batch records round-robin across
+        partitions, so every partition is scanned."""
+        p_own = partition_of(doc_id, self.log.n_partitions)
+        msgs = []
+        for p in range(self.log.n_partitions):
+            for rec in self.log.read(p):
+                if hasattr(rec, "expand"):
+                    msgs.extend(rec.expand(only_doc=doc_id))
+                elif p == p_own and rec.doc_id == doc_id \
+                        and rec.type == MessageType.OP:
+                    msgs.append(rec)
+        msgs.sort(key=lambda m: m.seq)
+        return msgs
+
+    def _doc_log_records(self, doc_id: str):
+        """One doc's whole raw record history as seq-ascending per-op
+        (seq, records) chunks in the store's handle space:
+        ``TreeRecordOps`` contribute their planes bit for bit, per-op
+        messages re-encode through the canonical emitter."""
+        p_own = partition_of(doc_id, self.log.n_partitions)
+        emitter = self.store.emitter
+        chunks: List[tuple] = []   # (seq, (k, 8) global-handle records)
+
+        def add_msg(m):
+            chunks.append((m.seq,
+                           np.array(emitter.emit_op(m.contents), np.int32)))
+
+        for p in range(self.log.n_partitions):
+            for rec in self.log.read(p):
+                if isinstance(rec, TreeRecordOps):
+                    if doc_id not in rec.doc_ids:
+                        continue
+                    want = rec.doc_ids.index(doc_id)
+                    sel = np.flatnonzero(np.asarray(rec.doc) == want)
+                    if not len(sel):
+                        continue
+                    g = self._map_records(
+                        np.ascontiguousarray(rec.recs, np.int32),
+                        {"ids": rec.ids, "fields": rec.fields,
+                         "types": rec.types, "values": rec.values})
+                    starts, ends = rec._op_slices()
+                    for i in sel:
+                        chunks.append((int(rec.seq[i]),
+                                       g[starts[i]:ends[i]]))
+                elif isinstance(rec, ColumnarOps):
+                    for m in rec.expand(only_doc=doc_id):
+                        add_msg(m)
+                elif p == p_own and rec.doc_id == doc_id \
+                        and rec.type == MessageType.OP:
+                    add_msg(rec)
+        chunks.sort(key=lambda c: c[0])
+        return chunks
+
+    _REBUILD_CHUNK = 2048   # bounds the packed scan length per apply
+
+    @staticmethod
+    def _chunked_ops(chunks):
+        """Group per-op (seq, recs) chunks into apply batches of at most
+        ``_REBUILD_CHUNK`` records WITHOUT splitting an op: the kernel
+        resets the group flags per apply, so a transaction's records must
+        land in one batch."""
+        batch: List[tuple] = []
+        size = 0
+        for seq, recs in chunks:
+            if batch and size + len(recs) > TreeServingEngine._REBUILD_CHUNK:
+                yield batch
+                batch, size = [], 0
+            batch.append((seq, recs))
+            size += len(recs)
+        if batch:
+            yield batch
+
+    @staticmethod
+    def _flatten_ops(batch):
+        recs = np.concatenate([c[1] for c in batch])
+        seqs = np.concatenate([np.full(len(c[1]), c[0], np.int64)
+                               for c in batch])
+        return recs, seqs
+
+    def _check_rebuild_capacity(self, doc_id: str, cap: int,
+                                grow_limit: int) -> None:
+        """Refuse a rebuild at capacity ``cap`` past ``grow_limit`` or, on
+        the card, past what the tree_apply kernel takes."""
+        if cap > grow_limit:
+            raise MemoryError(
+                f"{doc_id}: rebuild exceeds grow limit {grow_limit}")
+        if self.device.type == "cuda" and cap > tree_apply.max_slots():
+            raise MemoryError(
+                f"{doc_id}: a rebuild at capacity {cap} is past what the "
+                f"tree_apply kernel takes (N <= {tree_apply.max_slots()} "
+                "node slots, nine planes of a doc in shared memory)")
+
+    def _rebuild_doc(self, doc_id: str, start_capacity: int,
+                     grow_limit: int) -> TensorTreeStore:
+        """Replay the doc's whole raw record history into a fresh
+        single-doc store sharing the batched store's interners (so its
+        planes can be adopted verbatim), doubling the capacity until it
+        fits; chunked applies keep the scan length bounded."""
+        chunks = self._doc_log_records(doc_id)
+        cap = max(start_capacity, 64)
+        while True:
+            cap *= 2
+            self._check_rebuild_capacity(doc_id, cap, grow_limit)
+            tmp = TensorTreeStore(1, cap, self.device)
+            tmp.share_interners(self.store)
+            for batch in self._chunked_ops(chunks):
+                recs, seqs = self._flatten_ops(batch)
+                tmp.apply_records(np.zeros(len(recs), np.int64), recs,
+                                  seqs)
+            if not tmp.overflowed().any():
+                tmp.repack()   # slot churn must not inflate the fit check
+                return tmp
+
+    def recover_overflowed(self, grow_limit: int = 1 << 16
+                           ) -> Dict[str, str]:
+        """Heal every overflowed doc from its log history: re-upload it
+        into its row when the rebuild fits, else graduate it; a graduated
+        store that overflows is rebuilt at doubled capacity. No acked op
+        is lost. Returns {doc_id: "reuploaded" | "graduated" |
+        "regrown"}."""
+        self.flush()  # queues must be empty: the rebuild replays the log
+        report: Dict[str, str] = {}
+        flags = self.store.overflowed()
+        for doc_id in [d for d, r in self._doc_rows.items() if flags[r]]:
+            row = self._doc_rows[doc_id]
+            tmp = self._rebuild_doc(doc_id, self.store.capacity, grow_limit)
+            if tmp.high_water() <= self.store.capacity:
+                self.store.adopt_doc(row, tmp)
+                report[doc_id] = "reuploaded"
+            else:
+                self.store.clear_doc(row)
+                self._graduated[doc_id] = tmp
+                # free the row and its columnar-ingest caches: a cached row
+                # of this doc now fails loudly in _fill_row_handles
+                self._free_rows.append(self._doc_rows.pop(doc_id))
+                self._row_doc_id[row] = None
+                self._row_handle[row] = -1
+                report[doc_id] = "graduated"
+            # planes rewritten outside the op stream: the next delta
+            # summary must carry the row
+            self._dirty_outside_ops.add(doc_id)
+        for doc_id, store in list(self._graduated.items()):
+            if store.overflowed().any():
+                self._graduated[doc_id] = self._rebuild_doc(
+                    doc_id, store.capacity, grow_limit)
+                report[doc_id] = "regrown"
+        return report
+
+    # ----------------------------------------------------- summary / load
+
+    def summarize(self, incremental: bool = False) -> dict:
+        """Flush, then the recovery summary: the store snapshot (or, with
+        ``incremental=True`` after a summary of this engine, the rows whose
+        doc sequenced an op since, rows whose mapping changed or that
+        recovery rewrote, and the interner deltas), the graduated stores
+        in full, and the base summary."""
+        self.flush()
+        prev = self._summ_bookkeeping
+        summary = self._base_summary()
+        if self._incremental_ok(incremental):
+            dirty_rows, cur_seqs = self._dirty_rows_since(prev)
+            self._mark_delta(summary, prev, cur_seqs)
+            summary["store_delta"] = self.store.snapshot_rows(
+                sorted(dirty_rows), prev["interner_bases"])
+            self._chain_depth += 1
+        else:
+            summary["kind"] = "full"
+            self._chain_depth = 0
+            summary["store"] = self.store.snapshot()
+            cur_seqs = {d: self.deli.doc_seq(d) for d in self._doc_rows}
+        summary["graduated"] = {d: s.snapshot()
+                                for d, s in self._graduated.items()}
+        self._note_summary(summary, cur_seqs,
+                           interner_bases=self.store.interner_bases())
+        return summary
+
+    def _replay_tail(self, summary: dict) -> None:
+        """Tree tail replay: raw ``TreeRecordOps`` planes re-apply bit for
+        bit, per-op messages re-encode through the emitter; everything
+        goes through the sequencer in (doc, seq) order and applies in
+        chunks at op boundaries (the kernel resets the group flags per
+        apply)."""
+        self._verify_tail_anchor(summary)
+        items: List[tuple] = []   # (doc_id, seq, msg, raw recs or None)
+        for p in range(self.log.n_partitions):
+            for rec in self.log.read(
+                    p, from_offset=summary["log_offsets"][p]):
+                if isinstance(rec, TreeRecordOps):
+                    g = self._map_records(
+                        np.ascontiguousarray(rec.recs, np.int32),
+                        {"ids": rec.ids, "fields": rec.fields,
+                         "types": rec.types, "values": rec.values})
+                    starts, ends = rec._op_slices()
+                    for i in range(len(rec.seq)):
+                        msg = SequencedDocumentMessage(
+                            doc_id=rec.doc_ids[int(rec.doc[i])],
+                            client_id=int(rec.client[i]),
+                            client_seq=int(rec.client_seq[i]),
+                            ref_seq=int(rec.ref_seq[i]),
+                            seq=int(rec.seq[i]),
+                            min_seq=int(rec.min_seq[i]),
+                            type=MessageType.OP, contents=None,
+                            timestamp=rec.timestamp)
+                        items.append((msg.doc_id, msg.seq, msg,
+                                      g[starts[i]:ends[i]]))
+                elif hasattr(rec, "expand"):
+                    for m in rec.expand():
+                        items.append((m.doc_id, m.seq, m, None))
+                else:
+                    items.append((rec.doc_id, rec.seq, rec, None))
+        items.sort(key=lambda t: (t[0], t[1]))
+        emitter = self.store.emitter
+        flat_ops: List[tuple] = []   # (row, seq, recs) whole ops
+        grad: Dict[str, List[tuple]] = {}
+        for doc_id, seq, msg, raw in items:
+            self.deli.replay(msg)
+            self._absorb_resilience(msg)
+            if msg.type != MessageType.OP:
+                continue
+            self._min_seq[doc_id] = max(self._min_seq.get(doc_id, 0),
+                                        msg.min_seq)
+            rl = raw if raw is not None else \
+                np.array(emitter.emit_op(msg.contents), np.int32)
+            if doc_id in self._graduated:
+                grad.setdefault(doc_id, []).append((seq, rl))
+            else:
+                flat_ops.append((self.doc_row(doc_id), seq, rl))
+        batch: List[tuple] = []
+        size = 0
+
+        def apply_flat(batch):
+            rows = np.concatenate([np.full(len(r), row, np.int64)
+                                   for row, _s, r in batch])
+            recs = np.concatenate([r for _row, _s, r in batch])
+            seqs = np.concatenate([np.full(len(r), s, np.int64)
+                                   for _row, s, r in batch])
+            self.store.apply_records(rows, recs, seqs)
+
+        for row, seq, rl in flat_ops:
+            if batch and size + len(rl) > self._REBUILD_CHUNK:
+                apply_flat(batch)
+                batch, size = [], 0
+            batch.append((row, seq, rl))
+            size += len(rl)
+        if batch:
+            apply_flat(batch)
+        for doc_id, parts in grad.items():
+            for gb in self._chunked_ops(parts):
+                recs, seqs = self._flatten_ops(gb)
+                self._graduated[doc_id].apply_records(
+                    np.zeros(len(recs), np.int64), recs, seqs)
+
+    @classmethod
+    def load(cls, summary: dict, log: PartitionedLog, device="cuda",
+             mesh=None, **kwargs) -> "TreeServingEngine":
+        """Resume from a summary (this package's or the JAX engine's, full
+        or incremental) and the log: the newest full summary's store, each
+        delta's rows over it, the graduated stores (re-aliased to the
+        restored interners), the sequencer and dedup state, then the log
+        tail re-applied. Every store is built on ``device``."""
+        refuse_mesh(mesh)
+        full, deltas = cls.resolve_summary_chain(summary)
+        store = TensorTreeStore.restore(full["store"], device)
+        for delta in deltas:
+            store.apply_row_snapshot(delta["store_delta"])
+        engine = cls(store.n_docs, store.capacity, log=log, store=store,
+                     **kwargs)
+        engine._restore_base(summary)
+        for doc_id, snap in summary["graduated"].items():
+            grad = TensorTreeStore.restore(snap, device)
+            # graduated stores alias the batched store's interners, so
+            # their snapshots exported the same tables: alias them again
+            grad.share_interners(engine.store)
+            engine._graduated[doc_id] = grad
         engine._replay_tail(summary)
         engine.flush()
         return engine

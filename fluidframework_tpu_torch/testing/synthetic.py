@@ -274,3 +274,199 @@ def axis_window(rng, lengths, n_ops: int, start_seq: int = 1,
     planes = {"kind": kind, "a0": a0, "a1": a1.astype(np.int32), "a2": a2,
               "seq": seq, "client": client, "ref_seq": ref_seq}
     return planes, start_seq + O
+
+
+# ------------------------------------------------------------- SharedTree
+
+#: record kinds of ``ops.tree_kernel.TreeOpKind`` (kept as ints here)
+_T_NOOP, _T_INS_BEGIN, _T_GUARD_ABSENT, _T_TXN_BEGIN, _T_GUARD_EXISTS = \
+    0, 1, 2, 3, 4
+_T_INSERT, _T_REMOVE, _T_MOVE, _T_SET = 5, 6, 7, 8
+_T_TXN_BEGIN_EXISTS = 13
+# kind draw weights: NOOP holes, the flag records, the four edits and
+# their solo forms
+_T_KINDS = np.arange(14)
+_T_WEIGHTS = np.array([6, 3, 4, 3, 4, 18, 5, 6, 6, 14, 4, 4, 6, 4], float)
+
+
+def tree_record_storm(n_docs: int, n_ops: int, seed: int = 0,
+                      capacity: int = 128, start_seq: int = 1) -> np.ndarray:
+    """Dense (9, D, O) int32 tree record planes (``apply_tree_planes``
+    order: kind, node, parent, after, field, value, type_, meta, seq) that
+    exercise every record kind 1-13 and NOOP holes: guards that fail,
+    anchors that are dead or under another parent, nested inserts whose
+    parent came from the previous record (same op, or another seq), removes
+    of inner nodes, moves under the node's own descendant, solo kinds. Ids
+    are handles 2 .. ~1.5 N (1 is the root), so inserts collide and
+    lookups miss; every 8th doc inserts only fresh ids and outgrows a
+    capacity-N doc in a few batches. Per doc, a record continues the
+    previous record's op (same seq) 40% of the time, so op seqs are
+    consecutive per doc from ``start_seq``: the same records ride the wire
+    with base = start_seq."""
+    rng = np.random.default_rng(seed)
+    D, O = n_docs, n_ops
+    space = max(capacity * 3 // 2, 4)
+    kind = rng.choice(_T_KINDS, size=(D, O),
+                      p=_T_WEIGHTS / _T_WEIGHTS.sum()).astype(np.int32)
+    node = rng.integers(2, space + 2, size=(D, O))
+    parent = np.where(rng.random((D, O)) < 0.3, 1,
+                      rng.integers(2, space + 2, size=(D, O)))
+    after = np.where(rng.random((D, O)) < 0.3, 0,
+                     rng.integers(2, space + 2, size=(D, O)))
+    field = rng.integers(1, 4, size=(D, O))
+    value = rng.integers(0, 50, size=(D, O))
+    type_ = rng.integers(0, 4, size=(D, O))
+    meta = np.zeros((D, O), np.int64)
+    is_ins = (kind == _T_INSERT) | (kind == _T_INSERT + 4)
+    nested = is_ins & (rng.random((D, O)) < 0.35)
+    meta[nested] = 1
+    prev_node = np.roll(node, 1, axis=1)
+    prev_prev = np.roll(node, 2, axis=1)
+    # a nested insert hangs off the previous record's node; a move under
+    # the previous record's node whose parent is the one before (a
+    # cycle when that chain was inserted)
+    parent = np.where(nested & (rng.random((D, O)) < 0.75), prev_node,
+                      parent)
+    is_mov = (kind == _T_MOVE) | (kind == _T_MOVE + 4)
+    cyc = is_mov & (rng.random((D, O)) < 0.35)
+    node = np.where(cyc, prev_prev, node)
+    parent = np.where(cyc, prev_node, parent)
+    # growth docs: fresh ids only, inserts at the root or under the
+    # previous record's (fresh) node
+    grow = (np.arange(D) % 8 == 0)[:, None] & np.ones((1, O), bool)
+    fresh = (2 + space + seed * O + np.arange(O))[None, :] + \
+        np.zeros((D, 1), np.int64)
+    kind = np.where(grow, np.where(rng.random((D, O)) < 0.5, _T_INSERT + 4,
+                                   _T_INSERT), kind)
+    node = np.where(grow, fresh, node)
+    parent = np.where(grow, np.where(rng.random((D, O)) < 0.5, 1,
+                                     np.roll(fresh, 1, axis=1)), parent)
+    meta = np.where(grow, 0, meta)
+    # per-doc op seqs: a record continues its predecessor's op 40% of the
+    # time; NOOP holes carry no op
+    real = kind != _T_NOOP
+    starts = real & ~((rng.random((D, O)) < 0.4) &
+                      np.roll(real, 1, axis=1))
+    starts[:, 0] = real[:, 0]
+    # a doc's first real record always opens an op
+    first_real = np.argmax(real, axis=1)
+    starts[np.arange(D), first_real] |= real[np.arange(D), first_real]
+    seq = np.where(real, start_seq + np.cumsum(starts, axis=1) - 1, 0)
+    planes = np.stack([kind, node, parent, after, field, value, type_, meta,
+                       seq]).astype(np.int32)
+    planes[1:, ~real] = 0
+    return planes
+
+
+def tree_storm_flat(planes: np.ndarray):
+    """The non-NOOP records of ``tree_record_storm`` planes in doc-major,
+    column order, as the wire packer takes them: (recs (R, 8) int32 in
+    kind, node, parent, after, field, value, type_, meta order, rec_op
+    (R,) a global op index, rows (R,) the doc row)."""
+    kind = planes[0]
+    D, O = kind.shape
+    real = kind != _T_NOOP
+    rows, cols = np.nonzero(real)          # row-major: doc-major order
+    recs = planes[:8, rows, cols].T.astype(np.int32)
+    seq = planes[8, rows, cols].astype(np.int64)
+    rec_op = rows.astype(np.int64) * (1 << 32) + seq
+    # rec_op only needs to change exactly where an op starts
+    change = np.r_[True, rec_op[1:] != rec_op[:-1]]
+    return recs, np.cumsum(change) - 1, rows.astype(np.int64)
+
+
+def tree_op_storm(doc_ids, n_ops: int, seed: int = 0, pools=None):
+    """``n_ops`` SharedTree op dicts per doc (doc-interleaved; returns a
+    list of (doc_id, op)): inserts (one node, several top-level nodes, or a
+    node with nested children), removes, moves, setValues and
+    transactions with ``nodeExists`` constraints, over a per-doc pool of
+    the ids it inserted. Removals are not tracked, so some ops target dead
+    nodes and degrade or drop. ``pools`` ({doc: [ids]}) carries the pools
+    across calls."""
+    rng = np.random.default_rng(seed)
+    pools = pools if pools is not None else {}
+    counter = {d: len(pools.get(d, ())) for d in doc_ids}
+    out = []
+
+    def fresh(d):
+        counter[d] += 1
+        return f"{d}/s{seed}n{counter[d]}"
+
+    def pick(d):
+        pool = pools.setdefault(d, [])
+        return "root" if not pool or rng.random() < 0.2 else \
+            pool[int(rng.integers(len(pool)))]
+
+    def spec(d, depth):
+        nid = fresh(d)
+        pools.setdefault(d, []).append(nid)
+        s = {"id": nid, "type": ["item", None][int(rng.integers(2))],
+             "value": int(rng.integers(100))}
+        if depth < 2 and rng.random() < 0.3:
+            s["children"] = {"sub": [spec(d, depth + 1)
+                                     for _ in range(int(rng.integers(1,
+                                                                     3)))]}
+        return s
+
+    def insert(d):
+        parent = pick(d)
+        after = pick(d) if rng.random() < 0.5 else None
+        n = 1 if rng.random() < 0.7 else int(rng.integers(2, 4))
+        return {"op": "insert", "parent": parent,
+                "field": ["kids", "meta"][int(rng.integers(2))],
+                "after": None if after == "root" else after,
+                "nodes": [spec(d, 0) for _ in range(n)]}
+
+    def edit(d):
+        roll = rng.random()
+        if roll < 0.4:
+            return insert(d)
+        if roll < 0.55:
+            return {"op": "remove", "id": pick(d)}
+        if roll < 0.75:
+            return {"op": "move", "id": pick(d), "parent": pick(d),
+                    "field": "kids", "after": None}
+        return {"op": "setValue", "id": pick(d),
+                "value": int(rng.integers(1000))}
+
+    for _ in range(n_ops):
+        for d in doc_ids:
+            if rng.random() < 0.2:
+                op = {"op": "transaction",
+                      "edits": [edit(d) for _ in range(int(rng.integers(
+                          1, 4)))]}
+                if rng.random() < 0.7:
+                    op["constraints"] = [{"nodeExists": pick(d)}
+                                         for _ in range(int(rng.integers(
+                                             1, 3)))]
+                out.append((d, op))
+            else:
+                out.append((d, edit(d)))
+    return out
+
+
+def profile_tree_waves(doc_ids, wave: int):
+    """The waves of ``benches/profile_tree.py``: wave 0 inserts node 0 of
+    every doc at its root; wave w > 0 is a transaction guarded by
+    ``nodeExists(node w-1)`` that inserts node w after node w-1 and sets
+    node w-1's value to 10 w. Returns (doc ids, ops)."""
+    ids, ops = [], []
+    for d in doc_ids:
+        ids.append(d)
+        if wave == 0:
+            ops.append({"op": "insert", "parent": "root", "field": "kids",
+                        "after": None,
+                        "nodes": [{"id": f"{d}-n0", "type": "item",
+                                   "value": 0}]})
+        else:
+            prev = f"{d}-n{wave - 1}"
+            ops.append({"op": "transaction",
+                        "constraints": [{"nodeExists": prev}],
+                        "edits": [
+                            {"op": "insert", "parent": "root",
+                             "field": "kids", "after": prev,
+                             "nodes": [{"id": f"{d}-n{wave}",
+                                        "type": "item", "value": wave}]},
+                            {"op": "setValue", "id": prev,
+                             "value": wave * 10}]})
+    return ids, ops

@@ -120,7 +120,8 @@ def _assert_same(st, ref, props, compact, tag):
     keys = mt.PLANES + (("prop_val",) if props else ())
     if not compact:   # full planes, slots past count included
         for k in keys + ("count", "overflow"):
-            assert torch.equal(getattr(st, k), getattr(ref, k)), (tag, k)
+            assert torch.equal(getattr(st, k).cpu(), getattr(ref, k).cpu()), \
+            (tag, k)
         return
     assert torch.equal(st.count, ref.count), tag
     assert torch.equal(st.overflow, ref.overflow), tag
@@ -484,7 +485,8 @@ def _map_clone(st):
 
 def _map_same(st, ref, tag):
     for k in mk.PLANES:
-        assert torch.equal(getattr(st, k), getattr(ref, k)), (tag, k)
+        assert torch.equal(getattr(st, k).cpu(), getattr(ref, k).cpu()), \
+            (tag, k)
 
 
 def _map_planes(rng, D, O, K, kinds):
@@ -783,7 +785,8 @@ def test_cell_kernel_chained_stress(cuda):
 
 def _axis_same(st, ref, tag):
     for k in mt.FIELDS:   # every plane, slots past count included
-        assert torch.equal(getattr(st, k), getattr(ref, k)), (tag, k)
+        assert torch.equal(getattr(st, k).cpu(), getattr(ref, k).cpu()), \
+            (tag, k)
 
 
 def _axis_step(st, ref, ops):
@@ -1066,3 +1069,240 @@ def test_pipelined_harvest_reads_the_first_batch(cuda):
     assert len(cells) > 0 and cells == cpu.store.read_cells()
     assert all(rk[1][0] != 0 and ck[0] != 0 for rk, ck in cells)
     _matrix_same(card, cpu, ["g"])
+
+
+# ------------------------------------------------------------- SharedTree
+
+def _tree_same(st, ref, tag):
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    for k in tk.TREE_PLANES + ("overflow",):
+        assert torch.equal(getattr(st, k).cpu(), getattr(ref, k).cpu()), \
+            (tag, k)
+
+
+@pytest.mark.parametrize("N", [32, 33, 128, 1000])
+def test_tree_apply_matches_plain(cuda, N):
+    """K5 planes mode on every record kind (tree_record_storm), chained,
+    with docs that overflow."""
+    from fluidframework_tpu_torch.ops import tree_apply as ta
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.testing.synthetic import tree_record_storm
+    D, O = 64, 64
+    st = tk.TreeState.create(D, N, device=cuda)
+    ref = st.clone()
+    for b in range(3):
+        p = torch.from_numpy(tree_record_storm(
+            D, O, seed=b, capacity=N, start_seq=1 + 1000 * b)).to(cuda)
+        before = ta.apply_launches
+        tk.apply_tree_planes_fused(st, p)
+        assert ta.apply_launches == before + 1
+        ref = tk.apply_tree_planes(ref, p)
+        torch.cuda.synchronize()
+        _tree_same(st, ref, b)
+    assert int(st.overflow.sum()) > 0 if N <= 128 else True
+
+
+def test_tree_apply_at_max_slots(cuda):
+    from fluidframework_tpu_torch.ops import tree_apply as ta
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.testing.synthetic import tree_record_storm
+    N = ta.max_slots()
+    st = tk.TreeState.create(4, N, device=cuda)
+    ref = st.clone()
+    for b in range(2):
+        p = torch.from_numpy(tree_record_storm(
+            4, 256, seed=b, capacity=64, start_seq=1 + 1000 * b)).to(cuda)
+        tk.apply_tree_planes_fused(st, p)
+        ref = tk.apply_tree_planes(ref, p)
+        torch.cuda.synchronize()
+        _tree_same(st, ref, b)
+
+
+@pytest.mark.parametrize("width", ["u16", "u32"])
+@pytest.mark.parametrize("O", [64, 160])
+def test_tree_wire_matches_plain(cuda, width, O):
+    """K6 + K5 wire mode against the plain wire apply, at both id / value
+    widths and both pos widths (u8 up to o = 128, u16 past it)."""
+    from fluidframework_tpu_torch.ops import tree_apply as ta
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.ops.tree_store import pack_wire_records
+    from fluidframework_tpu_torch.testing.synthetic import (
+        tree_record_storm, tree_storm_flat,
+    )
+    idt = np.uint16 if width == "u16" else np.uint32
+    D, N = 48, 96
+    st = tk.TreeState.create(D, N, device=cuda)
+    ref = st.clone()
+    for b in range(2):
+        p = tree_record_storm(D, O, seed=5 + b, capacity=N,
+                              start_seq=1 + 1000 * b)
+        recs, rec_op, rows = tree_storm_flat(p)
+        cols, ids, vals, row, pos, o = pack_wire_records(
+            recs, rec_op, rows, id_t=idt, val_t=idt)
+        assert pos.dtype == (np.uint8 if O <= 128 else np.uint16)
+        m = np.arange(int(recs.max()) + 2, dtype=np.int32)
+        base = np.full(D, 1 + 1000 * b, np.int32)
+        dev = [torch.from_numpy(x).to(cuda) for x in (
+            cols, ids, vals, row, pos, base, m, m, m, m)]
+        want = tk.expand_tree_wire(*dev[:5], *dev[6:], n_docs=D, o=o)
+        e0 = ta.expand_launches
+        got = tk.expand_tree_wire_fused(*dev[:5], *dev[6:], n_docs=D, o=o)
+        assert ta.expand_launches == e0 + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        tk.apply_tree_wire_fused(st, *dev, o=o)
+        ref = tk.apply_tree_wire(ref, *dev, o=o)
+        torch.cuda.synchronize()
+        _tree_same(st, ref, b)
+
+
+def test_tree_kernels_check_inputs(cuda):
+    from fluidframework_tpu_torch.ops import tree_apply as ta
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    st = tk.TreeState.create(4, 32, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        ta.launch_apply(st, torch.zeros((9, 3, 8), dtype=torch.int32,
+                                        device=cuda))
+    with pytest.raises(TypeError, match="int32"):
+        ta.launch_apply(st, torch.zeros((9, 4, 8), dtype=torch.int64,
+                                        device=cuda))
+    out = torch.zeros((9, 4, 8), dtype=torch.int32, device=cuda)
+    z = lambda *s, dt=torch.uint8: torch.zeros(s, dtype=dt,  # noqa: E731
+                                               device=cuda)
+    m = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="uint16"):
+        ta.launch_expand(z(4, 3), z(4, 3, dt=torch.int32),
+                         z(4, dt=torch.uint16), z(4, dt=torch.uint16),
+                         z(4), m, m, m, m, out)
+
+
+def test_tree_capacity_refused_at_construction(cuda):
+    """A capacity past max_slots() is refused when the store, the engine
+    or a restore is built; a recovery rebuild past it raises
+    MemoryError."""
+    from fluidframework_tpu_torch.ops import tree_apply as ta
+    from fluidframework_tpu_torch.ops.tree_store import TensorTreeStore
+    from fluidframework_tpu_torch.server.serving import TreeServingEngine
+    N = ta.max_slots()
+    with pytest.raises(ValueError, match=str(N)):
+        TensorTreeStore(2, N + 1, device=cuda)
+    with pytest.raises(ValueError, match=str(N)):
+        TreeServingEngine(n_docs=2, capacity=N + 1, device=cuda)
+    snap = TensorTreeStore(2, N + 1, device="cpu").snapshot()
+    with pytest.raises(ValueError, match=str(N)):
+        TensorTreeStore.restore(snap, device=cuda)
+    eng = TreeServingEngine(n_docs=1, capacity=4096, batch_window=10 ** 9,
+                            sequencer="native", device=cuda)
+    eng.connect("big", 1)
+    n = 4100
+    eng.ingest_leaves(["big"] * n, [1] * n, list(range(1, n + 1)), [0] * n,
+                      ["root"] * n, ["kids"] * n,
+                      [f"n{i}" for i in range(n)], [0] * n)
+    assert eng.overflowed_docs() == ["big"]
+    with pytest.raises(MemoryError, match="tree_apply"):
+        eng.recover_overflowed()
+
+
+def test_tree_released_wire_buffer_overwritten_after_dispatch(cuda):
+    """Right after a prepacked dispatch, the next pack takes buffers from
+    the pool and overwrites them while the card is still busy: the result
+    equals the plain version (a buffer is reused only after its upload)."""
+    from fluidframework_tpu_torch.ops.tree_store import TensorTreeStore
+    from fluidframework_tpu_torch.server.tree_wire import encode_tree_batch
+    from fluidframework_tpu_torch.testing.synthetic import tree_op_storm
+    docs = [f"d{i}" for i in range(64)]
+    card = TensorTreeStore(64, 128, device=cuda)
+    cpu = TensorTreeStore(64, 128, device="cpu")
+    busy = torch.randn(4096, 4096, device=cuda)
+    pools = {}
+    for w in range(3):
+        wave = tree_op_storm(docs, 2, seed=w, pools=pools)
+        batch = encode_tree_batch([op for _d, op in wave])
+        rows = np.array([docs.index(d) for d, _ in wave],
+                        np.int64)[batch["rec_op"]]
+        seqs = np.arange(1, len(wave) + 1) + 1000 * w
+        base = np.zeros(64, np.int32)
+        for i, (d, _) in enumerate(wave):
+            if base[docs.index(d)] == 0:
+                base[docs.index(d)] = seqs[i]
+        for _ in range(4):
+            busy = busy @ busy   # keep the card busy behind the copies
+            busy /= busy.norm()
+        for st in (card, cpu):
+            pp = st.prepack_wire(batch["recs"], batch["rec_op"], rows,
+                                 batch)
+            key = pp.wire.key
+            st.apply_wire_prepacked(pp, base)
+            again = st._wire_buffers(*_key_types(key))
+            for v in again.views:
+                v[...] = 0x5A   # the next pack writes straight away
+    torch.cuda.synchronize()
+    _tree_same(card.state, cpu.state, "wire")
+
+
+def _key_types(key):
+    rb, posb, idb, valb = key
+    width = {1: np.uint8, 2: np.uint16, 4: np.uint32}
+    return rb, width[posb], width[idb], width[valb]
+
+
+def test_tree_engine_on_card_matches_cpu(cuda):
+    """Per-op submits, two pipelined wire waves back to back, recovery,
+    and full / incremental summaries loaded on the card, against the same
+    on the CPU."""
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.server.ingest_pipeline import (
+        PipelinedIngestExecutor,
+    )
+    from fluidframework_tpu_torch.server.serving import TreeServingEngine
+    from fluidframework_tpu_torch.server.tree_wire import encode_tree_batch
+    from fluidframework_tpu_torch.testing.synthetic import tree_op_storm
+    docs = [f"t{i}" for i in range(32)]
+    engines = [TreeServingEngine(n_docs=32, capacity=32, device=d,
+                                 batch_window=10 ** 9, sequencer="native")
+               for d in (cuda, "cpu")]
+    for e in engines:
+        for d in docs:
+            e.connect(d, 1)
+            e.doc_row(d)
+        for d in docs[:8]:
+            e.connect(d, 2)   # the per-op client
+    pools, cs = {}, {}
+    waves = []
+    for w in range(4):
+        wave = tree_op_storm(docs, 3, seed=w, pools=pools)
+        ids = [d for d, _ in wave]
+        cseq = []
+        for d in ids:
+            cs[d] = cs.get(d, 0) + 1
+            cseq.append(cs[d])
+        waves.append((ids, [1] * len(ids), cseq, [0] * len(ids),
+                      encode_tree_batch([op for _d, op in wave])))
+    per_op_ops = tree_op_storm(docs[:8], 4, seed=9, pools=pools)
+    for e in engines:
+        e.ingest_records(*waves[0])
+        ex = PipelinedIngestExecutor(e, depth=3)
+        tickets = [ex.submit(*w) for w in waves[1:3]]
+        ex.drain()
+        assert all(t.result()["nacked"] == 0 for t in tickets)
+        ex.close()
+        per_op = {}
+        for d, op in per_op_ops:
+            per_op[d] = per_op.get(d, 0) + 1
+            e.submit(d, 2, per_op[d], 0, op)
+        e.ingest_records(*waves[3])
+    card, cpu = engines
+    for k in tk.TREE_PLANES + ("overflow",):
+        assert torch.equal(getattr(card.store.state, k).cpu(),
+                           getattr(cpu.store.state, k)), k
+    assert card.overflowed_docs() == cpu.overflowed_docs()
+    assert card.recover_overflowed() == cpu.recover_overflowed()
+    for d in docs:
+        assert card.to_dict(d) == cpu.to_dict(d), d
+    full = card.summarize()
+    inc = card.summarize(incremental=True)
+    for s in (full, inc):
+        ld = TreeServingEngine.load(s, card.log, device=cuda,
+                                    sequencer="native")
+        for d in docs:
+            assert ld.to_dict(d) == card.to_dict(d), d

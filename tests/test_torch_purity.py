@@ -38,15 +38,26 @@ def test_no_jax_imports(path):
 
 def test_entry_points_need_a_card_unless_cpu_is_asked():
     from fluidframework_tpu_torch.ops.string_store import TensorStringStore
-    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    from fluidframework_tpu_torch.ops.tree_store import TensorTreeStore
+    from fluidframework_tpu_torch.server.serving import (
+        StringServingEngine, TreeServingEngine,
+    )
     if torch.cuda.is_available():
         assert TensorStringStore(8, 128).state.seq.device.type == "cuda"
+        assert TensorTreeStore(8, 128).state.node_id.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             TensorStringStore(8, 128)
         with pytest.raises(RuntimeError, match="CUDA"):
             StringServingEngine(n_docs=8, capacity=128)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TensorTreeStore(8, 128)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TreeServingEngine(n_docs=8, capacity=128)
     assert TensorStringStore(8, 128, device="cpu").state.seq.is_cpu
+    assert TensorTreeStore(8, 128, device="cpu").state.node_id.is_cpu
+    assert TreeServingEngine(n_docs=8, capacity=128,
+                             device="cpu").store.state.node_id.is_cpu
 
 
 def test_kernel_wrapper_checks_its_inputs():
@@ -106,3 +117,31 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         axis_apply.launch_apply(axes, ops + ops[:3], *out)
     with pytest.raises(ValueError, match="CUDA"):
         axis_apply.launch_resolve(axes, *ops, *out)
+
+
+def test_tree_kernel_wrappers_check_their_inputs():
+    """K5's record planes and K6's wire lanes are refused by shape and
+    dtype before any launch (on either device)."""
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    st = tk.TreeState.create(4, 32, device="cpu")
+    with pytest.raises(ValueError, match="shape"):
+        tk.apply_tree_planes_fused(st, torch.zeros((9, 3, 8),
+                                                   dtype=torch.int32))
+    with pytest.raises(TypeError, match="int32"):
+        tk.apply_tree_planes_fused(st, torch.zeros((9, 4, 8),
+                                                   dtype=torch.int64))
+    u8, u16 = torch.uint8, torch.uint16
+    m = torch.zeros(8, dtype=torch.int32)
+    wire = [torch.zeros((5, 3), dtype=u8), torch.zeros((5, 3), dtype=u16),
+            torch.zeros(5, dtype=u16), torch.zeros(5, dtype=u16),
+            torch.zeros(5, dtype=u8)]
+    tk.expand_tree_wire_fused(*wire, m, m, m, m, n_docs=4, o=8)
+    bad_ids = list(wire)
+    bad_ids[1] = wire[1].to(torch.int32)
+    with pytest.raises(TypeError, match="ids"):
+        tk.expand_tree_wire_fused(*bad_ids, m, m, m, m, n_docs=4, o=8)
+    bad_pos = list(wire)
+    bad_pos[4] = torch.zeros(4, dtype=u8)
+    with pytest.raises(ValueError, match="shape"):
+        tk.apply_tree_wire_fused(st, *bad_pos, torch.zeros(
+            4, dtype=torch.int32), m, m, m, m, o=8)
