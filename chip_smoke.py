@@ -1570,6 +1570,13 @@ TREE_PIPE_WAVES = 4                        # pipelined record / leaf waves
 TREE_MIX_DOCS, TREE_MIX_OPS = 256, 8       # (c): docs, ops per doc
 TREE_REC_DOCS, TREE_REC_CAP = 256, 32      # (d): docs, tier capacity
 TREE_SAMPLES = 64                          # to_dict probes per check
+SECTOR = 32                 # bytes: the least one scattered access moves
+# the sectors a tree record touches past its doc's node_id plane, by base
+# kind: an insert reads its anchor's parent, field and next_sib and its
+# parent's created_seq, and writes the new slot's 8 planes, the anchor's
+# next_sib and the neighbour's prev_sib; a setValue writes one value; the
+# flag kinds need only the node_id plane
+TREE_KIND_SECTORS = {5: 14, 8: 1}
 
 
 def tree_phase(smi, dev):
@@ -1672,10 +1679,8 @@ def tree_phase(smi, dev):
             base = np.full(D, 1 + 1000 * b, np.int32)
             wd = [torch.from_numpy(x).to(dev) for x in (
                 cols, ids, vals, row, pos, base, m, m, m, m)]
-            n0 = ta.expand_launches   # a comparison launch: not counted
             got = tk.expand_tree_wire_fused(*wd[:5], *wd[6:], n_docs=D,
                                             o=o)
-            ta.expand_launches = n0
             want = tk.expand_tree_wire(*wd[:5], *wd[6:], n_docs=D, o=o)
             err["expand"] = max(err["expand"], diff(got, want))
             tk.apply_tree_wire_fused(ws, *wd, o=o)
@@ -2009,16 +2014,34 @@ def tree_phase(smi, dev):
         return a.elapsed_time(z), out
 
     def apply_bound(before, planes, wire):
-        """Bytes: the eight planes and the flag of every doc with a
-        non-NOOP record read and written once, the (9, D, O) records read
-        once (and the (D,) base in wire mode); operations: one N-wide
-        pass per real record (the least any lookup takes)."""
-        active = int((planes[0] != 0).any(dim=1).sum())
-        real = int((planes[0] != 0).sum())
+        """Bytes a serial scan must move, counted per doc from its records'
+        base kinds. Every doc with a non-NOOP record reads its node_id plane
+        (each lookup and the free-slot search scan it) and reads and writes
+        its overflow flag. A doc with a remove or move reads and writes all
+        8 planes (the subtree walk). Any other such doc adds the parent,
+        field and prev_sib planes, read once, where an insert has no anchor
+        (the head search), and the 32-B sectors of TREE_KIND_SECTORS for
+        each record. The (9, D, O) records are read once, and the (D,) base
+        in wire mode. A dead anchor's head search is not charged, so the
+        count errs low. Operations: one N-wide pass per real record."""
+        kind = planes[0].long()
+        base_k = torch.where((kind >= 9) & (kind <= 12), kind - 4, kind)
+        active = (kind != 0).any(dim=1)
+        moves = ((base_k == 6) | (base_k == 7)).any(dim=1)
+        light = active & ~moves
+        head = light & ((base_k == 5) & (planes[3] == 0)).any(dim=1)
+        sectors = torch.zeros_like(kind)
+        for k, n in TREE_KIND_SECTORS.items():
+            sectors += (base_k == k).long() * n
+        n_sec = int((sectors.sum(dim=1) * light).sum())
         Dn, Nn = before.node_id.shape
-        nbytes = 2 * (8 * 4 * Nn + 4) * active + planes.numel() * 4 + \
-            (4 * Dn if wire else 0)
-        return work_bound(nbytes, real * Nn), nbytes, active, real
+        plane = 4 * Nn
+        nbytes = 8 * int(active.sum()) + plane * (
+            int(light.sum()) + 3 * int(head.sum()) + 16 * int(moves.sum())) \
+            + SECTOR * n_sec + planes.numel() * 4 + (4 * Dn if wire else 0)
+        real = int((kind != 0).sum())
+        return work_bound(nbytes, real * Nn), nbytes, int(active.sum()), \
+            real
 
     def time_apply(tag, before, planes, base):
         work = before.clone()

@@ -148,7 +148,7 @@ class _Interner:
 class RecordEmitter:
     """Canonical op-dict -> record encoding, shared by the store's message
     path (global interners) and the client wire encoder (batch-local
-    tables); ``server.tree_wire.decode_op`` inverts it. A standalone flat
+    tables); ``server.tree_wire.decode_records`` inverts it. A standalone flat
     edit is ONE solo record; the begin/guard group protocol appears only
     where atomicity needs it (multi-node inserts, transactions)."""
 
@@ -468,17 +468,6 @@ class TensorTreeStore:
     def _to_dev(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device,
                                                             copy=True)
-
-    def apply_wire(self, cols, ids, vals, row, pos, base, id_map, f_map,
-                   t_map, v_map, o: int) -> None:
-        """Dispatch one compact-wire batch of numpy arrays (see
-        ``tree_kernel.apply_tree_wire`` for the buffer contract)."""
-        apply_tree_wire_fused(
-            self.state, *(self._to_dev(a) for a in (cols, ids, vals, row,
-                                                    pos)),
-            self._to_dev(np.asarray(base, np.int32)),
-            *(self._to_dev(np.asarray(m, np.int32))
-              for m in (id_map, f_map, t_map, v_map)), o=o)
 
     # ------------------------------------------------------- prepacked wire
 

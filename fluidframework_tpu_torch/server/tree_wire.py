@@ -16,8 +16,8 @@ reference's ``@fluidframework/tree`` op surface, SURVEY.md §2.6):
   occurrences (one list append each); table resolution happens once per
   batch as vectorized first-occurrence ``np.unique`` passes — one dict hit
   per UNIQUE id/field/type/value instead of one per record column. The
-  output is byte-identical to the per-op ``ReferenceTreeBatchEncoder``
-  (parity-tested), which stays as the executable spec.
+  output is byte-identical to the JAX package's per-op
+  ``ReferenceTreeBatchEncoder`` (parity-tested), the executable spec.
 - **Server side** — ``TreeServingEngine.ingest_records`` validates bounds,
   maps the batch-local tables into the store interners (one dict hit per
   UNIQUE string, not per op), sequences the batch in one native call,
@@ -25,8 +25,7 @@ reference's ``@fluidframework/tree`` op surface, SURVEY.md §2.6):
   device apply. The durable record keeps the RAW planes (``TreeRecordOps``),
   so recovery replays bit-identical records — live state and recovered
   state cannot diverge on any bounded input.
-- ``decode_op`` inverts the encoder for ONE op's record tuples (the
-  reference decoder); ``decode_records`` decodes a whole batch with the
+- ``decode_records`` inverts the encoder for a whole batch, with the
   handle→table gathers done as single vectorized passes per column —
   the audit/oracle-replay consumer (``TreeRecordOps.expand``). A
   constraint-free single-edit transaction normalizes to the bare edit —
@@ -46,88 +45,6 @@ import numpy as np
 
 from ..ops.tree_kernel import META_NESTED, TreeOpKind
 from ..ops.tree_store import ANON_BASE, RecordEmitter
-
-
-class _LocalTable:
-    """str → 1-based batch-local index (0 = none); ``items`` is the wire
-    table (index h ↔ items[h-1]). With ``parse_numeric``, ``#<n>`` names
-    in the numeric-id namespace become INT table entries — the server
-    passes them through as global handles with no interning (the
-    id-compressor hot path, ops.tree_store.ANON_BASE)."""
-
-    def __init__(self, parse_numeric: bool = False):
-        self._idx: Dict[object, int] = {}
-        self.items: list = []
-        self._parse_numeric = parse_numeric
-
-    def handle(self, name: str) -> int:
-        key: object = name
-        if self._parse_numeric and name.startswith("#"):
-            tail = name[1:]
-            if tail.isdigit():
-                n = int(tail)
-                if n >= ANON_BASE:
-                    key = n
-        h = self._idx.get(key)
-        if h is None:
-            self.items.append(key)
-            h = self._idx[key] = len(self.items)
-        return h
-
-
-class _LocalValues:
-    """JSON value → 1-based batch-local index by canonical encoding."""
-
-    def __init__(self):
-        self._idx: Dict[str, int] = {}
-        self.items: list = []
-
-    def handle(self, value) -> int:
-        key = json.dumps(value, sort_keys=True)
-        h = self._idx.get(key)
-        if h is None:
-            self.items.append(value)
-            h = self._idx[key] = len(self.items)
-        return h
-
-
-class ReferenceTreeBatchEncoder:
-    """Per-op dict-interning encoder — the executable spec the vectorized
-    ``TreeBatchEncoder`` is parity-tested against (one ``handle()`` dict
-    hit per record column; tables grow in stream order)."""
-
-    def __init__(self):
-        self.ids = _LocalTable(parse_numeric=True)
-        self.fields = _LocalTable()
-        self.types = _LocalTable()
-        self.values = _LocalValues()
-        self._emitter = RecordEmitter(
-            self.ids.handle, self.fields.handle, self.values.handle,
-            self.types.handle)
-        self._rec_op: List[int] = []
-        self._recs: List[tuple] = []
-        self._n_ops = 0
-
-    def add(self, op: dict) -> int:
-        """Encode one op; returns its index in the batch."""
-        recs = self._emitter.emit_op(op)
-        i = self._n_ops
-        self._rec_op.extend([i] * len(recs))
-        self._recs.extend(recs)
-        self._n_ops += 1
-        return i
-
-    def batch(self) -> dict:
-        """The wire batch: record planes + tables (see module docstring)."""
-        return {
-            "rec_op": np.asarray(self._rec_op, np.int64),
-            "recs": (np.array(self._recs, np.int32)
-                     if self._recs else np.zeros((0, 8), np.int32)),
-            "ids": list(self.ids.items),
-            "fields": list(self.fields.items),
-            "types": list(self.types.items),
-            "values": list(self.values.items),
-        }
 
 
 # ------------------------------------------------- vectorized resolution
@@ -228,8 +145,8 @@ def _parse_numeric_names(uniq: np.ndarray):
 def _resolve_ids(occ: list):
     """Id column: unique the raw names first, then numeric-parse only the
     uniques (``#<n>``, n ≥ ANON_BASE → int entry) and re-dedup by parsed
-    key in stream-first-occurrence order — exactly the reference
-    ``_LocalTable(parse_numeric=True)`` table (``#0001048576`` and
+    key in stream-first-occurrence order — exactly the per-op reference
+    encoder's numeric-parsing id table (``#0001048576`` and
     ``#1048576`` share one entry there too)."""
     m = np.zeros(len(occ) + 1, np.int32)
     if not occ:
@@ -290,8 +207,8 @@ def _resolve_ids_arr(arr: np.ndarray, m: np.ndarray):
 class TreeBatchEncoder:
     """Accumulate ops into one columnar record batch (client side).
     ``add()`` only appends occurrences; ``batch()`` runs the vectorized
-    table resolution (module docstring) — same output bytes as
-    ``ReferenceTreeBatchEncoder``."""
+    table resolution (module docstring) — the same output bytes as a
+    per-op dict-interning encoder."""
 
     def __init__(self):
         self._ids = _OccColumn()
@@ -389,135 +306,13 @@ def encode_leaf_records(parents: List[str], fields: List[str],
             "fields": fields_t, "types": types_t, "values": values_t}
 
 
-def decode_op(recs, ids: List[str], fields: List[str], types: List[str],
-              values: list) -> dict:
-    """Rebuild the op dict from ONE op's record tuples (inverse of
-    ``RecordEmitter.emit_op``; tables are 1-based wire tables). Raises
-    ValueError on streams the emitter cannot have produced."""
-    K = TreeOpKind
-
-    def idn(h) -> Optional[str]:
-        if not h:
-            return None
-        e = ids[h - 1]
-        return f"#{e}" if isinstance(e, int) else e
-
-    def fld(h) -> Optional[str]:
-        return fields[h - 1] if h else None
-
-    def typ(h) -> Optional[str]:
-        return types[h - 1] if h else None
-
-    def val(h):
-        return values[h - 1] if h else None
-
-    def parse_inserts(i: int, want_tops: int, insert_kind) -> tuple:
-        """Consume ``want_tops`` top-level INSERT records plus their
-        nested subtree records; returns (insert op dict, next index)."""
-        specs: list = []
-        by_h: dict = {}
-        first = None
-        tops = 0
-        while i < len(recs):
-            k, nd, pa, af, fi, va, ty, me = recs[i]
-            if k != insert_kind:
-                break
-            nested = bool(me & META_NESTED)
-            if not nested and tops == want_tops:
-                break
-            spec = {"id": idn(nd), "type": typ(ty), "value": val(va)}
-            by_h[nd] = spec
-            if nested:
-                parent = by_h.get(pa)
-                if parent is None:
-                    raise ValueError("nested record without its parent")
-                parent.setdefault("children", {}).setdefault(
-                    fld(fi), []).append(spec)
-            else:
-                if first is None:
-                    first = recs[i]
-                specs.append(spec)
-                tops += 1
-            i += 1
-        if tops != want_tops:
-            raise ValueError("insert group shorter than its guard count")
-        return ({"op": "insert", "parent": idn(first[2]),
-                 "field": fld(first[4]), "after": idn(first[3]),
-                 "nodes": specs}, i)
-
-    if not len(recs):
-        raise ValueError("op with no records")
-    k0 = recs[0][0]
-    if k0 == K.INSERT_SOLO:
-        op, i = parse_inserts(0, 1, K.INSERT_SOLO)
-        if i != len(recs):
-            raise ValueError("trailing records after solo insert")
-        return op
-    if k0 == K.REMOVE_SOLO:
-        return {"op": "remove", "id": idn(recs[0][1])}
-    if k0 == K.MOVE_SOLO:
-        _, nd, pa, af, fi, _va, _ty, _me = recs[0]
-        return {"op": "move", "id": idn(nd), "parent": idn(pa),
-                "field": fld(fi), "after": idn(af)}
-    if k0 == K.SET_SOLO:
-        return {"op": "setValue", "id": idn(recs[0][1]),
-                "value": val(recs[0][5])}
-    if k0 not in (K.TXN_BEGIN, K.TXN_BEGIN_EXISTS):
-        raise ValueError(f"op cannot start with record kind {k0}")
-
-    i = 1
-    constraints = []
-    if k0 == K.TXN_BEGIN_EXISTS:
-        constraints.append({"nodeExists": idn(recs[0][1])})
-    while i < len(recs) and recs[i][0] == K.TXN_GUARD_EXISTS:
-        constraints.append({"nodeExists": idn(recs[i][1])})
-        i += 1
-    edits = []
-    while i < len(recs):
-        k = recs[i][0]
-        if k == K.INS_BEGIN:
-            i += 1
-        elif k == K.INS_GUARD_ABSENT:
-            g = 0
-            while i < len(recs) and recs[i][0] == K.INS_GUARD_ABSENT:
-                g += 1
-                i += 1
-            op, i = parse_inserts(i, g, K.INSERT)
-            edits.append(op)
-        elif k == K.INSERT:
-            op, i = parse_inserts(i, 1, K.INSERT)
-            edits.append(op)
-        elif k == K.REMOVE:
-            edits.append({"op": "remove", "id": idn(recs[i][1])})
-            i += 1
-        elif k == K.MOVE:
-            _, nd, pa, af, fi, _va, _ty, _me = recs[i]
-            edits.append({"op": "move", "id": idn(nd), "parent": idn(pa),
-                          "field": fld(fi), "after": idn(af)})
-            i += 1
-        elif k == K.SET_VALUE:
-            edits.append({"op": "setValue", "id": idn(recs[i][1]),
-                          "value": val(recs[i][5])})
-            i += 1
-        else:
-            raise ValueError(f"unexpected record kind {k} in group")
-    if not constraints and len(edits) == 1 and edits[0]["op"] == "insert":
-        # a standalone multi-node insert encodes as a guarded group; a
-        # one-edit constraint-free transaction is the same thing
-        return edits[0]
-    out = {"op": "transaction", "edits": edits}
-    if constraints:
-        out["constraints"] = constraints
-    return out
-
-
 def decode_records(rec_op, recs, ids: List[str], fields: List[str],
                    types: List[str], values: list) -> List[dict]:
     """Decode EVERY op of a record batch: the handle→table gathers run
     as ONE object-array pass per column (instead of per-record closure
     calls), then a structural walk per op over the pre-resolved columns.
-    Output ops are identical to ``decode_op`` applied per op (the audit
-    path ``TreeRecordOps.expand`` rides this)."""
+    Output ops are identical to the JAX package's per-op ``decode_op``
+    (parity-tested; the audit path ``TreeRecordOps.expand`` rides this)."""
     rec_op = np.asarray(rec_op, np.int64)
     recs = np.asarray(recs)
     n_ops = int(rec_op[-1]) + 1 if len(rec_op) else 0
@@ -553,7 +348,7 @@ def decode_records(rec_op, recs, ids: List[str], fields: List[str],
 
 def _decode_span(c: dict, s: int, e: int) -> dict:
     """One op's structural parse over pre-resolved columns — the same
-    grammar as ``decode_op`` (kept in lockstep; parity-tested)."""
+    grammar as the per-op reference decoder (parity-tested)."""
     K = TreeOpKind
     kind, meta = c["kind"], c["meta"]
     node, parent, after = c["node"], c["parent"], c["after"]

@@ -120,8 +120,7 @@ def _assert_same(st, ref, props, compact, tag):
     keys = mt.PLANES + (("prop_val",) if props else ())
     if not compact:   # full planes, slots past count included
         for k in keys + ("count", "overflow"):
-            assert torch.equal(getattr(st, k).cpu(), getattr(ref, k).cpu()), \
-            (tag, k)
+            assert torch.equal(getattr(st, k), getattr(ref, k)), (tag, k)
         return
     assert torch.equal(st.count, ref.count), tag
     assert torch.equal(st.overflow, ref.overflow), tag
@@ -485,8 +484,7 @@ def _map_clone(st):
 
 def _map_same(st, ref, tag):
     for k in mk.PLANES:
-        assert torch.equal(getattr(st, k).cpu(), getattr(ref, k).cpu()), \
-            (tag, k)
+        assert torch.equal(getattr(st, k), getattr(ref, k)), (tag, k)
 
 
 def _map_planes(rng, D, O, K, kinds):
@@ -785,8 +783,7 @@ def test_cell_kernel_chained_stress(cuda):
 
 def _axis_same(st, ref, tag):
     for k in mt.FIELDS:   # every plane, slots past count included
-        assert torch.equal(getattr(st, k).cpu(), getattr(ref, k).cpu()), \
-            (tag, k)
+        assert torch.equal(getattr(st, k), getattr(ref, k)), (tag, k)
 
 
 def _axis_step(st, ref, ops):

@@ -109,10 +109,8 @@ def _batch_equal(a, b):
 def test_tree_wire_encoders_and_decoders_match_jax(seed):
     ops = [op for _d, op in tree_op_storm(["a", "b"], 12, seed=seed)]
     ops += ALL_KINDS_OPS
-    for enc_t, enc_j in ((tw.TreeBatchEncoder, jw.TreeBatchEncoder),
-                         (tw.ReferenceTreeBatchEncoder,
-                          jw.ReferenceTreeBatchEncoder)):
-        et, ej = enc_t(), enc_j()
+    for enc_j in (jw.TreeBatchEncoder, jw.ReferenceTreeBatchEncoder):
+        et, ej = tw.TreeBatchEncoder(), enc_j()
         for op in ops:
             assert et.add(op) == ej.add(op)
         bt, bj = et.batch(), ej.batch()
@@ -121,9 +119,10 @@ def test_tree_wire_encoders_and_decoders_match_jax(seed):
     assert _batch_equal(bt, jw.encode_tree_batch(ops))
     args = (bt["rec_op"], bt["recs"], bt["ids"], bt["fields"], bt["types"],
             bt["values"])
-    assert tw.decode_records(*args) == jw.decode_records(*args)
-    one = bt["recs"][bt["rec_op"] == 0]
-    assert tw.decode_op(one, *args[2:]) == jw.decode_op(one, *args[2:])
+    got = tw.decode_records(*args)
+    assert got == jw.decode_records(*args)
+    assert got == [jw.decode_op(bt["recs"][bt["rec_op"] == i], *args[2:])
+                   for i in range(len(ops))]
     n = 40
     leaf = (["root"] * n, ["kids"] * n, [f"#{(1 << 20) + i}" for i in
                                          range(n)],
@@ -193,7 +192,7 @@ def test_prepacked_wire_equals_dense_and_reuses_pools():
     waves = [tree_op_storm(docs, 6, seed=s) for s in range(3)]
     dense = TStore(n_docs=6, capacity=128, device="cpu")
     wire = TStore(n_docs=6, capacity=128, device="cpu")
-    loose = TStore(n_docs=6, capacity=128, device="cpu")   # apply_wire
+    loose = tk.TreeState.create(6, 128, device="cpu")   # unpooled buffers
     seq = {d: 0 for d in docs}
     for wave in waves:
         ops = [op for _d, op in wave]
@@ -219,11 +218,12 @@ def test_prepacked_wire_equals_dense_and_reuses_pools():
         assert pp.wire in wire._wire_pool[key]
         packed = t_pack(batch["recs"], batch["rec_op"],
                         rows[batch["rec_op"]])
-        loose.apply_wire(*packed[:5], base, *(m.numpy() for m in pp.maps),
-                         o=packed[5])
+        loose = tk.apply_tree_wire(
+            loose, *(torch.from_numpy(a) for a in packed[:5]),
+            torch.from_numpy(base), *pp.maps, o=packed[5])
     for k in ALL:
         assert torch.equal(getattr(dense.state, k), getattr(wire.state, k))
-        assert torch.equal(getattr(dense.state, k), getattr(loose.state, k))
+        assert torch.equal(getattr(dense.state, k), getattr(loose, k))
     for d in range(6):
         assert dense.to_dict(d) == wire.to_dict(d)
 
