@@ -99,8 +99,17 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    (re-uploads and graduations) equal to a capacity-1,024 control, then
    full and incremental summaries loaded on the card equal to the live
    engine, and a dup-acked resubmit; (e) K5 (wire mode at the serving
-   wave's shape, planes mode at profile_tree.py's kernel-alone shape) and
-   K6 timed in CUDA graphs beside their plain versions and bounds.
+   wave's shape, planes mode at profile_tree.py's kernel-alone shape, and
+   the launch with the most records of each of the per-op, recovery and
+   load paths, kept as the engines made it) and K6 timed in CUDA graphs
+   beside their plain versions and bounds.
+
+With ``--parent DIR`` (another checkout, e.g. an archive of the parent
+commit) a last phase, parent_timing, times K2 and K5 of DIR and of this
+checkout in turns (parent, change, change, parent) with
+``testing/kernel_timing.py`` at the shapes it defines, and the
+``cell_merge`` and ``tree_apply`` rows get ``parent_ms`` (null without
+it).
 
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (the seven
 kernels: ``string_apply``, ``map_apply``, ``cell_merge``, ``axis_apply``,
@@ -112,14 +121,17 @@ the tree phase's kernel loop, serving, flat serving, per-op, recovery and
 load paths), and as the last line ``{"ok": true, "device": {...}}``. Any failed phase raises, so
 the exit code is non-zero. Without a card it exits 2 and prints no result.
 
-Usage: ``python3 chip_smoke.py`` (one card).
+Usage: ``python3 chip_smoke.py [--parent DIR]`` (one card).
 """
 
+import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 D = 10_240          # documents (config #4)
@@ -1579,7 +1591,7 @@ SECTOR = 32                 # bytes: the least one scattered access moves
 TREE_KIND_SECTORS = {5: 14, 8: 1}
 
 
-def tree_phase(smi, dev):
+def tree_phase(smi, dev, keep_inputs=None):
     """Phase 9: SharedTree served end to end at ``benches/profile_tree.py``'s
     shapes (8,192 docs, capacity 128, the native sequencer). (a) K5 in
     planes mode against the plain ``apply_tree_planes`` on the card after
@@ -1647,6 +1659,22 @@ def tree_phase(smi, dev):
 
     def state_err(a, b):
         return max(diff(getattr(a, k), getattr(b, k)) for k in ALL)
+
+    widest, widest_launches = {}, collections.Counter()
+    launch_apply = ta.launch_apply
+
+    def keep_widest(state, planes, base=None):
+        """K5 as the engines call it; on the per-op, recovery and load
+        paths it keeps, per capacity N, the launch with the most records
+        (its input state, records and base) for timing in (e)."""
+        tag = (path[0].split(":")[0], state.node_id.shape[1])
+        if tag[0] in ("per-op", "recovery", "load"):
+            n = int((planes[0] != 0).sum())
+            widest_launches[tag] += 1
+            if n > widest.get(tag, (0,))[0]:
+                widest[tag] = (n, state.clone(), planes.clone(),
+                               None if base is None else base.clone())
+        return launch_apply(state, planes, base)
 
     # ------------------------------------------- (a) kernel parity
     storms = [tree_record_storm(D, O, seed=b, capacity=N,
@@ -1835,6 +1863,7 @@ def tree_phase(smi, dev):
     torch.cuda.empty_cache()
 
     # ------------------------------------------- (c) mixed per-op
+    ta.launch_apply = keep_widest   # until the timing, (e)
     mdocs = [f"m-{i}" for i in range(TREE_MIX_DOCS)]
     mixed = [TreeServingEngine(n_docs=TREE_MIX_DOCS, capacity=N,
                                batch_window=10 ** 9, sequencer="native",
@@ -2003,6 +2032,7 @@ def tree_phase(smi, dev):
     del rec_e, ctl
     torch.cuda.empty_cache()
 
+    ta.launch_apply = launch_apply
     # ------------------------------------------- (e) timing
     def events_ms(fn):
         a = torch.cuda.Event(enable_timing=True)
@@ -2068,7 +2098,11 @@ def tree_phase(smi, dev):
         e = state_err(work, want)
         (b_ms, b_by), nbytes, active, real = apply_bound(
             before, planes, base is not None)
-        return {"spec": tag, "D": planes.shape[1], "N": N,
+        return {"spec": tag, "D": planes.shape[1],
+                "N": before.node_id.shape[1],
+                "launch_shape": ta.launch_shape(
+                    before.node_id.shape[1], planes.shape[1],
+                    torch.cuda.get_device_properties(0).multi_processor_count),
                 "O": planes.shape[2], **t, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                 "active_docs": active, "records": real,
@@ -2100,6 +2134,20 @@ def tree_phase(smi, dev):
         time_apply("planes mode: profile_tree kernel-alone shape",
                    serve_state, torch.from_numpy(kernel_planes).to(dev),
                    None)]
+    if keep_inputs is not None:   # for the parent's kernel (--parent)
+        torch.save({f"{tag}, N = {n_slots}: its widest launch": (
+            {k: v.cpu() for k, v in st_w.fields().items()}, planes_w.cpu(),
+            None if base_w is None else base_w.cpu())
+            for (tag, n_slots), (_n, st_w, planes_w, base_w)
+            in widest.items()}, keep_inputs)
+    for (tag, n_slots), (_n, st_w, planes_w, base_w) in sorted(
+            widest.items()):
+        apply_rows.append(time_apply(
+            f"{tag}, N = {n_slots}: its widest launch", st_w, planes_w,
+            base_w))
+        apply_rows[-1]["launches_at_this_N"] = widest_launches[
+            tag, n_slots]
+    del widest
     err["apply"] = max([err["apply"]] + [r["max_abs_err"]
                                          for r in apply_rows])
     err["expand"] = max(err["expand"], expand_row["max_abs_err"])
@@ -2125,7 +2173,7 @@ def tree_phase(smi, dev):
           "kernel_only_8_applies_ms": t8,
           "total_s": time.perf_counter() - t_phase, "card": smi})
 
-    def entry(kind, name, replaces, main):
+    def entry(kind, name, replaces, main, rows):
         return {"name": name, "route": "cuda",
                 "source": "fluidframework_tpu_torch/csrc/tree_apply.cu",
                 "replaces": replaces,
@@ -2136,16 +2184,69 @@ def tree_phase(smi, dev):
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": None,
                 "shape": {k: main.get(k) for k in ("D", "N", "O", "o",
-                                                   "spec")}}
+                                                   "spec")},
+                "specialisations": rows}
 
     return (entry("apply", "tree_apply",
                   "fluidframework_tpu/ops/tree_kernel.py:321,367",
-                  apply_rows[0]),
+                  apply_rows[0], apply_rows),
             entry("expand", "tree_expand",
-                  "fluidframework_tpu/ops/tree_kernel.py:379", expand_row))
+                  "fluidframework_tpu/ops/tree_kernel.py:379", expand_row,
+                  [expand_row]))
 
 
-def main() -> int:
+def parent_timing(parent, tree_inputs=None):
+    """K2 and K5 of ``parent`` (another checkout, e.g. an archive of the
+    parent commit) and of this checkout, timed by
+    ``testing/kernel_timing.py`` in turns: parent, change, change, parent,
+    at its shapes and at the K5 inputs saved in ``tree_inputs`` (the tree
+    phase's widest launches of the per-op, recovery and load paths).
+    Returns {(kernel, spec): {"parent": [ms, ms], "change": [ms, ms], and
+    each label's first per-kernel device split}} and raises when a run
+    fails or disagrees with its plain version."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "fluidframework_tpu_torch", "testing",
+                          "kernel_timing.py")
+    out = {}
+    for label, root in (("parent", parent), ("change", here),
+                        ("change", here), ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, script, "--kernel", "cell_merge,tree_apply",
+             "--profile", "--root", os.path.abspath(root)]
+            + (["--tree-inputs", tree_inputs] if tree_inputs else []),
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"kernel_timing --root {root} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        for line in proc.stdout.splitlines():
+            row = json.loads(line)
+            rec = out.setdefault((row["kernel"], row["spec"]), {})
+            rec.setdefault(label, []).append(row["ms"])
+            rec.setdefault(label + "_device_ms_by_kernel",
+                           row["device_ms_by_kernel"])
+    emit({"phase": "parent_timing", "parent": os.path.abspath(parent),
+          "rows": [{"kernel": k, "spec": sp, **v}
+                   for (k, sp), v in sorted(out.items())]})
+    return out
+
+
+def add_parent_ms(entry, kernel, timing):
+    """``parent_ms`` (mean of the parent's runs) beside each of the entry's
+    rows whose spec begins with one kernel_timing spec, and on the entry
+    (its main row); None where the helper did not run."""
+    for row in entry.get("specialisations", []) + [entry]:
+        spec = str(row.get("spec") or row.get("shape", {}).get("spec", ""))
+        ms = [v["parent"] for (k, sp), v in (timing or {}).items()
+              if k == kernel and spec.startswith(sp)]
+        row["parent_ms"] = sum(ms[0]) / len(ms[0]) if ms else None
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", default=None,
+                    help="another checkout whose K2 and K5 are timed in "
+                         "turns with this one's (parent_ms)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2459,7 +2560,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     axis_entries = matrix_engine_phase(smi, dev)
     torch.cuda.empty_cache()
-    tree_entries = tree_phase(smi, dev)
+    keep = None
+    if args.parent:
+        tmp = tempfile.mkdtemp()
+        keep = os.path.join(tmp, "tree_inputs.pt")
+    tree_entries = tree_phase(smi, dev, keep)
+    torch.cuda.empty_cache()
+    timing_pc = parent_timing(args.parent, keep) if args.parent else None
+    if keep:
+        shutil.rmtree(os.path.dirname(keep))
+    add_parent_ms(cell_entry, "cell_merge", timing_pc)
+    add_parent_ms(tree_entries[0], "tree_apply", timing_pc)
 
     main_t = timing[("no-props+compact", S_SERVE, "chained")]
     print(smi, flush=True)

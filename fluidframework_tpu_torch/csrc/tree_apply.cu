@@ -31,32 +31,62 @@
 // ops/tree_kernel.py.
 //
 // What bounds them on this card. K5: a doc's records are a serial chain
-// (each lookup reads the planes the previous record left); the bytes are
-// the planes of the docs that have a record, read and written once, and
-// the (9, D, O) record planes read once: tens of microseconds at the
-// serving shape (8,192 docs x 128 slots), against a few N-wide warp
-// passes per record. K6: bytes (the wire read once, the dense planes
-// written once).
+// (each lookup reads what the previous record left). The bytes it must
+// move are counted by record kind: each active doc's node_id plane, an
+// insert's anchor / parent reads and the slots it writes, one value word
+// a setValue, all eight planes only for a doc with a remove or a move, and
+// the records: ≈ 9.4 MB at the serving wave (8,192 docs × 128 slots,
+// TXN_BEGIN_EXISTS + INSERT + SET_VALUE a doc), ≈ 2.8 µs at 3.35 TB/s;
+// staging all eight planes of every active doc in shared memory and
+// writing them all back would move ≈ 67 MB (10.8× the bound), which is
+// why most docs take the sparse path below. K6: bytes (the wire read
+// once, the dense planes written once).
 //
-// K5 layout. One warp per doc, 1 to 4 docs per CTA (as many as the
-// shared memory takes). A doc with no non-NOOP record is skipped: its
-// state is neither read nor written. Otherwise its eight planes are staged
-// in shared memory (plus one scratch plane, below); lane l owns the slots
-// j = l (mod 32), and every lookup (exists, the masked-sum slot value, the
+// K5 layout. One warp per doc, up to 8 docs a CTA (fewer when the docs'
+// shared-memory regions would pass half the shared memory, or when a small
+// launch spreads its docs over the SMs). A pre-pass over the
+// doc's record column finds whether it holds any non-NOOP record (else
+// the doc is skipped: its state is neither read nor written) and whether
+// it holds a REMOVE or MOVE (either form) and how many inserts, which picks
+// the doc's path:
+// - Sparse path (no remove / move, at most 4 inserts, N <= 1,024; the
+//   serving waves' docs hold one insert with a live anchor): only the
+//   node_id plane is read, into registers (N/32 rounded up to a power of
+//   two a lane; lane l
+//   owns the slots j = l (mod 32)), so exists / slot_of / the lowest free
+//   slot are register compares and one warp reduction each. Every other
+//   plane stays in device memory and is touched only where a record needs
+//   it: a nested insert reads its parent's created_seq, an insert's anchor
+//   its parent / field / next_sib, an insert without a live anchor scans
+//   the parent / field / prev_sib planes for the field's head, a write
+//   stores the words it changes (the new slot's eight, the neighbours'
+//   next_sib / prev_sib, a setValue's value). Live ids are unique (an
+//   insert requires the id to be absent), so the JAX masked-sum lookups
+//   equal the one slot's value, or 0 when the id is absent. Lanes see each
+//   other's stores after __syncwarp.
+// - Full path (a remove or move, more than 4 inserts — each costs the
+//   sparse path a device-memory round trip, and one without a live anchor
+//   a scan of three planes — or N > 1,024): the doc's eight planes are
+//   staged in shared memory (plus one scratch plane, below) and written
+//   back whole, each warp in its own region (8 a CTA up to N = 403). N >
+//   1,024 runs every active doc here, 1 to 4 warps a CTA as the shared
+//   memory takes them.
+// In the full path every lookup (exists, the masked-sum slot value, the
 // field head, the lowest free slot) is a pass over the lane's own slots
 // and one warp reduction (__reduce_add_sync wraps like int32; the JAX
 // lookups are masked sums, so an absent id gives 0). Writes touch only the
-// lane's own slots. The records of a chunk of 32 columns are loaded one per
-// lane and broadcast with shuffles. Remove: the scratch plane gets each
+// lane's own slots. In both paths the records of a chunk of 32 columns are
+// loaded one per lane and broadcast with shuffles, and the overflow flag
+// is stored only when it changes. Remove: the scratch plane gets each
 // live slot's parent slot (the slot whose id is its parent, -1 for none)
 // on the state before the record; after the splice each lane walks up from
 // each of its slots and clears the slot when the walk reaches the removed
-// node's slot. Live ids are unique (an insert requires the id to be
-// absent), so the walk marks exactly the JAX fixpoint's set (a slot joins
-// when its parent's id is marked); walks are bounded by N steps. Move: the
-// cycle test walks up from the destination with warp lookups. Capacity:
-// nine planes of 4 bytes a slot, N <= tree_max_slots() = 6,456 at 232,448
-// bytes; the wrappers refuse more.
+// node's slot. Live ids are unique, so the walk marks exactly the JAX
+// fixpoint's set (a slot joins when its parent's id is marked); walks are
+// bounded by N steps. Move: the cycle test walks up from the destination
+// with warp lookups. Capacity: nine planes of 4 bytes a slot in one
+// region, N <= tree_max_slots() = 6,456 at 232,448 bytes; the wrappers
+// refuse more.
 //
 // Plain C ABI (ctypes): the launch functions return a cudaError_t (0 =
 // launched) or a negative code for a refused shape.
@@ -74,7 +104,11 @@ constexpr int kPlanes = 8;
 constexpr int kSmemPerSlot = (kPlanes + 1) * 4;  // + the parent-slot plane
 constexpr int kMaxSmem = 232448;
 constexpr int kMaxN = kMaxSmem / kSmemPerSlot;
-constexpr int kMaxWarps = 4;
+constexpr int kMaxWarps = 4;       // full-path-only launches (N > 1,024)
+constexpr int kWarps = 8;          // most docs a CTA with a sparse path
+constexpr int kMaxRegSlots = 32;   // node ids a lane holds: N <= 1,024
+constexpr int kRegionBudget = kMaxSmem / 2;
+constexpr unsigned kSparseInserts = 4;   // most inserts a sparse-path doc has
 constexpr int kExpandThreads = 256;
 constexpr int kErrBadShape = -1;
 constexpr int kErrSmem = -2;
@@ -275,39 +309,166 @@ struct Doc {
       if (at(NODE, j) == nd) at(VALUE, j) = va;
     __syncwarp();
   }
+  static constexpr bool kStructural = true;
 };
 
-__global__ void __launch_bounds__(kMaxWarps * 32)
-    tree_apply_kernel(ApplyArgs a) {
-  extern __shared__ int smem[];
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int d = blockIdx.x * warps + warp;
-  if (d >= a.D) return;  // whole warps only: no block barrier below
-  const int N = a.N, O = a.O;
+// One doc seen by one lane on the sparse path: node ids in registers, the
+// other planes in device memory (see the source note).
+template <int SPL>
+struct Sparse {
+  static constexpr bool kStructural = false;
+  const ApplyArgs* a;
+  size_t off;  // d * N
+  int N;
+  int lane;
+  int id[SPL > 0 ? SPL : 1];
+
+  __device__ __forceinline__ int* pl(int p) const { return a->plane[p] + off; }
+  __device__ __forceinline__ bool mine(int i) const { return lane + 32 * i < N; }
+
+  __device__ __forceinline__ void load_ids() {
+#pragma unroll
+    for (int i = 0; i < SPL; ++i)
+      id[i] = mine(i) ? pl(NODE)[lane + 32 * i] : 0;
+  }
+
+  __device__ __forceinline__ bool exists(int nid) const {
+    bool hit = false;
+    if (nid != 0)
+#pragma unroll
+      for (int i = 0; i < SPL; ++i) hit |= id[i] == nid;
+    return __any_sync(kFull, hit);
+  }
+
+  // the lowest slot holding nid (INT_MAX when absent)
+  __device__ __forceinline__ int slot_of(int nid) const {
+    unsigned best = INT_MAX;
+#pragma unroll
+    for (int i = SPL - 1; i >= 0; --i)
+      if (id[i] == nid && mine(i)) best = static_cast<unsigned>(lane + 32 * i);
+    return static_cast<int>(__reduce_min_sync(kFull, best));
+  }
+
+  // plane p of a slot, 0 past the doc (the masked sum of an absent id)
+  __device__ __forceinline__ int value_at(int slot, int p) const {
+    return slot < N ? pl(p)[slot] : 0;
+  }
+
+  __device__ __forceinline__ int head_of(int parent, int field) const {
+    unsigned acc = 0;
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      const int j = lane + 32 * i;
+      if (id[i] != 0 && mine(i)) {
+        const int pa = pl(PARENT)[j], fi = pl(FIELD)[j], pv = pl(PREV)[j];
+        if (pa == parent && fi == field && pv == 0)
+          acc += static_cast<unsigned>(id[i]);
+      }
+    }
+    return static_cast<int>(__reduce_add_sync(kFull, acc));
+  }
+
+  // lowest free slot, N when the doc is full
+  __device__ __forceinline__ int min_free() const {
+    unsigned best = static_cast<unsigned>(N);
+#pragma unroll
+    for (int i = SPL - 1; i >= 0; --i)
+      if (id[i] == 0 && mine(i)) best = static_cast<unsigned>(lane + 32 * i);
+    return static_cast<int>(__reduce_min_sync(kFull, best));
+  }
+
+  // splice nid (already in a slot) after the anchor when anchor_ok (the
+  // anchor's next_sib read beforehand), else at the field's head
+  __device__ __forceinline__ void attach(int nid, int parent, int field,
+                                         int after, bool anchor_ok,
+                                         int anchor_next) const {
+    const int prev = anchor_ok ? after : 0;
+    int nxt = anchor_ok ? anchor_next : head_of(parent, field);
+    if (nxt == nid) nxt = 0;  // self-link guard (fresh head)
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      if (!mine(i)) continue;
+      const int j = lane + 32 * i, x = id[i];
+      if (x == nid) {
+        pl(PARENT)[j] = parent;
+        pl(FIELD)[j] = field;
+        pl(PREV)[j] = prev;
+        pl(NEXT)[j] = nxt;
+      }
+      if (prev != 0 && x == prev) pl(NEXT)[j] = nid;
+      if (nxt != 0 && x == nxt) pl(PREV)[j] = nid;
+    }
+    __syncwarp();
+  }
+
+  // returns true when the insert would apply but finds no free slot. The
+  // parent's created_seq and the anchor's parent / field / next_sib are
+  // read in one round trip before the checks: the insert writes only a
+  // free slot, and an anchor that is the new node itself fails either way
+  // (absent before, parent 0 after), so they read as after the write.
+  __device__ __forceinline__ bool insert(int nd, int pa, int af, int fi,
+                                         int va, int ty, int seq,
+                                         bool nested) {
+    if (nd == 0) return false;
+    const int s_pa = pa != 0 ? slot_of(pa) : INT_MAX;
+    const int s_af = af != 0 ? slot_of(af) : INT_MAX;
+    const int pcseq = nested ? value_at(s_pa, CSEQ) : seq;
+    int an_pa = 0, an_fi = 0, an_next = 0;
+    if (s_af < N) {
+      an_pa = pl(PARENT)[s_af];
+      an_fi = pl(FIELD)[s_af];
+      an_next = pl(NEXT)[s_af];
+    }
+    const bool parent_ok = pa == kRoot || s_pa < N;
+    if (!parent_ok || exists(nd)) return false;
+    if (pcseq != seq) return false;
+    const int slot = min_free();
+    if (slot >= N) return true;
+    if ((slot & 31) == lane) {
+      pl(NODE)[slot] = nd;
+      pl(VALUE)[slot] = va;
+      pl(TYPE)[slot] = ty;
+      pl(CSEQ)[slot] = seq;
+      pl(PREV)[slot] = 0;
+      pl(NEXT)[slot] = 0;
+      pl(PARENT)[slot] = 0;
+      pl(FIELD)[slot] = 0;
+#pragma unroll
+      for (int i = 0; i < SPL; ++i)
+        if (lane + 32 * i == slot) id[i] = nd;
+    }
+    __syncwarp();
+    attach(nd, pa, fi, af, s_af < N && an_pa == pa && an_fi == fi, an_next);
+    return false;
+  }
+
+  __device__ __forceinline__ void set_value(int nd, int va) const {
+    if (nd != 0)
+#pragma unroll
+      for (int i = 0; i < SPL; ++i)
+        if (id[i] == nd && mine(i)) pl(VALUE)[lane + 32 * i] = va;
+    __syncwarp();
+  }
+
+};
+
+// The serial scan of doc d's record column; returns its overflow flag.
+template <class DocT>
+__device__ __forceinline__ int scan(DocT& doc, const ApplyArgs& a, int d,
+                                    int lane, int ovf, const int (&f0)[9],
+                                    unsigned base) {
+  const int O = a.O;
   const size_t DO = static_cast<size_t>(a.D) * O;
   const int* rk = a.rec + static_cast<size_t>(d) * O;
-  bool any = false;
-  for (int o = lane; o < O; o += 32) any |= rk[o] != kNoop;
-  if (!__any_sync(kFull, any)) return;
-
-  Doc doc{smem + static_cast<size_t>(warp) * (kPlanes + 1) * N, N, lane};
-  for (int p = 0; p < kPlanes; ++p) {
-    const int* g = a.plane[p] + static_cast<size_t>(d) * N;
-    for (int j = lane; j < N; j += 32) doc.at(p, j) = g[j];
-  }
-  __syncwarp();
-  int ovf = a.overflow[d];
   bool ok_ins = true, ok_txn = true;
   const bool wire = a.base != nullptr;
-  const unsigned base = wire ? static_cast<unsigned>(a.base[d]) : 0u;
   unsigned run = 0;
-
   for (int o0 = 0; o0 < O; o0 += 32) {
     int f[9];
     const int mine = o0 + lane;
 #pragma unroll
-    for (int p = 0; p < 9; ++p) f[p] = mine < O ? rk[p * DO + mine] : 0;
+    for (int p = 0; p < 9; ++p)
+      f[p] = o0 == 0 ? f0[p] : (mine < O ? rk[p * DO + mine] : 0);
     const int n = O - o0 < 32 ? O - o0 : 32;
     for (int r = 0; r < n; ++r) {
       const int k = __shfl_sync(kFull, f[0], r);
@@ -338,20 +499,116 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       if (b == kInsert) {
         if (doc.insert(nd, pa, af, fi, va, ty, seq, (me & 1) != 0)) ovf = 1;
       } else if (b == kRemove) {
-        doc.remove(nd);
+        if constexpr (DocT::kStructural) doc.remove(nd);
       } else if (b == kMove) {
-        doc.move(nd, pa, af, fi);
+        if constexpr (DocT::kStructural) doc.move(nd, pa, af, fi);
       } else if (b == kSetValue) {
         doc.set_value(nd, va);
       }
     }
   }
+  return ovf;
+}
 
+// SPL: node ids a lane keeps for the sparse path (0: every active doc
+// takes the full path)
+template <int SPL>
+__global__ void __launch_bounds__(kWarps * 32)
+    tree_apply_kernel(const __grid_constant__ ApplyArgs a) {
+  extern __shared__ int smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d = blockIdx.x * warps + warp;
+  if (d >= a.D) return;  // whole warps only: no block barrier below
+  const int N = a.N, O = a.O;
+  const size_t DO = static_cast<size_t>(a.D) * O;
+  const int* rk = a.rec + static_cast<size_t>(d) * O;
+  // one round trip: the first 32 records (all nine planes), the flag, the
+  // wire base and, for the sparse path, the node ids
+  int f0[9];
+#pragma unroll
+  for (int p = 0; p < 9; ++p) f0[p] = lane < O ? rk[p * DO + lane] : 0;
+  const int ovf0 = a.overflow[d];
+  const unsigned base =
+      a.base != nullptr ? static_cast<unsigned>(a.base[d]) : 0u;
+  [[maybe_unused]] Sparse<SPL> sparse{&a, static_cast<size_t>(d) * N, N,
+                                      lane, {}};
+  if constexpr (SPL > 0) sparse.load_ids();
+  bool any = false, heavy = false;
+  unsigned inserts = 0;
+  for (int o = lane; o < O; o += 32) {
+    const int k = o < 32 ? f0[0] : rk[o];
+    any |= k != kNoop;
+    heavy |= k == kRemove || k == kMove || k == kRemoveSolo || k == kMoveSolo;
+    inserts += k == kInsert || k == kInsertSolo;
+  }
+  if (!__any_sync(kFull, any)) return;
+  // the sparse path pays a device-memory round trip an insert (and a
+  // three-plane scan for one without a live anchor): past a few inserts,
+  // staging the doc once in shared memory is the faster path
+  heavy = __any_sync(kFull, heavy) ||
+          __reduce_add_sync(kFull, inserts) > kSparseInserts;
+  int ovf;
+  if constexpr (SPL > 0) {
+    if (!heavy) {
+      ovf = scan(sparse, a, d, lane, ovf0, f0, base);
+      if (lane == 0 && ovf != ovf0) a.overflow[d] = ovf;
+      return;
+    }
+  }
+  Doc doc{smem + static_cast<size_t>(warp) * (kPlanes + 1) * N, N, lane};
+  for (int j = lane; j < N; j += 32) {   // a slot's eight loads at once
+    int r[kPlanes];
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p)
+      r[p] = a.plane[p][static_cast<size_t>(d) * N + j];
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) doc.at(p, j) = r[p];
+  }
+  __syncwarp();
+  ovf = scan(doc, a, d, lane, ovf0, f0, base);
   for (int p = 0; p < kPlanes; ++p) {
     int* g = a.plane[p] + static_cast<size_t>(d) * N;
     for (int j = lane; j < N; j += 32) g[j] = doc.at(p, j);
   }
-  if (lane == 0) a.overflow[d] = ovf;
+  if (lane == 0 && ovf != ovf0) a.overflow[d] = ovf;
+}
+
+// launch shape of K5 at capacity N for D docs on a card of `sms` SMs:
+// {slots per lane (0: staged path only), warps (docs) a CTA, dynamic
+// shared memory bytes}. Every warp has its own staged-path region; with a
+// sparse path the regions take at most half the shared memory (two CTAs an
+// SM), and a small launch spreads its docs over the SMs.
+void apply_shape(int N, int D, int sms, int out[3]) {
+  int spl = 0;
+  if (N <= 32 * kMaxRegSlots) {
+    spl = 1;
+    while (32 * spl < N) spl *= 2;
+  }
+  int warps = spl > 0 ? kRegionBudget / (kSmemPerSlot * N)
+                      : kMaxSmem / (kSmemPerSlot * N);
+  const int cap = spl > 0 ? kWarps : kMaxWarps;
+  if (warps > cap) warps = cap;
+  const int spread = sms > 0 ? (D + sms - 1) / sms : cap;
+  if (warps > spread) warps = spread;
+  if (warps < 1) warps = 1;
+  out[0] = spl;
+  out[1] = warps;
+  out[2] = warps * kSmemPerSlot * N;
+}
+
+template <int SPL>
+cudaError_t launch_apply(const ApplyArgs& a, int warps, size_t smem,
+                         cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        tree_apply_kernel<SPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (a.D + warps - 1) / warps;
+  tree_apply_kernel<SPL><<<blocks, warps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 struct ExpandArgs {
@@ -447,22 +704,35 @@ int tree_apply_launch(int* node_id, int* parent, int* field, int* value,
   a.D = D;
   a.N = N;
   a.O = O;
-  int warps = kMaxSmem / (kSmemPerSlot * N);
-  if (warps > kMaxWarps) warps = kMaxWarps;
-  const size_t smem = static_cast<size_t>(warps) * kSmemPerSlot * N;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        tree_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) {
-      cudaGetLastError();
-      return kErrSmem;
-    }
+  int sms = 0, dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    sms = 0;
+  int shape[3];
+  apply_shape(N, D, sms, shape);
+  const size_t smem = static_cast<size_t>(shape[2]);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (shape[0]) {
+    case 1: e = launch_apply<1>(a, shape[1], smem, st); break;
+    case 2: e = launch_apply<2>(a, shape[1], smem, st); break;
+    case 4: e = launch_apply<4>(a, shape[1], smem, st); break;
+    case 8: e = launch_apply<8>(a, shape[1], smem, st); break;
+    case 16: e = launch_apply<16>(a, shape[1], smem, st); break;
+    case 32: e = launch_apply<32>(a, shape[1], smem, st); break;
+    default: e = launch_apply<0>(a, shape[1], smem, st); break;
   }
-  const int blocks = (D + warps - 1) / warps;
-  tree_apply_kernel<<<blocks, warps * 32, smem,
-                      static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (e == cudaErrorInvalidValue && smem > 48 * 1024) {
+    cudaGetLastError();
+    return kErrSmem;
+  }
+  return static_cast<int>(e);
+}
+
+// K5's launch shape (see apply_shape): out[3]
+void tree_apply_shape(int N, int D, int sms, int* out) {
+  apply_shape(N, D, sms, out);
 }
 
 // K6: the wire (cols (R, 3) u8, ids (R, 3) and vals (R,) of id_bytes /

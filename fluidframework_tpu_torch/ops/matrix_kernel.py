@@ -359,8 +359,13 @@ class TensorMatrixStore:
         }
 
     def _set_table(self, key, seq, val, count: int, overflow: int) -> None:
-        planes = torch.from_numpy(np.stack([key, seq, val]).astype(
-            np.int32)).to(self.device, copy=True)
+        """Upload a table. Free slots get seq / value 0: the kernel reads
+        only the live extent and relies on an EMPTY / 0 / 0 tail (a JAX
+        full merge leaves losers' seq / value there, outside the parity
+        contract)."""
+        planes = np.stack([key, seq, val]).astype(np.int32)
+        planes[1:, planes[0] == EMPTY_KEY] = 0
+        planes = torch.from_numpy(planes).to(self.device, copy=True)
         scalars = torch.tensor([count, overflow], dtype=_I32,
                                device=self.device)
         self.state = MatrixCellState(key=planes[0], seq=planes[1],

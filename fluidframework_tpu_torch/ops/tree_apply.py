@@ -46,6 +46,8 @@ def _load():
             lib.tree_expand_launch.argtypes = (
                 [vp] * 6 + [i32, vp, i32, vp, i32, vp, i32, vp]
                 + [i32] * 6 + [vp])
+            lib.tree_apply_shape.restype = None
+            lib.tree_apply_shape.argtypes = [i32, i32, i32, vp]
             lib.tree_max_slots.restype = i32
             lib.tree_max_slots.argtypes = []
             lib.tree_error_string.restype = ctypes.c_char_p
@@ -59,6 +61,38 @@ def max_slots() -> int:
     planes and one scratch plane in shared memory), read from the built
     library."""
     return _load().tree_max_slots()
+
+
+#: the apply kernel's constants (``csrc/tree_apply.cu``): shared memory a
+#: CTA may take, 4-byte planes a staged doc keeps (eight and the parent
+#: slots), most docs a CTA with a sparse path, warps a CTA on staged-only
+#: launches, node ids a lane keeps in registers
+_MAX_SMEM, _SMEM_PLANES, _WARPS, _MAX_WARPS, _MAX_REG_SLOTS = \
+    232448, 9, 8, 4, 32
+
+
+def launch_shape(N: int, D: int, sms: int) -> dict:
+    """K5's launch at capacity N for D docs on a card of ``sms`` SMs, as
+    the source picks it: node ids a lane keeps in registers on the sparse
+    path (0: every active doc is staged, N > 1,024), warps (docs) a CTA —
+    each with its own staged region, the regions within half the shared
+    memory when there is a sparse path, and no more than D / sms so that a
+    small launch spreads over the SMs — and a CTA's dynamic shared memory."""
+    spl = 0
+    if N <= 32 * _MAX_REG_SLOTS:
+        spl = 1
+        while 32 * spl < N:
+            spl *= 2
+    per_region = 4 * _SMEM_PLANES * N
+    if spl:
+        warps = min(_MAX_SMEM // 2 // per_region, _WARPS)
+    else:
+        warps = min(_MAX_SMEM // per_region, _MAX_WARPS)
+    if sms > 0:
+        warps = min(warps, -(-D // sms))
+    warps = max(warps, 1)
+    return {"slots_per_lane": spl, "warps": warps,
+            "smem_bytes": warps * per_region}
 
 
 def check_capacity(N: int) -> None:

@@ -1,31 +1,51 @@
-"""Time the fused apply kernel on nearly full documents.
+"""Time a hand kernel on its main-path shapes, of this checkout or another.
 
-Every doc starts packed to ``count = S - 2*O`` live 4-char segments (the
-most that one O-op batch can grow without overflowing: an op adds at most
-two slots) and takes one batch of ``typing_storm`` ops (no props) or
-``conflict_storm`` ops (props, K=4), moved to a seeded offset inside the
-doc so the edits land across the whole text and a shift moves up to S
-slots. The packed segments carry seq 0 (loaded content), so every
-perspective sees them and every op position stays valid. Compaction
-reclaims the tombstones of the batch's first half.
+``--kernel string_apply`` (the default) times the fused apply kernel on
+nearly full documents: every doc starts packed to ``count = S - 2*O`` live
+4-char segments (the most that one O-op batch can grow without
+overflowing: an op adds at most two slots) and takes one batch of
+``typing_storm`` ops (no props) or ``conflict_storm`` ops (props, K=4),
+moved to a seeded offset inside the doc so the edits land across the
+whole text and a shift moves up to S slots. The packed segments carry seq
+0 (loaded content), so every perspective sees them and every op position
+stays valid. Compaction reclaims the tombstones of the batch's first half.
+
+``--kernel cell_merge`` times K2 at config #3's two shapes: ``prefix`` —
+the store route's last merge (the storm's 524,288 records through
+``TensorMatrixStore`` in chunks of 4,096; the state, chunk and L of its
+last merge, L = 2^19), and ``full`` — the storm's last raw batch (T =
+1,114,112, O = 65,536) merged into the table the first seven left.
+``--kernel tree_apply`` times K5 at ``benches/profile_tree.py``'s shapes
+(8,192 docs, capacity 128): ``wire`` — the last record wave of a
+``TreeServingEngine`` (wire mode, o = 4), and ``planes`` — its kernel-alone
+batch (wave 9 packed into record planes) on the state the waves left;
+``--tree-inputs FILE`` adds K5 inputs saved by ``chip_smoke.py --parent``
+(the per-op, recovery and load paths' widest launches).
 
 Each row holds the kernel's result against the plain PyTorch version on
 the same input (``max_abs_err``: full planes, or ``[0, count)`` plus the
-digest after a compaction) and times the kernel with CUDA events.
+digest after a compaction) and times the kernel with CUDA events: K2 and K5
+as ``ms`` (20 calls back to back in one CUDA graph, each restoring its
+input state first, minus the same graph of the restores alone) and
+``call_ms`` (one eager call, minus the restore).
 
 Usage (one card)::
 
-    python3 fluidframework_tpu_torch/testing/kernel_timing.py [--root DIR]
+    python3 fluidframework_tpu_torch/testing/kernel_timing.py \\
+        [--kernel string_apply|cell_merge|tree_apply[,...]] [--root DIR] \\
+        [--profile] [--tree-inputs FILE]
 
 ``--root`` imports ``fluidframework_tpu_torch`` from another checkout, for
-example an archive of a parent commit, so two versions of the kernel can
-be timed on the same card in one session. Prints one JSON line per
-(spec, S).
+example an archive of a parent commit, so two versions of a kernel can be
+timed on the same card in one run (run parent, change, change,
+parent). Prints one JSON line per row; exits 1 when a row's max abs error
+is not 0, 2 without a card.
 """
 
 import argparse
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -35,6 +55,9 @@ SPECS = (("no-props", False, False), ("no-props+compact", False, True),
          ("props", True, False), ("props+compact", True, True))
 SEG_LEN = 4   # chars per packed segment
 DOCS, OPS, CAPACITIES = 10_240, 64, (384, 512)   # config #4 shapes
+CELL_GRID, CELL_OPS, CELL_BATCHES, CELL_CHUNK = 1024, 1 << 16, 8, 4096
+TREE_DOCS, TREE_N, TREE_WAVES = 8192, 128, 7     # profile_tree.py
+KERNELS = ("string_apply", "cell_merge", "tree_apply")
 
 
 def near_full(mt, synthetic, D, S, O, props, K=4, seed=0, device="cuda"):
@@ -124,27 +147,282 @@ def measure(mt, sk, synthetic, D, S, O, spec, K=4, reps=20, seed=0):
             "overflowed_docs": int(work.overflow.sum())}
 
 
+def _graph_ms(fn, reps=20):
+    """Mean ms per call of ``fn`` run back to back: ``reps`` calls in one
+    CUDA graph, one replay between CUDA events (after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _eager_ms(fn, reps=10):
+    """Mean ms of ``reps`` eager calls, each bracketed by CUDA events."""
+    fn()
+    ev = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        ev.append((a, b))
+    torch.cuda.synchronize()
+    return sum(x.elapsed_time(y) for x, y in ev) / len(ev)
+
+
+def device_ms_by_kernel(fn, reps=20):
+    """{kernel name: mean device ms per call of ``fn``} from
+    ``torch.profiler`` over ``reps`` eager calls (the state copies show as
+    ``Memcpy DtoD``)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", 0) or 0
+        if total:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.replace("void ", "").split("(")[0]
+            out[name[:60]] = out.get(name[:60], 0.0) + total / 1e3 / reps
+    return out
+
+
+def time_in_place(fields, state0, work, launch, profile=False):
+    """{"ms", "call_ms"} of ``launch(work)`` on a copy of ``state0``: the
+    copy is timed alone and taken off; ``work`` ends holding one launch's
+    result. ``fields(s)`` maps plane names to tensors. ``profile`` adds
+    the device ms of each kernel a call launches."""
+    def copy():
+        for k, v in fields(work).items():
+            v.copy_(fields(state0)[k])
+
+    def run():
+        copy()
+        launch(work)
+
+    out = {"ms": _graph_ms(run) - _graph_ms(copy),
+           "call_ms": _eager_ms(run) - _eager_ms(copy)}
+    if profile:
+        out["device_ms_by_kernel"] = device_ms_by_kernel(run)
+    run()   # the result the caller compares
+    torch.cuda.synchronize()
+    return out
+
+
+def cell_inputs(mx, synthetic, device, grid=CELL_GRID, ops=CELL_OPS,
+                batches=CELL_BATCHES, chunk=CELL_CHUNK):
+    """{"prefix": (state, batch, L), "full": (state, batch, None)}: the
+    store route's last merge and the raw storm's last one (see above)."""
+    T = grid * grid + ops
+    storm = synthetic.cell_storm(grid, grid, ops, batches, seed=0)
+    raw = [tuple(torch.as_tensor(x).to(device) for x in b) for b in storm]
+    clone = lambda s: mx.MatrixCellState(  # noqa: E731
+        **{k: v.clone() for k, v in s.fields().items()})
+    st = mx.MatrixCellState.create(T, device)
+    for b in raw[:-1]:
+        mx.merge_cells_fused(st, *b)
+    out = {"full": (clone(st), raw[-1], None)}
+    recs = [np.concatenate(x) for x in zip(*storm)]
+    fused, last = mx.merge_cells_fused, {}
+
+    def keep_last(state, k, s, v, L=None, fww=False):
+        last["prefix"] = (clone(state), (k, s, v), L)
+        return fused(state, k, s, v, L, fww)
+
+    mx.merge_cells_fused = keep_last
+    try:
+        store = mx.TensorMatrixStore(capacity=T, batch_size=chunk,
+                                     device=device)
+        store.apply_batch_columnar((recs[0] // grid).tolist(),
+                                   (recs[0] % grid).tolist(),
+                                   recs[2].tolist(), recs[1])
+    finally:
+        mx.merge_cells_fused = fused
+    out.update(last)
+    return out
+
+
+def measure_cell(mx, synthetic, device="cuda", profile=False, **sizes):
+    """K2's rows: prefix and full."""
+    rows = []
+    for spec, (state0, b, L) in cell_inputs(mx, synthetic, device,
+                                            **sizes).items():
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = mx.merge_cells(state0, *b, L, False)
+        z.record()
+        work = mx.MatrixCellState(**{k: v.clone() for k, v in
+                                     state0.fields().items()})
+        t = time_in_place(lambda s: s.fields(), state0, work,
+                          lambda w: mx.merge_cells_fused(w, *b, L=L),
+                          profile)
+        err = max(int((getattr(work, k).long() - getattr(want, k).long())
+                      .abs().max()) for k in want.fields())
+        rows.append({"kernel": "cell_merge", "spec": spec,
+                     "T": state0.key.shape[0],
+                     "L": state0.key.shape[0] if L is None else L,
+                     "O": b[0].numel(), "live_in": int(state0.count),
+                     "live_out": int(want.count), **t,
+                     "plain_ms": a.elapsed_time(z), "max_abs_err": err})
+    return rows
+
+
+def tree_inputs(tk, tstore, synthetic, device, docs=TREE_DOCS, N=TREE_N,
+                waves=TREE_WAVES):
+    """{"wire": (state, planes, base), "planes": (state, planes, None)}:
+    the serving engine's last record wave (wire mode; its dense records and
+    seq base) and the kernel-alone batch on the state the waves left."""
+    from fluidframework_tpu_torch.server.serving import TreeServingEngine
+    from fluidframework_tpu_torch.server.tree_wire import encode_tree_batch
+
+    ids = [f"t-{i}" for i in range(docs)]
+    eng = TreeServingEngine(n_docs=docs, capacity=N, batch_window=10 ** 9,
+                            sequencer="native", device=device)
+    for d in ids:
+        eng.connect(d, 1)
+    rows = np.array([eng.doc_row(d) for d in ids], np.int32)
+    ones, zeros = [1] * docs, [0] * docs
+    wave_ops = [synthetic.profile_tree_waves(ids, w)[1]
+                for w in range(waves)]
+    captured, wire_fused = {}, tstore.apply_tree_wire_fused
+
+    def keep_wire(state, *args, o):
+        captured["wire"] = (state.clone(), args, o)
+        return wire_fused(state, *args, o=o)
+
+    tstore.apply_tree_wire_fused = keep_wire
+    try:
+        for w, ops in enumerate(wave_ops):
+            if w < 2:
+                eng.ingest_batch(ids, ones, [w + 1] * docs, zeros, ops)
+            else:
+                eng.ingest_records(None, ones, [w + 1] * docs, zeros,
+                                   encode_tree_batch(ops), rows=rows)
+        eng.sync()
+    finally:
+        tstore.apply_tree_wire_fused = wire_fused
+    before, args, o = captured["wire"]
+    cols, ids_, vals, row, pos, base = args[:6]
+    dense = tk.expand_tree_wire(cols, ids_, vals, row, pos, *args[6:],
+                                n_docs=docs, o=o)
+    batch9 = encode_tree_batch(synthetic.profile_tree_waves(ids, 9)[1])
+    planes = eng.store.pack_records(
+        np.arange(docs, dtype=np.int64)[batch9["rec_op"]],
+        eng._map_records(batch9["recs"], batch9),
+        np.full(len(batch9["rec_op"]), 50, np.int64))
+    return {"wire": (before, dense, base),
+            "planes": (eng.store.state.clone(),
+                       torch.from_numpy(planes).to(device), None)}
+
+
+def saved_tree_inputs(tk, path, device):
+    """K5 inputs saved with ``torch.save`` as {spec: (state planes by
+    name, (9, D, O) records, base or None)} — ``chip_smoke.py --parent``
+    saves the per-op, recovery and load paths' widest launches so that the
+    parent's kernel is timed on them too."""
+    return {spec: (tk.TreeState(**{k: v.to(device)
+                                   for k, v in fields.items()}),
+                   planes.to(device),
+                   None if base is None else base.to(device))
+            for spec, (fields, planes, base) in torch.load(path).items()}
+
+
+def measure_tree(tk, ta, tstore, synthetic, device="cuda", profile=False,
+                 saved=None, **sizes):
+    """K5's rows: wire and planes, then the ``saved`` inputs."""
+    rows = []
+    inputs = tree_inputs(tk, tstore, synthetic, device, **sizes)
+    if saved:
+        inputs.update(saved_tree_inputs(tk, saved, device))
+    for spec, (state0, planes, base) in inputs.items():
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        if base is None:
+            want = tk.apply_tree_planes(state0, planes)
+        else:
+            want = tk.apply_tree_batch(state0, *planes[:7],
+                                       tk.wire_seq(planes[8], base),
+                                       planes[7])
+        z.record()
+        work = state0.clone()
+        t = time_in_place(lambda s: s.fields(), state0, work,
+                          lambda w: ta.launch_apply(w, planes, base),
+                          profile)
+        err = max(int((getattr(work, k).long() - getattr(want, k).long())
+                      .abs().max()) for k in want.fields())
+        rows.append({"kernel": "tree_apply", "spec": spec,
+                     "D": planes.shape[1], "N": state0.node_id.shape[1],
+                     "O": planes.shape[2],
+                     "records": int((planes[0] != 0).sum()), **t,
+                     "plain_ms": a.elapsed_time(z), "max_abs_err": err})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))),
         help="checkout whose fluidframework_tpu_torch is timed")
+    ap.add_argument("--kernel", default="string_apply",
+                    help="comma-separated: " + ", ".join(KERNELS))
+    ap.add_argument("--tree-inputs", default=None,
+                    help="tree_apply: also time K5 on the inputs saved in "
+                         "this file (chip_smoke.py --parent writes it)")
+    ap.add_argument("--profile", action="store_true",
+                    help="K2 / K5 rows: add each launched kernel's device "
+                         "ms (torch.profiler)")
     args = ap.parse_args(argv)
+    kernels = args.kernel.split(",")
+    if set(kernels) - set(KERNELS):
+        ap.error(f"--kernel: one or more of {', '.join(KERNELS)}")
     if not torch.cuda.is_available():
         print("kernel_timing: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
+    from fluidframework_tpu_torch.ops import matrix_kernel as mx
     from fluidframework_tpu_torch.ops import merge_tree as mt
     from fluidframework_tpu_torch.ops import string_kernel as sk
+    from fluidframework_tpu_torch.ops import tree_apply as ta
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.ops import tree_store as tstore
     from fluidframework_tpu_torch.testing import synthetic
 
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    rows = []
+    if "string_apply" in kernels:
+        for S in CAPACITIES:
+            for spec, _, _ in SPECS:
+                rows.append(measure(mt, sk, synthetic, DOCS, S, OPS, spec))
+    if "cell_merge" in kernels:
+        rows += measure_cell(mx, synthetic, profile=args.profile)
+    if "tree_apply" in kernels:
+        rows += measure_tree(tk, ta, tstore, synthetic,
+                             profile=args.profile, saved=args.tree_inputs)
     bad = 0
-    for S in CAPACITIES:
-        for spec, _, _ in SPECS:
-            row = measure(mt, sk, synthetic, DOCS, S, OPS, spec)
-            row["root"] = os.path.abspath(args.root)
-            print(json.dumps(row), flush=True)
-            bad += row["max_abs_err"] != 0
+    for row in rows:
+        row.setdefault("kernel", "string_apply")
+        row.update(root=os.path.abspath(args.root), card=card)
+        print(json.dumps(row), flush=True)
+        bad += row["max_abs_err"] != 0
     return 1 if bad else 0
 
 

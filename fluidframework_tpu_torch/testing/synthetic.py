@@ -358,6 +358,28 @@ def tree_record_storm(n_docs: int, n_ops: int, seed: int = 0,
     return planes
 
 
+def tree_path_mix(n_docs: int, n_ops: int, seed: int = 0,
+                  capacity: int = 128, start_seq: int = 1) -> np.ndarray:
+    """A ``tree_record_storm`` batch whose docs take the record scan's two
+    paths side by side, by doc index mod 5: 0 keeps every record (removes
+    and moves: the staged path), 1 drops its removes and moves to NOOP
+    (many inserts: the staged path too), 2 also keeps no more than its
+    first 4 inserts (the sparse path, inserts, setValues and guards), 3
+    keeps only its setValues, 4 is all NOOP."""
+    p = tree_record_storm(n_docs, n_ops, seed=seed, capacity=capacity,
+                          start_seq=start_seq)
+    kind = p[0]
+    cls = (np.arange(n_docs) % 5)[:, None]
+    structural = np.isin(kind, (6, 7, 10, 11))
+    inserts = np.isin(kind, (5, 9))
+    late = inserts & (np.cumsum(inserts, axis=1) > 4)
+    sets = np.isin(kind, (8, 12))
+    drop = (((cls == 1) | (cls == 2)) & structural) | ((cls == 2) & late) \
+        | ((cls == 3) & ~sets) | (cls == 4)
+    p[:, drop] = 0
+    return p
+
+
 def tree_storm_flat(planes: np.ndarray):
     """The non-NOOP records of ``tree_record_storm`` planes in doc-major,
     column order, as the wire packer takes them: (recs (R, 8) int32 in

@@ -779,6 +779,129 @@ def test_cell_kernel_chained_stress(cuda):
     assert res["kernel_launches"] > 0
 
 
+def _cell_case(dev, T, L, table, batch, fww, count=None):
+    """One merge of ``batch`` (key, seq, value numpy arrays) into a table
+    holding the sorted (key, seq, value) rows ``table`` at its head: the
+    kernel against the plain version on the same input, all planes."""
+    st = mx.MatrixCellState.create(T, dev)
+    k, q, v = (np.asarray(x, np.int32) for x in table)
+    n = len(k)
+    st.key[:n] = torch.as_tensor(k).to(dev)
+    st.seq[:n] = torch.as_tensor(q).to(dev)
+    st.value[:n] = torch.as_tensor(v).to(dev)
+    st.count.fill_(n if count is None else count)
+    b = [torch.as_tensor(np.ascontiguousarray(x, np.int32)).to(dev)
+         for x in batch]
+    want = mx.merge_cells(st, *b, L, fww)
+    mx.merge_cells_fused(st, *b, L=L, fww=fww)
+    torch.cuda.synchronize()
+    _cells_same(st, want, L)
+    if not int(st.overflow):
+        _cells_sorted_invariant(st)
+    return st
+
+
+def _table(keys, seq0=1):
+    keys = np.asarray(keys, np.int32)
+    return keys, np.arange(seq0, seq0 + len(keys), dtype=np.int32), keys * 7
+
+
+@pytest.mark.parametrize("fww", [False, True])
+@pytest.mark.parametrize("L", [None, 1 << 14])
+def test_cell_kernel_runs_straddle_slice_boundaries(cuda, fww, L):
+    """Key runs (a table cell and many batch writes to it) that cross the
+    2,048-position merge-path tiles, new keys between them, and one key
+    written 5,000 times (a run across three tiles), LWW and FWW."""
+    rng = np.random.default_rng(3)
+    table = _table(np.arange(0, 8000, 2))           # 4,000 live cells
+    hot = np.repeat(np.array([1000, 1001, 2046, 3000], np.int32), 700)
+    many = np.full(5000, 4002, np.int32)
+    fresh = rng.integers(0, 8000, 2000).astype(np.int32)
+    key = np.concatenate([hot, many, fresh])
+    key = key[rng.permutation(len(key))]
+    seq = np.arange(10_000, 10_000 + len(key), dtype=np.int32)
+    val = rng.integers(1, 1 << 30, len(key), dtype=np.int32)
+    _cell_case(cuda, 1 << 15, L, table, (key, seq, val), fww)
+    # a table cell newer than every write to its key (full mode keeps it)
+    old = table[0], table[1] + 100_000, table[2]
+    _cell_case(cuda, 1 << 15, L, old, (key, seq, val), fww)
+
+
+@pytest.mark.parametrize("L", [None, 4096])
+@pytest.mark.parametrize("O", [1, 10_000])
+def test_cell_kernel_batch_sizes_against_the_live_extent(cuda, L, O):
+    """O = 1, and O far past the live extent (10 cells), LWW and FWW."""
+    rng = np.random.default_rng(O)
+    table = _table(np.arange(5, 55, 5))
+    key = rng.integers(0, 4000, O).astype(np.int32)
+    seq = np.arange(100, 100 + O, dtype=np.int32)
+    for fww in (False, True):
+        _cell_case(cuda, 8192, L, table, (key, seq, key + 1), fww)
+
+
+@pytest.mark.parametrize("fww", [False, True])
+@pytest.mark.parametrize("L", [None, 2048])
+def test_cell_kernel_all_empty_batch_and_empty_table(cuda, fww, L):
+    """An all-EMPTY batch into a live table and into an empty one
+    (count 0), and an empty batch (O = 0)."""
+    pads = (np.full(3000, int(mx.EMPTY_KEY), np.int32),
+            np.arange(3000, dtype=np.int32), np.ones(3000, np.int32))
+    table = _table(np.arange(0, 3000, 3))
+    _cell_case(cuda, 4096, L, table, pads, fww)
+    _cell_case(cuda, 4096, L, ([], [], []), pads, fww)
+    st = _cell_case(cuda, 4096, L, ([], [], []),
+                    _table(np.arange(7, 700, 7), 50), fww)
+    assert int(st.count) == 99
+    none = [np.zeros(0, np.int32)] * 3
+    _cell_case(cuda, 4096, L, table, none, fww)
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+@pytest.mark.parametrize("L", [None, 4096])
+def test_cell_kernel_live_at_the_edge_across_tiles(cuda, extra, L):
+    """Live exactly Lt and Lt + 1 with Lt spanning several merge tiles:
+    half the cells in the table, the other half new in one batch."""
+    T = 4096 if L is None else 8192
+    Lt = T if L is None else L
+    n = Lt + extra
+    keys = np.arange(n, dtype=np.int32) * 3
+    table = _table(keys[0::2])
+    new = keys[1::2][::-1].copy()
+    st = _cell_case(cuda, T, L, table,
+                    (new, np.arange(1, len(new) + 1, dtype=np.int32) + n,
+                     new + 5), False)
+    assert int(st.overflow) == extra and int(st.count) == min(n, T)
+
+
+def test_cell_kernel_live_extent_shrinks(cuda):
+    """An overflowed prefix merge leaves count past the cells the prefix
+    holds; the next merge at a larger L reads that extent (EMPTY past the
+    stored cells) and leaves fewer live cells than the count it read."""
+    T, L = 8192, 1024
+    keys = np.arange(1200, dtype=np.int32)
+    st = mx.MatrixCellState.create(T, cuda)
+    ref = mx.MatrixCellState.create(T, cuda)
+    for key, Lm in ((keys, L), (keys[:10], 2048)):
+        b = [torch.as_tensor(x).to(cuda) for x in
+             (key, np.arange(1, len(key) + 1, dtype=np.int32), key * 2)]
+        count_in = int(st.count)
+        mx.merge_cells_fused(st, *b, L=Lm)
+        ref = mx.merge_cells(ref, *b, Lm, False)
+        torch.cuda.synchronize()
+        _cells_same(st, ref, Lm)
+    assert count_in == 1200 and int(st.count) == L and int(st.overflow)
+
+
+def test_cell_scratch_sizing_matches_the_library(cuda):
+    lib = cmk._load()
+    for Lt, O in ((1, 0), (8, 1), (2047, 1), (2048, 1), (1 << 19, 4096),
+                  (1 << 19, 4097), ((1 << 20) + (1 << 16), 1 << 16),
+                  (100, 70_000)):
+        assert cmk.scratch_words(Lt, O) == \
+            lib.cell_merge_scratch_words(Lt, O), (Lt, O)
+        assert cmk.tiles(Lt, O) == lib.cell_merge_tiles(Lt, O), (Lt, O)
+
+
 # ------------------------------------------- permutation axes (K3 and K4)
 
 def _axis_same(st, ref, tag):
@@ -1151,6 +1274,129 @@ def test_tree_wire_matches_plain(cuda, width, O):
         ref = tk.apply_tree_wire(ref, *dev, o=o)
         torch.cuda.synchronize()
         _tree_same(st, ref, b)
+
+
+@pytest.mark.parametrize("N", [32, 128, 404, 1024, 1025])
+def test_tree_apply_sparse_and_full_paths_side_by_side(cuda, N):
+    """Docs with a remove or move or more than 4 inserts (the staged
+    path) next to docs with a few inserts and setValues, setValue-only
+    docs and NOOP-only docs (the sparse path, or none), chained after a
+    storm that fills them; from N = 404 a CTA holds fewer than 8 docs, at
+    1,025 every doc takes the staged path."""
+    from fluidframework_tpu_torch.ops import tree_apply as ta
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.testing.synthetic import (
+        tree_path_mix, tree_record_storm,
+    )
+    D, O = 96, 64
+    cap = min(N, 128)
+    st = tk.TreeState.create(D, N, device=cuda)
+    ref = st.clone()
+    batches = [tree_record_storm(D, O, seed=11, capacity=cap),
+               tree_path_mix(D, O, seed=12, capacity=cap, start_seq=1001),
+               tree_path_mix(D, O, seed=13, capacity=cap, start_seq=2001)]
+    for b, p in enumerate(batches):
+        p = torch.from_numpy(p).to(cuda)
+        before = ta.apply_launches
+        tk.apply_tree_planes_fused(st, p)
+        assert ta.apply_launches == before + 1
+        ref = tk.apply_tree_planes(ref, p)
+        torch.cuda.synchronize()
+        _tree_same(st, ref, b)
+
+
+def test_tree_apply_insert_into_a_full_doc(cuda):
+    """A doc filled to its last slot (staged path: many inserts), then on
+    the sparse path an insert that would apply (sticky overflow, nothing
+    changes) and a setValue; beside it a doc with one slot left."""
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    K = tk.TreeOpKind
+    N = 32
+    fill = [(K.INSERT_SOLO, 10 + i, 1, 0, 1, i, 0, 0, 1 + i)
+            for i in range(N - 1)]
+    more = [(K.INSERT_SOLO, 99, 1, 10, 1, 5, 0, 0, 40),
+            (K.SET_SOLO, 12, 0, 0, 0, 77, 0, 0, 41)]
+    first = np.zeros((9, 2, len(fill)), np.int32)
+    first[:, 0, :] = np.array(fill, np.int32).T
+    first[:, 1, :N - 2] = np.array(fill[:N - 2], np.int32).T
+    second = np.zeros((9, 2, len(more)), np.int32)
+    second[:, :, :] = np.array(more, np.int32).T[:, None, :]
+    st = tk.TreeState.create(2, N, device=cuda)
+    ref = st.clone()
+    for p in (first, second):
+        p = torch.from_numpy(p).to(cuda)
+        tk.apply_tree_planes_fused(st, p)
+        ref = tk.apply_tree_planes(ref, p)
+        torch.cuda.synchronize()
+        _tree_same(st, ref, "full doc")
+    assert st.overflow.tolist() == [1, 0]
+    assert int((st.node_id[0] != 0).sum()) == N
+    assert int((st.node_id[1] != 0).sum()) == N
+
+
+def test_tree_apply_mix_at_max_slots(cuda):
+    from fluidframework_tpu_torch.ops import tree_apply as ta
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.testing.synthetic import tree_path_mix
+    N = ta.max_slots()
+    assert N >= 6456
+    st = tk.TreeState.create(8, N, device=cuda)
+    ref = st.clone()
+    for b in range(2):
+        p = torch.from_numpy(tree_path_mix(8, 128, seed=20 + b, capacity=64,
+                                           start_seq=1 + 1000 * b)).to(cuda)
+        tk.apply_tree_planes_fused(st, p)
+        ref = tk.apply_tree_planes(ref, p)
+        torch.cuda.synchronize()
+        _tree_same(st, ref, b)
+
+
+def test_tree_launch_shape_matches_the_library(cuda):
+    import ctypes
+    from fluidframework_tpu_torch.ops import tree_apply as ta
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for N in (1, 32, 33, 128, 403, 404, 1000, 1024, 1025, 4000,
+              ta.max_slots()):
+        for D in (1, 256, 8192):
+            out = (ctypes.c_int * 3)()
+            ta._load().tree_apply_shape(N, D, sms,
+                                        ctypes.cast(out, ctypes.c_void_p))
+            assert list(ta.launch_shape(N, D, sms).values()) == list(out), \
+                (N, D)
+
+
+def test_tree_apply_replayed_in_a_cuda_graph(cuda):
+    """K5 captured in a CUDA graph (each call restoring its input first),
+    replayed: equal to the plain apply of the same input."""
+    from fluidframework_tpu_torch.ops import tree_apply as ta
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.testing.synthetic import (
+        tree_path_mix, tree_record_storm,
+    )
+    D, N = 512, 128
+    st0 = tk.TreeState.create(D, N, device=cuda)
+    tk.apply_tree_planes_fused(st0, torch.from_numpy(
+        tree_record_storm(D, 64, seed=1, capacity=N)).to(cuda))
+    p = torch.from_numpy(tree_path_mix(D, 64, seed=2, capacity=N,
+                                       start_seq=1001)).to(cuda)
+    want = tk.apply_tree_planes(st0, p)
+    work = st0.clone()
+
+    def run():
+        for k, v in work.fields().items():
+            v.copy_(getattr(st0, k))
+        ta.launch_apply(work, p)
+
+    run()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(5):
+            run()
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        _tree_same(work, want, "graph")
 
 
 def test_tree_kernels_check_inputs(cuda):

@@ -277,3 +277,61 @@ def test_stress_harness_feeds_merges_as_the_store_does():
     assert res["mismatches"] == 0, res["first_mismatches"]
     assert res["merges"]["prefix"] == res["merges"]["prefix-growing"] \
         == 2 * (2 * 32 + 32) // 8
+
+
+# ------------------------------------------ the kernel's Python-side sizing
+
+def test_cell_merge_scratch_and_tile_counts():
+    """The wrapper's scratch sizing: 4 words a merge tile (2,048 merged
+    positions), 4 meta words, the sorted batch once (O <= 4,096: one
+    sort CTA, no merge pass) or twice, three output planes of Lt."""
+    from fluidframework_tpu_torch.ops import cell_merge as cmk
+    assert cmk.tiles(1, 0) == 1 and cmk.tiles(2048, 0) == 1
+    assert cmk.tiles(2048, 1) == 2
+    assert cmk.tiles(1 << 19, 4096) == 258
+    assert cmk.tiles((1 << 20) + (1 << 16), 1 << 16) == 576
+    assert cmk.scratch_words(100, 4096) == 4 * 3 + 4 + 3 * 4096 + 300
+    assert cmk.scratch_words(100, 4097) == 4 * 3 + 4 + 6 * 4097 + 300
+
+
+def test_restore_clears_free_slots_of_a_jax_full_merge():
+    """A JAX full merge leaves demoted losers' seq / value past ``count``;
+    restored into the port, free slots carry 0 / 0 (the kernel reads only
+    the live extent and relies on that tail), and the contract with JAX
+    (``[0, count)``, the key plane, count, overflow, digest) holds."""
+    js = jmx.TensorMatrixStore(capacity=64, batch_size=256)
+    recs = cell_records(2, 500, n_rows=6, n_cols=6, n_values=9)
+    js.apply_batch(recs)
+    snap = js.snapshot()
+    n = snap["count"]
+    assert (snap["key"][n:] == EMPTY).all() and snap["seq"][n:].any()
+    back = tmx.TensorMatrixStore.restore(snap, "cpu")
+    same_cells(js.state, back.state, whole_planes=False)
+    assert not back.state.seq[n:].any() and not back.state.value[n:].any()
+    # and it merges on as JAX does
+    more = cell_records(3, 200, n_rows=6, n_cols=6, n_values=9, seq0=600)
+    js.apply_batch(more)
+    back.apply_batch(more)
+    same_cells(js.state, back.state, whole_planes=False)
+
+
+def test_timing_inputs_merge_like_jax():
+    """``testing/kernel_timing.py``'s K2 inputs at a small grid (the store
+    route's last chunk, the raw storm's last batch): the plain merge of
+    each equals JAX's on the same state and batch."""
+    from fluidframework_tpu_torch.testing import kernel_timing as kt
+    from fluidframework_tpu_torch.testing import synthetic
+    ins = kt.cell_inputs(tmx, synthetic, "cpu", grid=16, ops=96, batches=3,
+                         chunk=32)
+    assert ins["full"][2] is None and ins["prefix"][2] == 256
+    for spec, (st, b, L) in ins.items():
+        js = jmx.MatrixCellState(**{k: jnp.asarray(v.numpy())
+                                    for k, v in st.fields().items()})
+        jb = [jnp.asarray(x.numpy()) for x in b]
+        if L is None:
+            jout = jmx.apply_cells_batch_jit(js, *jb)
+            tout = tmx.apply_cells_batch(st, *b)
+        else:
+            jout = jmx.apply_cells_prefix_jit(js, *jb, L)
+            tout = tmx.apply_cells_prefix(st, *b, L)
+        same_cells(jout, tout, whole_planes=L is not None)

@@ -203,3 +203,84 @@ def test_fused_entry_points_update_the_cpu_state_in_place():
 
 def test_jax_runs_on_the_cpu():
     assert jax.devices()[0].platform == "cpu"
+
+
+# ------------------------------------------ the scan's two paths (K5)
+
+def test_path_mix_chained_matches_jax():
+    """``tree_path_mix`` batches (staged-path docs with removes and moves
+    or many inserts beside docs with a few inserts and setValues,
+    setValue-only and NOOP-only docs) after a storm that fills the docs:
+    the plain scan equals JAX."""
+    from fluidframework_tpu_torch.testing.synthetic import tree_path_mix
+    js = jk.TreeState.create(D, N)
+    ts = tk.TreeState.create(D, N, device="cpu")
+    batches = [tree_record_storm(D, O, seed=31, capacity=N)] + [
+        tree_path_mix(D, O, seed=32 + b, capacity=N, start_seq=1001 + 1000 * b)
+        for b in range(2)]
+    for b, p in enumerate(batches):
+        js = jk.apply_tree_planes_jit(js, jnp.asarray(p))
+        ts = tk.apply_tree_planes(ts, torch.from_numpy(p))
+        _assert_same(js, ts, f"batch {b}")
+    kinds = batches[1][0]
+    structural, inserts = (6, 7, 10, 11), np.isin(kinds, (5, 9))
+    assert np.isin(kinds[0::5], structural).any()
+    assert not np.isin(kinds[1::5], structural).any()
+    assert (inserts[1::5].sum(axis=1) > 4).any()
+    assert not np.isin(kinds[2::5], structural).any()
+    assert (inserts[2::5].sum(axis=1) <= 4).all() and inserts[2::5].any()
+    assert np.isin(kinds[3::5], (0, 8, 12)).all() and not kinds[4::5].any()
+
+
+@pytest.mark.parametrize("N_", [1, 32, 33, 128, 403, 404, 1024, 1025, 6456])
+def test_apply_launch_shape(N_):
+    """K5's launch as the source picks it: node ids in registers (a power
+    of two a lane, 32·that >= N) up to N = 1,024, else the staged path
+    alone; one staged region a warp, within half the shared memory with a
+    sparse path, at most D / SMs docs a CTA, and every launch within the
+    card's 232,448 bytes."""
+    from fluidframework_tpu_torch.ops import tree_apply as ta
+    for D in (1, 256, 8192):
+        sh = ta.launch_shape(N_, D, 132)
+        spl, warps = sh["slots_per_lane"], sh["warps"]
+        if N_ <= 1024:
+            assert spl & (spl - 1) == 0 and 32 * spl >= N_
+            assert spl == 1 or 16 * spl < N_
+            assert sh["smem_bytes"] <= 232448 // 2
+            assert warps == (8 if N_ <= 403 else 232448 // 2 // (36 * N_)) \
+                or warps == -(-D // 132)
+        else:
+            assert spl == 0 and warps <= 4
+        assert 1 <= warps <= max(-(-D // 132), 1)
+        assert sh["smem_bytes"] == warps * 36 * N_ <= 232448
+    assert ta.launch_shape(128, 8192, 132)["warps"] == 8
+    assert ta.launch_shape(128, 256, 132)["warps"] == 2
+    assert ta.launch_shape(1024, 8192, 132)["warps"] == 3
+
+
+def test_timing_inputs_apply_like_jax(tmp_path):
+    """``testing/kernel_timing.py``'s K5 inputs at a small size (the
+    serving engine's last record wave in wire mode, the kernel-alone batch
+    in planes mode): the plain scan of each equals JAX's."""
+    from fluidframework_tpu_torch.ops import tree_store as tstore
+    from fluidframework_tpu_torch.testing import kernel_timing as kt
+    from fluidframework_tpu_torch.testing import synthetic
+    ins = kt.tree_inputs(tk, tstore, synthetic, "cpu", docs=12, N=16,
+                         waves=4)
+    for spec, (st, p, base) in ins.items():
+        seq = p[8] if base is None else tk.wire_seq(p[8], base)
+        args = [p[i] for i in range(7)] + [seq, p[7]]
+        js = jk.apply_tree_batch(_to_jax(st),
+                                 *(jnp.asarray(x.numpy()) for x in args))
+        _assert_same(js, tk.apply_tree_batch(st, *args), spec)
+        assert int((p[0] != 0).sum()) == 3 * 12
+    # saved as chip_smoke.py --parent saves its widest launches, reloaded
+    path = str(tmp_path / "inputs.pt")
+    torch.save({spec: (st.fields(), p, base)
+                for spec, (st, p, base) in ins.items()}, path)
+    back = kt.saved_tree_inputs(tk, path, "cpu")
+    for spec, (st, p, base) in ins.items():
+        st2, p2, base2 = back[spec]
+        assert all(torch.equal(v, getattr(st2, k))
+                   for k, v in st.fields().items())
+        assert torch.equal(p, p2) and (base is None) == (base2 is None)
