@@ -79,8 +79,8 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    incremental summaries of both card engines load on the card and equal
    the live engine. Every launch of the axis kernels (``csrc/
    axis_apply.cu``: K3 ``axis_apply``, K4 ``axis_resolve``) on these
-   paths is held against its plain version on its own input, and both are
-   timed. The line reports the ops/s of (a) and (b) and their host seconds
+   paths is held against its plain version on its own input, and each is
+   timed on its widest launch of every path. The line reports the ops/s of (a) and (b) and their host seconds
    by part (sequencing, resolve, FWW filter, cell merge, log);
 9. tree — SharedTree served end to end at ``benches/profile_tree.py``'s
    shapes (8,192 docs, capacity 128, the native sequencer): (a) the tree
@@ -105,11 +105,14 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    beside their plain versions and bounds.
 
 With ``--parent DIR`` (another checkout, e.g. an archive of the parent
-commit) a last phase, parent_timing, times K2 and K5 of DIR and of this
-checkout in turns (parent, change, change, parent) with
-``testing/kernel_timing.py`` at the shapes it defines, and the
-``cell_merge`` and ``tree_apply`` rows get ``parent_ms`` (null without
-it).
+commit) a last phase, parent_timing, times K2, K3, K4 and K5 of DIR and
+of this checkout in turns (parent, change, change, parent) with
+``testing/kernel_timing.py`` at the shapes it defines and at the widest
+launches the tree and matrix_engine phases saved, and the
+``cell_merge``, ``axis_apply``, ``axis_resolve`` and ``tree_apply`` rows
+get ``parent_ms`` (null without it). The ``axis_apply`` and
+``axis_resolve`` entries also carry their ptxas report (registers,
+spills) and the eager ``call_ms`` beside the graph ``ms``.
 
 Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (the seven
 kernels: ``string_apply``, ``map_apply``, ``cell_merge``, ``axis_apply``,
@@ -1019,11 +1022,35 @@ def _resolve_walk(st, kind, pos, client, ref):
     return total
 
 
+def _deep_axis_rows(dev, D=4, S=8192, O=512, windows=6, seed=5):
+    """The card tests' deepest K3 launch
+    (``test_axis_apply_deep_rows_at_the_limit``: rows of thousands of live
+    slots at S = 8,192, the block path): the state the first windows leave
+    and the last window's op planes."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import axis_kernel as ak
+    from fluidframework_tpu_torch.ops import merge_tree as mt
+    from fluidframework_tpu_torch.testing.synthetic import axis_window
+    rng = np.random.default_rng(seed)
+    st = mt.StringState.create(D, S, n_props=1, device=dev)
+    seq = 1
+    for w in range(windows):
+        planes, seq = axis_window(
+            rng, ak.axis_visible_lengths(st).cpu().numpy(), O, seq,
+            mix=(0.7, 0.1, 0.15, 0.05))
+        ops = [torch.as_tensor(planes[k]).to(dev) for k in mt.OP_FIELDS]
+        if w == windows - 1:
+            return _axis_clone(st), ops
+        ak.apply_axis_batch_fused(st, *ops)
+
+
 def matrix_engine_phase(smi, dev, docs_a=MX_DOCS, grid_a=MX_DOC_GRID,
                         storms_a=MX_SERVE_STORMS, grid_b=MX_GRID,
                         ops_b=MX_OPS, storms_b=MX_BIG_STORMS,
                         wave_ops=MX_WAVE_OPS, waves=MX_WAVES,
-                        samples=MX_SAMPLES):
+                        samples=MX_SAMPLES, keep_inputs=None):
     """Phase 8: SharedMatrix served end to end (config #3). (a) the
     reference bench's serving shape: ``docs_a`` docs, each a grid_a ×
     grid_a grid made by per-op inserts, a warm-up and ``storms_a`` storms
@@ -1037,8 +1064,11 @@ def matrix_engine_phase(smi, dev, docs_a=MX_DOCS, grid_a=MX_DOC_GRID,
     card engine is summarized (full, then incremental after more ops) and
     both summaries load on the card and equal the live engine. Every K3 /
     K4 launch of the paths is held against its plain version on its own
-    input afterwards, and both kernels are timed. Returns the
-    ``axis_apply`` and ``axis_resolve`` kernels-line entries."""
+    input afterwards, and each kernel is timed on its widest launch of
+    every path (saved to ``keep_inputs`` for ``kernel_timing.py
+    --axis-inputs`` when given, with the card tests' deepest K3 launch).
+    Returns the ``axis_apply`` and
+    ``axis_resolve`` kernels-line entries."""
     import collections
 
     import numpy as np
@@ -1050,6 +1080,7 @@ def matrix_engine_phase(smi, dev, docs_a=MX_DOCS, grid_a=MX_DOC_GRID,
     from fluidframework_tpu_torch.ops import matrix_kernel as mxk
     from fluidframework_tpu_torch.ops import merge_tree as mt
     from fluidframework_tpu_torch.server.serving import MatrixServingEngine
+    from fluidframework_tpu_torch.testing import kernel_timing
 
     t_phase = time.perf_counter()
     dev = torch.device(dev)
@@ -1435,8 +1466,11 @@ def matrix_engine_phase(smi, dev, docs_a=MX_DOCS, grid_a=MX_DOC_GRID,
     if err["apply"] or err["resolve"]:
         raise AssertionError(f"axis kernels != plain: {err}")
 
-    # timing, on the largest launch of (c) (K3) and of (b) (K4)
+    # timing, on each path's widest launch; the main rows first: (c) for
+    # K3, (b)'s storms for K4
     rows = {"apply": [], "resolve": []}
+    main_tags = {"apply": "(c) per-op concurrent waves",
+                 "resolve": "(b) ingest_cells storms"}
 
     def events_ms(fn):
         a = torch.cuda.Event(enable_timing=True)
@@ -1505,22 +1539,24 @@ def matrix_engine_phase(smi, dev, docs_a=MX_DOCS, grid_a=MX_DOC_GRID,
                                 "max_abs_err": e})
 
     if on_card:
-        def largest(kind, tag):
-            """The path's widest launch (the last of equal widths)."""
-            c = [x for x in calls[kind] if x[0] == tag]
-            return max(reversed(c), key=lambda x: x[2][0].numel()) \
-                if c else None
-
-        for tag in ("(c) per-op concurrent waves",
-                    "(b) axis build: 128 concurrent inserts, one flush",
-                    "(a) setup: per-op inserts, one flush"):
-            x = largest("apply", tag)
-            if x is not None:
-                time_apply(tag, x[1], x[2])
-        for tag in ("(b) ingest_cells storms", "(a) ingest_cells storms"):
-            x = largest("resolve", tag)
-            if x is not None:
-                time_resolve(tag, x[1], x[2])
+        widest = {}
+        for kind in ("apply", "resolve"):
+            tags = sorted({x[0] for x in calls[kind]},
+                          key=lambda t: (t != main_tags[kind], t))
+            for tag in tags:   # the widest (the last of equal widths)
+                widest[kind, tag] = max(
+                    reversed([x for x in calls[kind] if x[0] == tag]),
+                    key=lambda x: x[2][0].numel())
+        for (kind, tag), x in widest.items():
+            (time_apply if kind == "apply" else time_resolve)(
+                tag, x[1], x[2])
+        if keep_inputs:   # and the card tests' deepest rows beside them
+            saved = {("axis_" + kind, tag): (x[1], list(x[2]))
+                     for (kind, tag), x in widest.items()}
+            saved["axis_apply", "card test: S = 8,192 deep rows"] = \
+                _deep_axis_rows(dev)
+            kernel_timing.save_axis_inputs(keep_inputs, saved)
+        del widest
         for kind in ("apply", "resolve"):
             err[kind] = max([err[kind]] + [r["max_abs_err"]
                                            for r in rows[kind]])
@@ -1562,7 +1598,8 @@ def matrix_engine_phase(smi, dev, docs_a=MX_DOCS, grid_a=MX_DOC_GRID,
                 "launches": sum(launches[kind].values()),
                 "launches_by_path": dict(launches[kind]),
                 "max_abs_err": err[kind],
-                "ms": m.get("ms"), "plain_ms": m.get("plain_ms"),
+                "ms": m.get("ms"), "call_ms": m.get("call_ms"),
+                "plain_ms": m.get("plain_ms"),
                 "bound_ms": m.get("bound_ms"),
                 "bound_by": m.get("bound_by"), "library_ms": None,
                 "shape": {k: m.get(k) for k in ("D", "S", "O", "spec")},
@@ -2195,12 +2232,14 @@ def tree_phase(smi, dev, keep_inputs=None):
                   [expand_row]))
 
 
-def parent_timing(parent, tree_inputs=None):
-    """K2 and K5 of ``parent`` (another checkout, e.g. an archive of the
-    parent commit) and of this checkout, timed by
+def parent_timing(parent, tree_inputs=None, axis_inputs=None):
+    """K2, K3, K4 and K5 of ``parent`` (another checkout, e.g. an archive
+    of the parent commit) and of this checkout, timed by
     ``testing/kernel_timing.py`` in turns: parent, change, change, parent,
-    at its shapes and at the K5 inputs saved in ``tree_inputs`` (the tree
-    phase's widest launches of the per-op, recovery and load paths).
+    at its shapes, at the K5 inputs saved in ``tree_inputs`` (the tree
+    phase's widest launches of the per-op, recovery and load paths) and at
+    the K3 / K4 inputs saved in ``axis_inputs`` (the matrix engine's
+    widest launch of each path).
     Returns {(kernel, spec): {"parent": [ms, ms], "change": [ms, ms], and
     each label's first per-kernel device split}} and raises when a run
     fails or disagrees with its plain version."""
@@ -2210,10 +2249,13 @@ def parent_timing(parent, tree_inputs=None):
     out = {}
     for label, root in (("parent", parent), ("change", here),
                         ("change", here), ("parent", parent)):
+        kernels = "cell_merge,tree_apply" + (
+            ",axis_apply,axis_resolve" if axis_inputs else "")
         proc = subprocess.run(
-            [sys.executable, script, "--kernel", "cell_merge,tree_apply",
+            [sys.executable, script, "--kernel", kernels,
              "--profile", "--root", os.path.abspath(root)]
-            + (["--tree-inputs", tree_inputs] if tree_inputs else []),
+            + (["--tree-inputs", tree_inputs] if tree_inputs else [])
+            + (["--axis-inputs", axis_inputs] if axis_inputs else []),
             capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise AssertionError(f"kernel_timing --root {root} exited "
@@ -2244,7 +2286,7 @@ def add_parent_ms(entry, kernel, timing):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
-                    help="another checkout whose K2 and K5 are timed in "
+                    help="another checkout whose K2 - K5 are timed in "
                          "turns with this one's (parent_ms)")
     args = ap.parse_args(argv)
     import torch
@@ -2558,18 +2600,25 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     cell_entry = matrix_phase(smi, dev)
     torch.cuda.empty_cache()
-    axis_entries = matrix_engine_phase(smi, dev)
+    tmp = tempfile.mkdtemp() if args.parent else None
+    keep_axis = os.path.join(tmp, "axis_inputs.pt") if tmp else None
+    keep_tree = os.path.join(tmp, "tree_inputs.pt") if tmp else None
+    axis_entries = matrix_engine_phase(smi, dev, keep_inputs=keep_axis)
+    for entry in axis_entries:   # ptxas: registers, spills per function
+        entry["ptxas"] = [k for k in reports["axis_apply"]
+                          if entry["name"] + "_kernel" in k.get("entry", "")]
+        if not entry["ptxas"]:
+            raise RuntimeError(f"no -Xptxas -v report for {entry['name']}")
     torch.cuda.empty_cache()
-    keep = None
-    if args.parent:
-        tmp = tempfile.mkdtemp()
-        keep = os.path.join(tmp, "tree_inputs.pt")
-    tree_entries = tree_phase(smi, dev, keep)
+    tree_entries = tree_phase(smi, dev, keep_tree)
     torch.cuda.empty_cache()
-    timing_pc = parent_timing(args.parent, keep) if args.parent else None
-    if keep:
-        shutil.rmtree(os.path.dirname(keep))
+    timing_pc = parent_timing(args.parent, keep_tree, keep_axis) \
+        if args.parent else None
+    if tmp:
+        shutil.rmtree(tmp)
     add_parent_ms(cell_entry, "cell_merge", timing_pc)
+    add_parent_ms(axis_entries[0], "axis_apply", timing_pc)
+    add_parent_ms(axis_entries[1], "axis_resolve", timing_pc)
     add_parent_ms(tree_entries[0], "tree_apply", timing_pc)
 
     main_t = timing[("no-props+compact", S_SERVE, "chained")]

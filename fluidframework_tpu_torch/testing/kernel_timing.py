@@ -20,20 +20,25 @@ last merge, L = 2^19), and ``full`` — the storm's last raw batch (T =
 ``TreeServingEngine`` (wire mode, o = 4), and ``planes`` — its kernel-alone
 batch (wave 9 packed into record planes) on the state the waves left;
 ``--tree-inputs FILE`` adds K5 inputs saved by ``chip_smoke.py --parent``
-(the per-op, recovery and load paths' widest launches).
+(the per-op, recovery and load paths' widest launches). ``--kernel
+axis_apply,axis_resolve`` times K3 and K4 on the inputs in ``--axis-inputs
+FILE``: the matrix engine's widest launch of each kernel on each of its
+paths, saved by ``chip_smoke.py --parent`` (``save_axis_inputs``).
 
 Each row holds the kernel's result against the plain PyTorch version on
 the same input (``max_abs_err``: full planes, or ``[0, count)`` plus the
-digest after a compaction) and times the kernel with CUDA events: K2 and K5
-as ``ms`` (20 calls back to back in one CUDA graph, each restoring its
-input state first, minus the same graph of the restores alone) and
-``call_ms`` (one eager call, minus the restore).
+digest after a compaction; K3 / K4: every plane and both outputs) and
+times the kernel with CUDA events: K2, K3, K4 and K5 as ``ms`` (20 calls
+back to back in one CUDA graph, each restoring its input state first,
+minus the same graph of the restores alone; K4 mutates nothing and
+restores nothing) and ``call_ms`` (one eager call, minus the restore).
 
 Usage (one card)::
 
     python3 fluidframework_tpu_torch/testing/kernel_timing.py \\
-        [--kernel string_apply|cell_merge|tree_apply[,...]] [--root DIR] \\
-        [--profile] [--tree-inputs FILE]
+        [--kernel string_apply|cell_merge|tree_apply|axis_apply|
+                  axis_resolve[,...]] [--root DIR] [--profile] \\
+        [--tree-inputs FILE] [--axis-inputs FILE]
 
 ``--root`` imports ``fluidframework_tpu_torch`` from another checkout, for
 example an archive of a parent commit, so two versions of a kernel can be
@@ -57,7 +62,9 @@ SEG_LEN = 4   # chars per packed segment
 DOCS, OPS, CAPACITIES = 10_240, 64, (384, 512)   # config #4 shapes
 CELL_GRID, CELL_OPS, CELL_BATCHES, CELL_CHUNK = 1024, 1 << 16, 8, 4096
 TREE_DOCS, TREE_N, TREE_WAVES = 8192, 128, 7     # profile_tree.py
-KERNELS = ("string_apply", "cell_merge", "tree_apply")
+AXIS_KERNELS = ("axis_apply", "axis_resolve")
+KERNELS = ("string_apply", "cell_merge", "tree_apply") + AXIS_KERNELS
+AXIS_RESOLVE = 13                                # OpKind.AXIS_RESOLVE
 
 
 def near_full(mt, synthetic, D, S, O, props, K=4, seed=0, device="cuda"):
@@ -375,6 +382,94 @@ def measure_tree(tk, ta, tstore, synthetic, device="cuda", profile=False,
     return rows
 
 
+def save_axis_inputs(path, launches) -> None:
+    """Save K3 / K4 inputs with ``torch.save`` as {(kernel, spec): (state
+    planes by name, op planes)}, on the CPU. ``launches`` maps the same
+    keys to (a ``StringState``, its op tensors): for K3 the seven op
+    planes, for K4 kind, pos, client and ref_seq."""
+    torch.save({key: ({k: v.cpu() for k, v in st.fields().items()},
+                      [o.cpu() for o in ops])
+                for key, (st, ops) in launches.items()}, path)
+
+
+def saved_axis_inputs(mt, path, device):
+    """{(kernel, spec): (state, op planes)} on ``device`` from a file of
+    ``save_axis_inputs``."""
+    return {key: (mt.StringState(**{k: v.to(device)
+                                    for k, v in fields.items()}),
+                  [o.to(device) for o in ops])
+            for key, (fields, ops) in torch.load(path).items()}
+
+
+def axis_launch(ak, kernel, state, ops):
+    """The kernel's entry point: K3 updates ``state`` in place; both
+    return the (run, off) outputs. On CPU tensors: the plain versions."""
+    if kernel == "axis_apply":
+        return ak.apply_axis_batch_fused(state, *ops)
+    return ak.resolve_axis_fused(state, *ops)
+
+
+def axis_plain(ak, kernel, state, ops):
+    """(state after, run, off) of the plain version; K4 leaves the state
+    alone and answers -1 where the kind is not AXIS_RESOLVE."""
+    if kernel == "axis_apply":
+        return ak.apply_axis_batch(state, *ops)
+    kind, pos, client, ref = ops
+    run, off = ak.resolve_axis_positions(state, pos, client, ref)
+    res = kind == AXIS_RESOLVE
+    return state, torch.where(res, run, -1), torch.where(res, off, -1)
+
+
+def axis_err(mt, got, want) -> int:
+    """Largest difference over every plane (slots past count included),
+    count, overflow and both outputs."""
+    def diff(a, b):
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    (st, run, off), (ref, rr, ro) = got, want
+    return max([diff(getattr(st, k), getattr(ref, k)) for k in mt.FIELDS]
+               + [diff(run, rr), diff(off, ro)])
+
+
+def measure_axis(mt, ak, path, kernels=AXIS_KERNELS, device="cuda",
+                 profile=False):
+    """K3 / K4 rows on the saved inputs of ``path``."""
+    rows = []
+    for (kernel, spec), (state0, ops) in saved_axis_inputs(
+            mt, path, device).items():
+        if kernel not in kernels:
+            continue
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = axis_plain(ak, kernel, state0, ops)
+        z.record()
+        work = mt.StringState(**{k: v.clone()
+                                 for k, v in state0.fields().items()})
+        out = {}
+
+        def launch(w):
+            out["run_off"] = axis_launch(ak, kernel, w, ops)
+
+        if kernel == "axis_apply":
+            t = time_in_place(lambda s: s.fields(), state0, work, launch,
+                              profile)
+        else:
+            fn = lambda: launch(work)  # noqa: E731
+            t = {"ms": _graph_ms(fn), "call_ms": _eager_ms(fn)}
+            if profile:
+                t["device_ms_by_kernel"] = device_ms_by_kernel(fn)
+            fn()
+            torch.cuda.synchronize()
+        D, S = state0.seq.shape
+        rows.append({"kernel": kernel, "spec": spec, "D": D, "S": S,
+                     "O": ops[0].shape[1], **t,
+                     "plain_ms": a.elapsed_time(z),
+                     "max_abs_err": axis_err(mt, (work, *out["run_off"]),
+                                             want)})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -385,17 +480,25 @@ def main(argv=None) -> int:
     ap.add_argument("--tree-inputs", default=None,
                     help="tree_apply: also time K5 on the inputs saved in "
                          "this file (chip_smoke.py --parent writes it)")
+    ap.add_argument("--axis-inputs", default=None,
+                    help="axis_apply / axis_resolve: the K3 / K4 inputs "
+                         "saved in this file (chip_smoke.py --parent "
+                         "writes it)")
     ap.add_argument("--profile", action="store_true",
-                    help="K2 / K5 rows: add each launched kernel's device "
+                    help="K2 - K5 rows: add each launched kernel's device "
                          "ms (torch.profiler)")
     args = ap.parse_args(argv)
     kernels = args.kernel.split(",")
     if set(kernels) - set(KERNELS):
         ap.error(f"--kernel: one or more of {', '.join(KERNELS)}")
+    axis = [k for k in kernels if k in AXIS_KERNELS]
+    if axis and not args.axis_inputs:
+        ap.error("--kernel axis_apply / axis_resolve need --axis-inputs")
     if not torch.cuda.is_available():
         print("kernel_timing: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
+    from fluidframework_tpu_torch.ops import axis_kernel as ak
     from fluidframework_tpu_torch.ops import matrix_kernel as mx
     from fluidframework_tpu_torch.ops import merge_tree as mt
     from fluidframework_tpu_torch.ops import string_kernel as sk
@@ -417,6 +520,9 @@ def main(argv=None) -> int:
     if "tree_apply" in kernels:
         rows += measure_tree(tk, ta, tstore, synthetic,
                              profile=args.profile, saved=args.tree_inputs)
+    if axis:
+        rows += measure_axis(mt, ak, args.axis_inputs, axis,
+                             profile=args.profile)
     bad = 0
     for row in rows:
         row.setdefault("kernel", "string_apply")

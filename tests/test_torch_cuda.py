@@ -1070,6 +1070,252 @@ def test_axis_capacity_refused_at_construction(cuda):
     TensorAxisStore(2, 8192, device=cuda)
 
 
+# K3's warp path and K4's settled search: the edges of both designs. The
+# limits mirror kWarpSlots and kUnsettledMax of csrc/axis_apply.cu.
+AXIS_WARP_SLOTS, AXIS_UNSETTLED_MAX = 256, 128
+_INT_MAX = 2 ** 31 - 1
+
+
+def test_axis_path_limits_match_the_library(cuda):
+    from fluidframework_tpu_torch.ops import axis_apply as axk
+    lib = axk._load()
+    assert lib.axis_warp_slots() == AXIS_WARP_SLOTS
+    assert lib.axis_unsettled_max() == AXIS_UNSETTLED_MAX
+
+
+def _k4_check(st, kind, pos, client, ref):
+    """One K4 launch against the plain resolve (every output exact)."""
+    from fluidframework_tpu_torch.ops import axis_apply as axk
+    from fluidframework_tpu_torch.ops import axis_kernel as ak
+    t = [torch.as_tensor(np.asarray(x, np.int32)).to(st.seq.device)
+         for x in (kind, pos, client, ref)]
+    before = axk.resolve_launches
+    run, off = ak.resolve_axis_fused(st, *t)
+    assert axk.resolve_launches == before + 1
+    rr, ro = ak.resolve_axis_positions(st, *t[1:])
+    res = t[0] == int(OpKind.AXIS_RESOLVE)
+    torch.cuda.synchronize()
+    assert torch.equal(run, torch.where(res, rr, -1))
+    assert torch.equal(off, torch.where(res, ro, -1))
+    return run
+
+
+def _span_row(rng, n, unsettled, lo=100, hi=200, zero_frac=0.2):
+    """n slots of which ``unsettled`` have a visibility that differs
+    across ref_seqs in [lo, hi] (inserted or removed inside the span, or
+    a remover bit); the rest are visible to all (seq 1) or removed before
+    lo (invisible to all). A ``zero_frac`` share has length 0."""
+    seq = np.ones(n, np.int64)
+    rem = np.full(n, mt.NOT_REMOVED, np.int64)
+    rmv = np.zeros(n, np.int64)
+    gone = rng.random(n) < 0.2
+    rem[gone] = rng.integers(0, lo + 1, gone.sum())
+    rmv[gone] = rng.integers(0, 16, gone.sum())
+    for i in rng.permutation(n)[:unsettled]:
+        rem[i], rmv[i], seq[i] = mt.NOT_REMOVED, 0, 1
+        k = rng.integers(0, 4)
+        if k in (0, 3):
+            seq[i] = rng.integers(lo + 1, hi + 1)
+        if k in (1, 3):   # removed after lo, at or before hi
+            rem[i] = rng.integers(max(seq[i], lo + 1), hi + 1)
+        if k == 2:
+            rmv[i] = 1 << int(rng.integers(0, 4))
+    length = rng.integers(1, 6, n)
+    length[rng.random(n) < zero_frac] = 0
+    return {"seq": seq, "client": rng.integers(0, 4, n),
+            "removed_seq": rem, "removers": rmv, "length": length,
+            "handle_op": rng.integers(1, 1000, n),
+            "handle_off": rng.integers(0, 50, n)}
+
+
+def _rows_state(rows, S, dev):
+    st = mt.StringState.create(len(rows), S, n_props=1, device=dev)
+    for d, r in enumerate(rows):
+        n = len(r["seq"])
+        for k in mt.PLANES:
+            getattr(st, k)[d, :n] = torch.as_tensor(
+                np.asarray(r[k], np.int32))
+        st.count[d] = n
+    return st
+
+
+def _span_ops(rng, st, O, lo=100, hi=200):
+    """(kind, pos, client, ref) of O resolves a row at ref_seqs spanning
+    [lo, hi]; positions from -1 to past the visible length."""
+    from fluidframework_tpu_torch.ops import axis_kernel as ak
+    D = st.seq.shape[0]
+    lengths = ak.axis_visible_lengths(st).cpu().numpy()
+    ref = rng.integers(lo, hi + 1, (D, O))
+    ref[:, 0], ref[:, min(1, O - 1)] = lo, hi   # both in the first tile
+    pos = (rng.random((D, O)) * (lengths[:, None] + 3)).astype(np.int64) - 1
+    return (np.full((D, O), int(OpKind.AXIS_RESOLVE)), pos,
+            rng.integers(0, 4, (D, O)), ref)
+
+
+@pytest.mark.parametrize("zero_frac", [0.0, 0.5])
+def test_axis_resolve_every_slot_settled(cuda, zero_frac):
+    """Every slot visible or invisible to all of a tile's perspectives:
+    the search is one binary search of the settled prefix; zero-length
+    slots hold no position."""
+    rng = np.random.default_rng(1)
+    st = _rows_state([_span_row(rng, n, 0, zero_frac=zero_frac)
+                      for n in (1, 7, 120, 1000)], 1024, cuda)
+    run = _k4_check(st, *_span_ops(rng, st, 2500))
+    assert bool((run >= 0).any())
+
+
+def test_axis_resolve_every_slot_unsettled(cuda):
+    """Every slot inserted or removed inside the span (the list holds the
+    whole row; at 200 slots the CTA walks)."""
+    rng = np.random.default_rng(2)
+    st = _rows_state([_span_row(rng, n, n) for n in (30, 128, 200)], 256,
+                     cuda)
+    _k4_check(st, *_span_ops(rng, st, 700))
+
+
+@pytest.mark.parametrize("extra", [-1, 0, 1])
+def test_axis_resolve_unsettled_at_the_threshold(cuda, extra):
+    """kUnsettledMax - 1, kUnsettledMax (the search) and one past it (the
+    walk), among settled rows of several lengths; the second op tile of
+    each row sees one ref_seq past every seq while the first
+    walks or searches: only its remover-bit slots stay unsettled."""
+    rng = np.random.default_rng(3 + extra)
+    u = AXIS_UNSETTLED_MAX + extra
+    st = _rows_state([_span_row(rng, n, u) for n in (u, u + 50, 1000)],
+                     1024, cuda)
+    kind, pos, client, ref = _span_ops(rng, st, 1500)
+    ref[:, 1024:] = 500   # the second tile: past every seq, one ref_seq
+    _k4_check(st, kind, pos, client, ref)
+
+
+def test_axis_resolve_mixed_perspectives_and_edges(cuda):
+    """Latest-view reads (client -1, ref_seq 1 << 30), ref_seq = INT_MAX,
+    NOOP slots, positions 0, total - 1, total, negative and INT_MAX, and a
+    row with count 0; then every op at INT_MAX (a never-removed slot is
+    removed_seq <= ref_seq there: invisible to all) and at one ref_seq."""
+    rng = np.random.default_rng(4)
+    st = _rows_state([_span_row(rng, 150, 20), _span_row(rng, 150, 0),
+                      _span_row(rng, 0, 0), _span_row(rng, 60, 60)], 256,
+                     cuda)
+    kind, pos, client, ref = _span_ops(rng, st, 1500)
+    ref[:, ::5], client[:, ::5] = 1 << 30, -1
+    ref[:, 1::7] = _INT_MAX
+    client[:, 2::11] = -1
+    kind[:, 3::13] = int(OpKind.NOOP)
+    from fluidframework_tpu_torch.ops import axis_kernel as ak
+    tot = ak.axis_visible_lengths(st).cpu().numpy()
+    for d in range(4):
+        pos[d, :8] = [0, tot[d] - 1, tot[d], -1, -5, _INT_MAX, tot[d] + 1,
+                      1]
+    _k4_check(st, kind, pos, client, ref)
+    assert int(st.count[2]) == 0
+    ref[:], client[:] = _INT_MAX, -1
+    _k4_check(st, kind, pos, client, ref)
+    ref[:], client[:] = 250, 0
+    _k4_check(st, kind, pos, client, ref)
+
+
+def _axis_window_rows(rng, st, m, n_res, seq0):
+    """Per row: m mutations (inserts of 2 and removes of 2 alternating)
+    and n_res resolves at random places, as op tuples."""
+    from fluidframework_tpu_torch.ops import axis_kernel as ak
+    rows = []
+    for total in ak.axis_visible_lengths(st).cpu().tolist():
+        ops = []
+        for i in range(m):
+            if i % 2 == 0:
+                ops.append((int(OpKind.STR_INSERT),
+                            int(rng.integers(0, total + 1)), 2, 500 + i,
+                            seq0 + i, i % 4, seq0 + i - 1))
+            else:
+                s0 = int(rng.integers(0, max(total - 3, 1)))
+                ops.append((int(OpKind.STR_REMOVE), s0, s0 + 2, 0,
+                            seq0 + i, i % 4, seq0 + i - 1))
+        for j in range(n_res):
+            ops.insert(int(rng.integers(0, len(ops) + 1)),
+                       (int(OpKind.AXIS_RESOLVE),
+                        int(rng.integers(-1, total + 3)), 0, 0, 0, j % 4,
+                        seq0 + m))
+        rows.append(ops)
+    return rows
+
+
+@pytest.mark.parametrize("S", [512, 300])
+def test_axis_apply_at_the_warp_path_limit(cuda, S):
+    """hi + 2 per mutation at the warp region's limit (256: the warp path)
+    and one past it (the block path), one past through a slot past count
+    that is not fill, and a row wider than the region."""
+    m = 10
+    edge = AXIS_WARP_SLOTS - 2 * m
+    counts = [edge, edge + 1, 200, edge - 1, 290]
+    st = mt.StringState.create(len(counts), S, n_props=1, device=cuda)
+    for d, n in enumerate(counts):
+        st.length[d, :n] = 1 + torch.arange(n, dtype=torch.int32) % 3
+        st.handle_op[d, :n] = torch.arange(1, n + 1, dtype=torch.int32)
+        st.seq[d, :n] = 1
+        st.count[d] = n
+    for d, i in ((2, edge), (3, edge + 4)):   # dropped slots past count
+        st.removed_seq[d, i], st.length[d, i] = 5, 2
+    rows = _axis_window_rows(np.random.default_rng(S), st, m, 30, 10)
+    planes = _axis_planes(rows, max(map(len, rows)))
+    _axis_step(st, _clone(st), [torch.as_tensor(planes[k]).to(cuda)
+                                for k in mt.OP_FIELDS])
+    assert int(st.overflow[:4].sum()) == 0
+
+
+def test_axis_apply_warp_path_overflows(cuda):
+    """S = 64 (every row on the warp path): rows at and near S overflow
+    (sticky, the row left as the plain version leaves it)."""
+    st = mt.StringState.create(4, 64, n_props=1, device=cuda)
+    for d, n in enumerate((60, 63, 64, 10)):
+        st.length[d, :n] = 2
+        st.handle_op[d, :n] = torch.arange(1, n + 1, dtype=torch.int32)
+        st.seq[d, :n] = 1
+        st.count[d] = n
+    rows = _axis_window_rows(np.random.default_rng(5), st, 12, 10, 10)
+    planes = _axis_planes(rows, max(map(len, rows)))
+    ref = _axis_step(st, _clone(st), [torch.as_tensor(planes[k]).to(cuda)
+                                      for k in mt.OP_FIELDS])
+    _axis_same(st, ref, "overflow")
+    assert st.overflow.tolist() == [1, 1, 1, 0]
+
+
+@pytest.mark.parametrize("S", [128, 1024])
+def test_axis_apply_resolve_heavy_windows(cuda, S):
+    """The per-op waves' mix (82 % resolves, 4.5 % inserts, 4.5 %
+    removes, 9 % NOOPs): runs of resolves answered lane by lane between
+    mutations, chained over three windows."""
+    st = _axis_chain(cuda, 64, S, 128, seed=S, n_batches=3,
+                     mix=(0.045, 0.045, 0.82, 0.09))
+    assert int(st.count.max()) > 4
+
+
+@pytest.mark.parametrize("S", [64, 600])
+def test_axis_apply_removes_ending_at_or_before_start(cuda, S):
+    """Removes whose end lies before, at or just after their start (both
+    ends often inside one slot): the kernel finds both split slots in one
+    scan and must leave what the plain version's two splits leave; S = 64
+    overflows mid-remove, S = 600 runs both paths."""
+    from fluidframework_tpu_torch.ops import axis_kernel as ak
+    from fluidframework_tpu_torch.testing.synthetic import axis_window
+    rng = np.random.default_rng(S)
+    st = mt.StringState.create(12, S, n_props=1, device=cuda)
+    ref = _clone(st)
+    seq = 1
+    for b in range(3):
+        planes, seq = axis_window(
+            rng, ak.axis_visible_lengths(ref).cpu().numpy(), 80, seq,
+            mix=(0.45, 0.35, 0.15, 0.05))
+        near = (planes["kind"] == int(OpKind.STR_REMOVE)) & \
+            (rng.random(planes["a0"].shape) < 0.5)
+        planes["a1"] = np.where(
+            near, planes["a0"] + rng.integers(-3, 4, planes["a0"].shape),
+            planes["a1"]).astype(np.int32)
+        ref = _axis_step(st, ref, [torch.as_tensor(planes[k]).to(cuda)
+                                   for k in mt.OP_FIELDS])
+        _axis_same(st, ref, b)
+
+
 def _matrix_engines(dev, **kw):
     from fluidframework_tpu_torch.server.serving import MatrixServingEngine
     return [MatrixServingEngine(device=d, sequencer="native",

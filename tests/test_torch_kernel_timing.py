@@ -2,14 +2,19 @@
 kernel on, run through the JAX reference and the port's plain version on
 the CPU: the same state and ops give the same planes (full planes after an
 apply; ``[0, count)`` plus the digest after a compaction), every op
-position is valid and no doc overflows. Tolerance: exact (int32)."""
+position is valid and no doc overflows. Its axis mode: K3 / K4 inputs
+saved and reloaded as ``chip_smoke.py --parent`` saves them, whose plain
+results equal JAX's and the entry points' on the CPU. Tolerance: exact
+(int32)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from fluidframework_tpu.ops import axis_kernel as jak
 from fluidframework_tpu.ops import merge_tree_kernel as jmt
+from fluidframework_tpu_torch.ops import axis_kernel as tak
 from fluidframework_tpu_torch.core.constants import NOT_REMOVED
 from fluidframework_tpu_torch.ops import merge_tree as tmt
 from fluidframework_tpu_torch.ops.string_kernel import (
@@ -73,3 +78,92 @@ def test_max_abs_err_sees_a_difference():
     bad = tmt.StringState(**{k: v.clone() for k, v in out.fields().items()})
     bad.prop_val[1, 0, 2] -= 3
     assert kt.max_abs_err(tmt, bad, out, True, True) > 0
+
+
+def _axis_launches(seed=0, D=6, S=64, O=24):
+    """{(kernel, spec): (state, ops)} as the matrix engine's paths give
+    them: a state two seeded windows deep, a K3 window on it and a K4
+    window of resolves (latest-view reads, NOOP slots) on it."""
+    rng = np.random.default_rng(seed)
+    st = tmt.StringState.create(D, S, n_props=1, device="cpu")
+    seq = 1
+    for _ in range(2):
+        planes, seq = synthetic.axis_window(
+            rng, tak.axis_visible_lengths(st).numpy(), O, seq)
+        st, _, _ = tak.apply_axis_batch(
+            st, *(torch.as_tensor(planes[k]) for k in tmt.OP_FIELDS))
+    planes, _ = synthetic.axis_window(
+        rng, tak.axis_visible_lengths(st).numpy(), O, seq)
+    k3 = [torch.as_tensor(planes[k]) for k in tmt.OP_FIELDS]
+    lengths = tak.axis_visible_lengths(st).numpy()
+    pos = (rng.random((D, 40)) * (lengths[:, None] + 3)).astype(np.int32)
+    client = rng.integers(-1, 4, size=(D, 40)).astype(np.int32)
+    ref = rng.integers(0, 3 * O, size=(D, 40)).astype(np.int32)
+    ref[client < 0] = 1 << 30
+    kind = np.where(rng.random((D, 40)) < 0.9, kt.AXIS_RESOLVE,
+                    12).astype(np.int32)
+    k4 = [torch.as_tensor(x) for x in (kind, pos, client, ref)]
+    return {("axis_apply", "(c) per-op concurrent waves"): (st, k3),
+            ("axis_resolve", "(b) ingest_cells storms"): (st, k4)}
+
+
+def _jax_plain(kernel, st, ops):
+    js = jmt.StringState(**{k: jnp.asarray(v.numpy())
+                            for k, v in st.fields().items()})
+    if kernel == "axis_apply":
+        js, run, off = jak.apply_axis_batch_jit(
+            js, *(jnp.asarray(o.numpy()) for o in ops))
+        out = tmt.StringState(**{k: torch.as_tensor(np.array(getattr(js, k)))
+                                 for k in st.fields()})
+    else:
+        kind, pos, client, ref = (o.numpy() for o in ops)
+        run, off = jak.resolve_axis_positions(
+            js, *(jnp.asarray(x) for x in (pos, client, ref)))
+        run = np.where(kind == kt.AXIS_RESOLVE, np.asarray(run), -1)
+        off = np.where(kind == kt.AXIS_RESOLVE, np.asarray(off), -1)
+        out = st
+    return out, torch.as_tensor(np.array(run)), torch.as_tensor(np.array(off))
+
+
+def test_axis_inputs_round_trip(tmp_path):
+    """Saved as ``chip_smoke.py --parent`` saves the matrix engine's
+    widest launches, reloaded for ``kernel_timing.py --axis-inputs``:
+    every plane and op plane comes back equal, under the same keys."""
+    launches = _axis_launches()
+    path = str(tmp_path / "axis.pt")
+    kt.save_axis_inputs(path, launches)
+    back = kt.saved_axis_inputs(tmt, path, "cpu")
+    assert set(back) == set(launches)
+    for key, (st, ops) in launches.items():
+        st2, ops2 = back[key]
+        assert all(torch.equal(v, getattr(st2, k))
+                   for k, v in st.fields().items())
+        assert len(ops) == len(ops2)
+        assert all(torch.equal(a, b) for a, b in zip(ops, ops2))
+
+
+@pytest.mark.parametrize("kernel", kt.AXIS_KERNELS)
+def test_axis_plain_path_matches_jax(kernel):
+    """The axis mode's plain result equals JAX's and the entry point's on
+    the CPU (error 0); ``axis_err`` sees a changed slot past count and a
+    changed output."""
+    (key, (st, ops)), = [(k, v) for k, v in _axis_launches(1).items()
+                         if k[0] == kernel]
+    want = kt.axis_plain(tak, kernel, st, ops)
+    assert kt.axis_err(tmt, _jax_plain(kernel, st, ops), want) == 0
+    work = tmt.StringState(**{k: v.clone() for k, v in st.fields().items()})
+    got = (work, *kt.axis_launch(tak, kernel, work, ops))
+    assert kt.axis_err(tmt, got, want) == 0
+    if kernel == "axis_resolve":
+        assert all(torch.equal(v, getattr(st, k))
+                   for k, v in work.fields().items())
+        assert bool((want[1] >= 0).any()) and bool((want[1] < 0).any())
+    bad_run = got[1].clone()
+    bad_run[0, 0] += 3
+    assert kt.axis_err(tmt, (got[0], bad_run, got[2]), want) == 3
+    past = tmt.StringState(**{k: v.clone() for k, v in got[0].fields()
+                              .items()})
+    i = int(past.count[0])
+    assert i < past.length.shape[1]
+    past.length[0, i] += 5   # the first slot past count
+    assert kt.axis_err(tmt, (past, got[1], got[2]), want) == 5
