@@ -56,7 +56,9 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    submits with clears on 16 maps (reads equal the CPU engine's), a full
    and an incremental summary and a load of each on the card (reads, and
    the incremental load's digests, equal the live engine's). The kernel
-   is timed dense at D=1,024 and D=10,240 and packed at config #2;
+   is timed dense at D=1,024 and D=10,240 and packed at config #2, each
+   row with its launches on the paths, beside the card's launch floor (a
+   one-element ``x.add_(1)`` timed the same way);
 7. matrix_cells — BASELINE config #3 (a 1,024 × 1,024 grid, 8 batches of
    65,536 set-cell ops, capacity rows·cols + O): the batches through the
    cell merge kernel (``csrc/cell_merge.cu``) in full mode against the
@@ -101,15 +103,17 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    engine, and a dup-acked resubmit; (e) K5 (wire mode at the serving
    wave's shape, planes mode at profile_tree.py's kernel-alone shape, and
    the launch with the most records of each of the per-op, recovery and
-   load paths, kept as the engines made it) and K6 timed in CUDA graphs
-   beside their plain versions and bounds.
+   load paths, kept as the engines made it) and K6 (the serving wave as
+   shipped, u16 ids, and widened to u32) timed in CUDA graphs beside their
+   plain versions and bounds.
 
 With ``--parent DIR`` (another checkout, e.g. an archive of the parent
-commit) a last phase, parent_timing, times K2, K3, K4 and K5 of DIR and
-of this checkout in turns (parent, change, change, parent) with
-``testing/kernel_timing.py`` at the shapes it defines and at the widest
-launches the tree and matrix_engine phases saved, and the
-``cell_merge``, ``axis_apply``, ``axis_resolve`` and ``tree_apply`` rows
+commit) a last phase, parent_timing, times K1-K6 of DIR and of this
+checkout in turns (parent, change, change, parent) with
+``testing/kernel_timing.py`` at the shapes it defines (and the launch
+floor beside K1 / K6) and at the widest launches the tree and
+matrix_engine phases saved, and the ``map_apply``, ``cell_merge``,
+``axis_apply``, ``axis_resolve``, ``tree_apply`` and ``tree_expand`` rows
 get ``parent_ms`` (null without it). The ``axis_apply`` and
 ``axis_resolve`` entries also carry their ptxas report (registers,
 spills) and the eager ``call_ms`` beside the graph ``ms``.
@@ -521,6 +525,7 @@ def map_phase(smi, dev):
     from fluidframework_tpu_torch.ops import map_kernel as mk
     from fluidframework_tpu_torch.ops.schema import OpKind
     from fluidframework_tpu_torch.server.serving import MapServingEngine
+    from fluidframework_tpu_torch.testing import kernel_timing, synthetic
     from fluidframework_tpu_torch.testing.synthetic import (
         map_raw_batches, map_serving_batch,
     )
@@ -570,56 +575,34 @@ def map_phase(smi, dev):
         return {"bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                 "slots_written": written}
 
-    def time_dense(d):
-        b = map_raw_batches(d, K, O, 1, seed=d)[0]
-        ops = [torch.as_tensor(p).to(dev) for p in b]
-        work = mk.MapState.create(d, K, dev)
-        run = lambda: mk.apply_map_batch_fused(work, *ops)  # noqa: E731
+    for spec, (work, mode, args) in kernel_timing.map_inputs(
+            mk, synthetic, dev, D, K, O, D_STRING).items():
+        run = lambda: kernel_timing.map_call(  # noqa: E731
+            mk, mode, work, args)
         t = {"ms": graph_ms(run, 50), "call_ms": timed_events(run, 20)}
         a = torch.cuda.Event(enable_timing=True)
         z = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = mk.apply_map_batch(work, *ops)
+        out = kernel_timing.map_call(mk, mode, work, args, plain=True)
         z.record()
         torch.cuda.synchronize()
         chk = mk.MapState(*(v.clone() for v in work.fields().values()))
-        mk.apply_map_batch_fused(chk, *ops)
+        kernel_timing.map_call(mk, mode, chk, args)
         e = diff(chk, out)
-        rows_specs.append({"spec": "dense", "D": d, "K": K, "O": O,
-                           **t, "plain_ms": a.elapsed_time(z),
-                           **bound(ops[0], ops[1], 4 * d * O * 4),
-                           "max_abs_err": e})
-        return e
-
-    err = max(err, time_dense(D), time_dense(D_STRING))
-
-    kind, kidx, keys, vidx, values = map_serving_batch(D, O, 0, n_keys=K)
-    base = np.arange(D, dtype=np.int32) * O
-    buf_np, wide = mk.pack_map_batch(kind, kidx, vidx + 1, base,
-                                     np.arange(D, dtype=np.int32))
-    buf = torch.as_tensor(buf_np).to(dev)
-    work = mk.MapState.create(D, K, dev)
-    run = lambda: mk.map_columnar_apply_fused(  # noqa: E731
-        work, buf, D, O, wide)
-    t = {"ms": graph_ms(run, 50), "call_ms": timed_events(run, 20)}
-    a = torch.cuda.Event(enable_timing=True)
-    z = torch.cuda.Event(enable_timing=True)
-    a.record()
-    out = mk.map_columnar_apply(work, buf, D, O, wide)
-    z.record()
-    torch.cuda.synchronize()
-    chk = mk.MapState(*(v.clone() for v in work.fields().values()))
-    mk.map_columnar_apply_fused(chk, buf, D, O, wide)
-    err = max(err, diff(chk, out))
-    unpacked = mk.map_unpack(buf, D, O, D, True, wide)
-    packed = {"spec": "packed (serving)", "D": D, "K": K, "O": O,
-              **t, "plain_ms": a.elapsed_time(z),
-              **bound(unpacked[0], unpacked[1], buf.numel() * 4),
-              "max_abs_err": err, "wire_bytes": buf.numel() * 4}
-    rows_specs.append(packed)
+        err = max(err, e)
+        if mode == "dense":
+            kind, a0, op_bytes = args[0], args[1], 4 * args[0].numel() * 4
+        else:
+            kind, a0 = mk.map_unpack(args[0], *args[1:3], work.present
+                                     .shape[0], True, args[3])[:2]
+            op_bytes = args[0].numel() * 4
+        rows_specs.append({"spec": spec, "D": work.present.shape[0], "K": K,
+                           "O": O, **t, "plain_ms": a.elapsed_time(z),
+                           **bound(kind, a0, op_bytes), "max_abs_err": e})
+    packed = rows_specs[-1]
     if err:
         raise AssertionError(f"map kernel != plain: max abs err {err}")
-    del raw, st, ref, work, chk, out, unpacked
+    del raw, st, ref, work, chk, out, kind, a0
 
     # columnar serving on the card against the same batches on the CPU
     docs = [f"map-{i}" for i in range(D)]
@@ -709,6 +692,10 @@ def map_phase(smi, dev):
         if from_inc.read_doc(d) != want or from_full.read_doc(d) != want:
             raise AssertionError(f"{d}: loaded reads differ from live")
     n_ops = D * O * (MAP_SERVE_BATCHES - 1)
+    for row in rows_specs:   # each timing shape's launches on the paths
+        row["launches"] = {f"dense, D = {D}": raw_launches,
+                           packed["spec"]: launches}.get(row["spec"], 0)
+    floor = kernel_timing.launch_floor()["ms"]
     emit({"phase": "map", "docs": D, "n_keys": K, "ops_per_batch": D * O,
           "raw_batches": MAP_RAW_BATCHES, "raw_max_abs_err": 0,
           "serving_batches": MAP_SERVE_BATCHES, "nacked": nacked,
@@ -717,21 +704,21 @@ def map_phase(smi, dev):
           "kernel_loop_launches": raw_launches,
           "planes_equal_cpu": True, "summarize_s": summarize_s,
           "load_s": load_s, "loaded_equal_live": D,
-          "timing": rows_specs, "total_s": time.perf_counter() - t_phase,
-          "card": smi})
+          "timing": rows_specs, "launch_floor_ms": floor,
+          "total_s": time.perf_counter() - t_phase, "card": smi})
     return {
         "name": "map_apply", "route": "cuda",
         "source": "fluidframework_tpu_torch/csrc/map_apply.cu",
-        "replaces": "fluidframework_tpu/ops/map_kernel.py:128",
+        "replaces": "fluidframework_tpu/ops/map_kernel.py:101,131",
         "launches": raw_launches + launches,
         "launches_by_path": {"kernel loop (dense)": raw_launches,
                              "serving (packed + per-op flush)": launches},
         "max_abs_err": err,
-        "ms": packed["ms"], "plain_ms": packed["plain_ms"],
+        "ms": packed["ms"], "call_ms": packed["call_ms"],
+        "plain_ms": packed["plain_ms"],
         "bound_ms": packed["bound_ms"], "bound_by": packed["bound_by"],
-        "library_ms": None,
-        "shape": {"D": D, "K": K, "O": O,
-                  "spec": "packed (the columnar serving path)"},
+        "library_ms": None, "launch_floor_ms": floor,
+        "shape": {"D": D, "K": K, "O": O, "spec": packed["spec"]},
         "specialisations": rows_specs}
 
 
@@ -1666,6 +1653,7 @@ def tree_phase(smi, dev, keep_inputs=None):
     from fluidframework_tpu_torch.server.tree_wire import (
         encode_leaf_records, encode_tree_batch,
     )
+    from fluidframework_tpu_torch.testing import kernel_timing
     from fluidframework_tpu_torch.testing.synthetic import (
         profile_tree_waves, tree_op_storm, tree_record_storm,
         tree_storm_flat,
@@ -2150,22 +2138,31 @@ def tree_phase(smi, dev, keep_inputs=None):
     maps = wire_args[6:]
     dense = tk.expand_tree_wire(cols, ids_, vals, row, pos, *maps,
                                 n_docs=D, o=o)
-    fn = lambda: tk.expand_tree_wire_fused(  # noqa: E731
-        cols, ids_, vals, row, pos, *maps, n_docs=D, o=o)
-    kept = int((pos.long() < o).sum())
-    wire_bytes = kept * (3 + 3 * ids_.element_size() + vals.element_size()
-                         + 2 + pos.element_size()) + \
-        sum(4 * m.numel() for m in maps)
-    x_bytes = wire_bytes + dense.numel() * 4
-    xb_ms, xb_by = work_bound(x_bytes, 10 * kept)
-    plain_x_ms, _ = events_ms(lambda: tk.expand_tree_wire(
-        cols, ids_, vals, row, pos, *maps, n_docs=D, o=o))
-    expand_row = {"spec": "serving wire wave", "D": D, "o": o,
-                  "records": kept, "ids": str(ids_.dtype),
-                  "pos": str(pos.dtype), "ms": graph_ms(fn, 20),
-                  "call_ms": timed_events(fn, 10), "plain_ms": plain_x_ms,
-                  "bound_ms": xb_ms, "bound_by": xb_by, "bytes": x_bytes,
-                  "max_abs_err": diff(fn(), dense)}
+    kept = int(((pos.long() < o) & (row.long() < D)).sum())
+
+    def time_expand(spec, wire):
+        fn = lambda: kernel_timing.expand_call(tk, wire, D, o)  # noqa: E731
+        w_ids, w_vals, w_pos = wire[1], wire[2], wire[4]
+        wire_bytes = kept * (3 + 3 * w_ids.element_size()
+                             + w_vals.element_size() + 2
+                             + w_pos.element_size()) + \
+            sum(4 * m.numel() for m in maps)
+        x_bytes = wire_bytes + dense.numel() * 4
+        xb_ms, xb_by = work_bound(x_bytes, 10 * kept)
+        plain_ms, _ = events_ms(lambda: tk.expand_tree_wire(
+            *wire[:5], *maps, n_docs=D, o=o))
+        return {"spec": spec, "D": D, "o": o, "records": kept,
+                "R": cols.shape[0], "ids": str(w_ids.dtype),
+                "pos": str(w_pos.dtype), "ms": graph_ms(fn, 50),
+                "call_ms": timed_events(fn, 10), "plain_ms": plain_ms,
+                "bound_ms": xb_ms, "bound_by": xb_by, "bytes": x_bytes,
+                "max_abs_err": diff(fn(), dense)}
+
+    expand_rows = [time_expand(spec, wire) for spec, (_b, wire, _o) in
+                   kernel_timing.expand_inputs(
+                       tstore, None, dev,
+                       served=(None, None, serve_wire)).items()]
+    floor = kernel_timing.launch_floor()["ms"]
     apply_rows = [
         time_apply("wire mode: serving wave", before, dense, base),
         time_apply("planes mode: profile_tree kernel-alone shape",
@@ -2187,7 +2184,8 @@ def tree_phase(smi, dev, keep_inputs=None):
     del widest
     err["apply"] = max([err["apply"]] + [r["max_abs_err"]
                                          for r in apply_rows])
-    err["expand"] = max(err["expand"], expand_row["max_abs_err"])
+    err["expand"] = max([err["expand"]] + [r["max_abs_err"]
+                                           for r in expand_rows])
     if err["apply"] or err["expand"]:
         raise AssertionError(f"tree kernels != plain after timing: {err}")
     # profile_tree.py's kernel-only loop: 8 applies back to back
@@ -2206,12 +2204,13 @@ def tree_phase(smi, dev, keep_inputs=None):
           "recovery": recovery,
           "launches": {k: dict(v) for k, v in launches.items()},
           "max_abs_err": err, "timing": {"apply": apply_rows,
-                                         "expand": [expand_row]},
+                                         "expand": expand_rows},
+          "launch_floor_ms": floor,
           "kernel_only_8_applies_ms": t8,
           "total_s": time.perf_counter() - t_phase, "card": smi})
 
-    def entry(kind, name, replaces, main, rows):
-        return {"name": name, "route": "cuda",
+    def entry(kind, name, replaces, main, rows, **extra):
+        return {"name": name, "route": "cuda", **extra,
                 "source": "fluidframework_tpu_torch/csrc/tree_apply.cu",
                 "replaces": replaces,
                 "launches": sum(launches[kind].values()),
@@ -2228,12 +2227,12 @@ def tree_phase(smi, dev, keep_inputs=None):
                   "fluidframework_tpu/ops/tree_kernel.py:321,367",
                   apply_rows[0], apply_rows),
             entry("expand", "tree_expand",
-                  "fluidframework_tpu/ops/tree_kernel.py:379", expand_row,
-                  [expand_row]))
+                  "fluidframework_tpu/ops/tree_kernel.py:379",
+                  expand_rows[0], expand_rows, launch_floor_ms=floor))
 
 
 def parent_timing(parent, tree_inputs=None, axis_inputs=None):
-    """K2, K3, K4 and K5 of ``parent`` (another checkout, e.g. an archive
+    """K1-K6 of ``parent`` (another checkout, e.g. an archive
     of the parent commit) and of this checkout, timed by
     ``testing/kernel_timing.py`` in turns: parent, change, change, parent,
     at its shapes, at the K5 inputs saved in ``tree_inputs`` (the tree
@@ -2249,7 +2248,7 @@ def parent_timing(parent, tree_inputs=None, axis_inputs=None):
     out = {}
     for label, root in (("parent", parent), ("change", here),
                         ("change", here), ("parent", parent)):
-        kernels = "cell_merge,tree_apply" + (
+        kernels = "map_apply,cell_merge,tree_apply,tree_expand" + (
             ",axis_apply,axis_resolve" if axis_inputs else "")
         proc = subprocess.run(
             [sys.executable, script, "--kernel", kernels,
@@ -2274,19 +2273,20 @@ def parent_timing(parent, tree_inputs=None, axis_inputs=None):
 
 def add_parent_ms(entry, kernel, timing):
     """``parent_ms`` (mean of the parent's runs) beside each of the entry's
-    rows whose spec begins with one kernel_timing spec, and on the entry
-    (its main row); None where the helper did not run."""
+    rows whose spec begins with a kernel_timing spec (the longest such),
+    and on the entry (its main row); None where the helper did not run."""
     for row in entry.get("specialisations", []) + [entry]:
         spec = str(row.get("spec") or row.get("shape", {}).get("spec", ""))
-        ms = [v["parent"] for (k, sp), v in (timing or {}).items()
-              if k == kernel and spec.startswith(sp)]
-        row["parent_ms"] = sum(ms[0]) / len(ms[0]) if ms else None
+        hits = [(len(sp), v["parent"]) for (k, sp), v in (timing or {})
+                .items() if k == kernel and spec.startswith(sp)]
+        ms = max(hits, key=lambda h: h[0])[1] if hits else None
+        row["parent_ms"] = sum(ms) / len(ms) if ms else None
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
-                    help="another checkout whose K2 - K5 are timed in "
+                    help="another checkout whose K1 - K6 are timed in "
                          "turns with this one's (parent_ms)")
     args = ap.parse_args(argv)
     import torch
@@ -2620,6 +2620,8 @@ def main(argv=None) -> int:
     add_parent_ms(axis_entries[0], "axis_apply", timing_pc)
     add_parent_ms(axis_entries[1], "axis_resolve", timing_pc)
     add_parent_ms(tree_entries[0], "tree_apply", timing_pc)
+    add_parent_ms(map_entry, "map_apply", timing_pc)
+    add_parent_ms(tree_entries[1], "tree_expand", timing_pc)
 
     main_t = timing[("no-props+compact", S_SERVE, "chained")]
     print(smi, flush=True)

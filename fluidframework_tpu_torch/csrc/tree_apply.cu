@@ -17,16 +17,16 @@
 //   8 holds each record's seq) and wire (plane 8 holds each record's
 //   first-of-op bit and the seq is base[d] + the running count of those
 //   bits - 1, int32 wrapping, which fuses the JAX cumsum).
-// - K6 tree_expand (the expansion half of apply_tree_wire): one thread per
+// - K6 tree_expand (the expansion half of apply_tree_wire, :379): each
 //   wire record decodes kind = cols[r,0] & 0xF and meta = cols[r,0] >> 4,
 //   gathers node / parent / after / field / value / type through the four
 //   batch-local maps (an index past a map's end is clamped to its last
-//   entry, XLA's gather), and scatters kind, the six handles, meta & 1 and
-//   the first-of-op bit (meta >> 1) & 1 into the (9, D, o) buffer the
-//   wrapper zeroed, at (row, pos); a record with pos >= o or row >= D is
-//   padding and is dropped. Each lane is read at the width it was shipped
-//   (ids and values u16 or u32, pos u8 or u16: eight instantiations); the
-//   host never widens the wire.
+//   entry, XLA's gather), and lands kind, the six handles, meta & 1 and the
+//   first-of-op bit (meta >> 1) & 1 in the (9, D, o) buffer at (row, pos);
+//   every other cell of the buffer is 0, and a record with pos >= o or
+//   row >= D is padding and is dropped. Each lane is read at the width it
+//   was shipped (ids and values u16 or u32, pos u8 or u16: eight
+//   instantiations); the host never widens the wire.
 // The plain PyTorch versions they are held against live in
 // ops/tree_kernel.py.
 //
@@ -40,7 +40,32 @@
 // staging all eight planes of every active doc in shared memory and
 // writing them all back would move ≈ 67 MB (10.8× the bound), which is
 // why most docs take the sparse path below. K6: bytes (the wire read
-// once, the dense planes written once).
+// once, the dense planes written once: ≈ 1.3 MB at the serving wave,
+// 24,576 records into 8,192 docs × o = 4, ≈ 0.4 µs at 3.35 TB/s), so at the
+// serving shapes a call is bound by its launches and its dependent rounds
+// of loads, not by the bandwidth.
+//
+// K6 layout: one cooperative launch a call (cudaLaunchCooperativeKernel, a
+// grid no larger than the CTAs that can be resident at once), which writes
+// every cell of the buffer, so the caller allocates it uninitialised and
+// pays no memset launch. The records are NOT sorted by row (a doc's
+// records keep their arrival order in the flat wire), so no CTA owns a
+// doc range it could zero and fill on its own. Instead each thread first
+// loads its first record's lanes in one round of independent loads (row /
+// pos checked after them) and its four map gathers in a second round,
+// holding the nine values in registers; then it zeroes its share of the
+// buffer with 16-byte stores (kZeroPerThread a thread at most, from which
+// the grid is sized); the grid meets at cooperative_groups'
+// this_grid().sync(), which orders every zero store before every record
+// store; then each thread stores its record's nine words and handles the
+// rest of its grid-stride records (R > the grid's threads) in the same
+// order. The (row, pos) cells are unique on every path (positions_in_doc);
+// where two records share a cell, which of them lands is unspecified, as
+// with JAX's .at[].set, and their planes may mix. On the card the grid
+// barrier is the largest cost after the launch itself: moving it before
+// the record loads, or splitting its arrive from its wait, did not shorten
+// a call, a barrier of our own on a global counter was slower than
+// cooperative_groups', and larger CTAs or more of them were slower too.
 //
 // K5 layout. One warp per doc, up to 8 docs a CTA (fewer when the docs'
 // shared-memory regions would pass half the shared memory, or when a small
@@ -91,6 +116,7 @@
 // Plain C ABI (ctypes): the launch functions return a cudaError_t (0 =
 // launched) or a negative code for a refused shape.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstddef>
@@ -110,6 +136,8 @@ constexpr int kMaxRegSlots = 32;   // node ids a lane holds: N <= 1,024
 constexpr int kRegionBudget = kMaxSmem / 2;
 constexpr unsigned kSparseInserts = 4;   // most inserts a sparse-path doc has
 constexpr int kExpandThreads = 256;
+constexpr int kZeroPerThread = 4;  // most 16-byte zero stores a K6 thread
+constexpr int kMaxDevices = 64;
 constexpr int kErrBadShape = -1;
 constexpr int kErrSmem = -2;
 
@@ -622,7 +650,7 @@ struct ExpandArgs {
   const int* t_map;
   const int* v_map;
   int id_n, f_n, t_n, v_n;
-  int* out;  // (9, D, o), zeroed by the wrapper
+  int* out;  // (9, D, o); every cell is written
   int R, D, o;
 };
 
@@ -630,38 +658,100 @@ __device__ __forceinline__ int take(const int* map, int n, unsigned i) {
   return map[i < static_cast<unsigned>(n) ? i : static_cast<unsigned>(n - 1)];
 }
 
+// Record r's nine plane values and its cell (d * o + p); false for padding.
+template <typename IdT, typename ValT, typename PosT>
+__device__ __forceinline__ bool expand_record(const ExpandArgs& a, size_t r,
+                                              int v[9], size_t* cell) {
+  // one round: every lane of the record
+  const unsigned p = static_cast<const PosT*>(a.pos)[r];
+  const unsigned d = a.row[r];
+  const uint8_t* c = a.cols + 3 * r;
+  const unsigned c0 = c[0], c1 = c[1], c2 = c[2];
+  const IdT* ids = static_cast<const IdT*>(a.ids) + 3 * r;
+  const unsigned i0 = ids[0], i1 = ids[1], i2 = ids[2];
+  const unsigned vi = static_cast<const ValT*>(a.vals)[r];
+  if (p >= static_cast<unsigned>(a.o) || d >= static_cast<unsigned>(a.D))
+    return false;
+  // one round: the four maps' gathers
+  v[1] = take(a.id_map, a.id_n, i0);
+  v[2] = take(a.id_map, a.id_n, i1);
+  v[3] = take(a.id_map, a.id_n, i2);
+  v[4] = take(a.f_map, a.f_n, c1);
+  v[5] = take(a.v_map, a.v_n, vi);
+  v[6] = take(a.t_map, a.t_n, c2);
+  v[0] = static_cast<int>(c0 & 0xF);
+  v[7] = static_cast<int>((c0 >> 4) & 1);
+  v[8] = static_cast<int>((c0 >> 5) & 1);
+  *cell = static_cast<size_t>(d) * a.o + p;
+  return true;
+}
+
+__device__ __forceinline__ void store_record(int* out, size_t plane,
+                                             size_t cell, const int v[9]) {
+#pragma unroll
+  for (int q = 0; q < 9; ++q) out[q * plane + cell] = v[q];
+}
+
 template <typename IdT, typename ValT, typename PosT>
 __global__ void __launch_bounds__(kExpandThreads)
     tree_expand_kernel(ExpandArgs a) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= a.R) return;
-  const int p = static_cast<int>(static_cast<const PosT*>(a.pos)[r]);
-  const int d = static_cast<int>(a.row[r]);
-  if (p >= a.o || d >= a.D) return;
-  const IdT* ids = static_cast<const IdT*>(a.ids) + 3 * static_cast<size_t>(r);
-  const unsigned c0 = a.cols[3 * static_cast<size_t>(r)];
-  const unsigned c1 = a.cols[3 * static_cast<size_t>(r) + 1];
-  const unsigned c2 = a.cols[3 * static_cast<size_t>(r) + 2];
-  const unsigned meta = c0 >> 4;
-  const size_t DO = static_cast<size_t>(a.D) * a.o;
-  int* out = a.out + static_cast<size_t>(d) * a.o + p;
-  out[0] = static_cast<int>(c0 & 0xF);
-  out[DO] = take(a.id_map, a.id_n, ids[0]);
-  out[2 * DO] = take(a.id_map, a.id_n, ids[1]);
-  out[3 * DO] = take(a.id_map, a.id_n, ids[2]);
-  out[4 * DO] = take(a.f_map, a.f_n, c1);
-  out[5 * DO] = take(a.v_map, a.v_n, static_cast<const ValT*>(a.vals)[r]);
-  out[6 * DO] = take(a.t_map, a.t_n, c2);
-  out[7 * DO] = static_cast<int>(meta & 1);
-  out[8 * DO] = static_cast<int>((meta >> 1) & 1);
+  const size_t tid =
+      static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const size_t plane = static_cast<size_t>(a.D) * a.o;
+  // this thread's first record, loaded and mapped before the zeroing
+  int v[9];
+  size_t cell = 0;
+  const bool first = tid < static_cast<size_t>(a.R) &&
+                     expand_record<IdT, ValT, PosT>(a, tid, v, &cell);
+  // zero the whole buffer (16-byte stores when it is aligned)
+  const size_t n = 9 * plane;
+  size_t done = 0;
+  if ((reinterpret_cast<uintptr_t>(a.out) & 15) == 0) {
+    int4* out4 = reinterpret_cast<int4*>(a.out);
+    const int4 z = make_int4(0, 0, 0, 0);
+    for (size_t q = tid; q < n / 4; q += stride) out4[q] = z;
+    done = n / 4 * 4;
+  }
+  for (size_t q = done + tid; q < n; q += stride) a.out[q] = 0;
+  cooperative_groups::this_grid().sync();  // every zero before any record
+  if (first) store_record(a.out, plane, cell, v);
+  for (size_t r = tid + stride; r < static_cast<size_t>(a.R); r += stride)
+    if (expand_record<IdT, ValT, PosT>(a, r, v, &cell))
+      store_record(a.out, plane, cell, v);
 }
 
 template <typename IdT, typename ValT, typename PosT>
 cudaError_t launch_expand(const ExpandArgs& a, cudaStream_t stream) {
-  const int blocks = (a.R + kExpandThreads - 1) / kExpandThreads;
-  tree_expand_kernel<IdT, ValT, PosT><<<blocks, kExpandThreads, 0, stream>>>(
-      a);
-  return cudaGetLastError();
+  auto kernel = tree_expand_kernel<IdT, ValT, PosT>;
+  // CTAs that can be resident at once, per device (computed once)
+  static int resident_on[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident_on[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kExpandThreads, 0);
+    if (e != cudaSuccess) return e;
+    resident_on[dev] = sms * per_sm;
+  }
+  // enough threads for the records, and for the zeroing at kZeroPerThread
+  // 16-byte stores a thread; no more CTAs than can be resident at once
+  const long long zero16 = 9LL * a.D * a.o / 4;
+  long long work = (zero16 + kZeroPerThread - 1) / kZeroPerThread;
+  if (work < a.R) work = a.R;
+  long long blocks = (work + kExpandThreads - 1) / kExpandThreads;
+  if (blocks > resident_on[dev]) blocks = resident_on[dev];
+  if (blocks < 1) blocks = 1;
+  ExpandArgs args = a;
+  void* params[] = {&args};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(static_cast<unsigned>(blocks)),
+      dim3(kExpandThreads), params, 0, stream);
 }
 
 template <typename IdT, typename ValT>
@@ -737,7 +827,8 @@ void tree_apply_shape(int N, int D, int sms, int* out) {
 
 // K6: the wire (cols (R, 3) u8, ids (R, 3) and vals (R,) of id_bytes /
 // val_bytes, row (R,) u16, pos (R,) of pos_bytes) and the four maps into
-// out (9, D, o), which the caller zeroed.
+// out (9, D, o), every cell of which is written (0 where no record lands;
+// R = 0 zeroes it), so the caller need not initialise it.
 int tree_expand_launch(const void* cols, const void* ids, const void* vals,
                        const void* row, const void* pos, const int* id_map,
                        int id_n, const int* f_map, int f_n, const int* t_map,
@@ -749,7 +840,7 @@ int tree_expand_launch(const void* cols, const void* ids, const void* vals,
       (val_bytes != 2 && val_bytes != 4) ||
       (pos_bytes != 1 && pos_bytes != 2))
     return kErrBadShape;
-  if (R == 0 || D == 0) return 0;
+  if (D == 0) return 0;
   ExpandArgs a;
   a.cols = static_cast<const uint8_t*>(cols);
   a.ids = ids;

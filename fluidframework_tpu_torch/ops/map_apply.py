@@ -2,8 +2,9 @@
 
 The kernel replaces ``fluidframework_tpu/ops/map_kernel.py``'s
 ``apply_map_batch_jit`` (dense op planes) and ``map_columnar_apply_jit``
-(the packed int32 wire); see the source for its design. It writes the
-state planes IN PLACE. ``launch_dense`` and ``launch_packed`` take CUDA
+(the packed int32 wire); see the source for its design: a warp a row
+when the state has at most ``warp_keys()`` key slots, a CTA a row past
+that. It writes the state planes IN PLACE. ``launch_dense`` and ``launch_packed`` take CUDA
 tensors only, check device, dtype, shape and contiguity, launch on the
 current stream and raise when the launch is refused. The device dispatch
 (plain version on the CPU) lives in ``map_kernel``.
@@ -36,10 +37,18 @@ def _load():
             lib.map_apply_packed.restype = i32
             lib.map_apply_packed.argtypes = [vp, i32, i32, i32, vp, vp, vp,
                                              i32, i32, vp]
+            lib.map_apply_warp_keys.restype = i32
+            lib.map_apply_warp_keys.argtypes = []
             lib.map_apply_error_string.restype = ctypes.c_char_p
             lib.map_apply_error_string.argtypes = [i32]
             _lib = lib
     return _lib
+
+
+def warp_keys() -> int:
+    """The most key slots K a state may have for the kernel to run a row
+    on one warp (a CTA a row past it), read from the built library."""
+    return _load().map_apply_warp_keys()
 
 
 def _check(state, tensors) -> None:

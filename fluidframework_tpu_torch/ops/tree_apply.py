@@ -4,8 +4,8 @@ K5 ``launch_apply`` replaces ``fluidframework_tpu/ops/tree_kernel.py``'s
 ``apply_tree_batch`` / ``apply_tree_planes`` (the per-doc record scan) and
 the scan half of ``apply_tree_wire``; it updates the eight state planes and
 the overflow flags IN PLACE. K6 ``launch_expand`` replaces the expansion
-half of ``apply_tree_wire``: the width-coded wire scattered into dense
-(9, D, o) record planes. See the source for their design. Both take CUDA
+half of ``apply_tree_wire``: the width-coded wire expanded into dense
+(9, D, o) record planes, every cell written in one launch. See the source for their design. Both take CUDA
 tensors only, check device, dtype, shape and contiguity, launch on the
 current stream and raise when a launch is refused. The device dispatch
 (plain versions on the CPU) lives in ``tree_kernel``.
@@ -158,9 +158,10 @@ def launch_apply(state, planes: torch.Tensor, base=None) -> None:
 
 def launch_expand(cols, ids, vals, row, pos, id_map, f_map, t_map, v_map,
                   out: torch.Tensor) -> None:
-    """K6: scatter the wire's records into ``out`` (9, D, o) int32, which
-    the caller zeroed. ids / vals are u16 or u32, pos u8 or u16, each read
-    at its own width."""
+    """K6: expand the wire's records into ``out`` (9, D, o) int32. The
+    kernel writes every cell (0 where no record lands, all of it when R is
+    0), so ``out`` may be uninitialised. ids / vals are u16 or u32, pos u8
+    or u16, each read at its own width."""
     global expand_launches
     dev = out.device
     if dev.type != "cuda":
@@ -179,7 +180,7 @@ def launch_expand(cols, ids, vals, row, pos, id_map, f_map, t_map, v_map,
     for name, m in (("id_map", id_map), ("f_map", f_map), ("t_map", t_map),
                     ("v_map", v_map)):
         _check_tensor(name, m, dev, (torch.int32,), (max(m.shape[0], 1),))
-    if R == 0 or D == 0:
+    if D == 0 or o == 0:
         return
     _raise_on(_load().tree_expand_launch(
         _ptr(cols), _ptr(ids), _ptr(vals), _ptr(row), _ptr(pos),

@@ -473,12 +473,13 @@ def apply_tree_planes_fused(state: TreeState,
 def expand_tree_wire_fused(cols, ids, vals, row, pos, id_map, f_map, t_map,
                            v_map, n_docs: int, o: int) -> torch.Tensor:
     """The wire expanded into a fresh (9, D, o) buffer on the maps'
-    device: K6 on the card, the plain version on the CPU."""
+    device: K6 on the card (one launch, which writes every cell of the
+    uninitialised buffer), the plain version on the CPU."""
     _check_wire(cols, ids, vals, row, pos, (id_map, f_map, t_map, v_map))
     if id_map.device.type == "cpu":
         return expand_tree_wire(cols, ids, vals, row, pos, id_map, f_map,
                                 t_map, v_map, n_docs, o)
-    out = torch.zeros((9, n_docs, o), dtype=_I32, device=id_map.device)
+    out = torch.empty((9, n_docs, o), dtype=_I32, device=id_map.device)
     tree_apply.launch_expand(cols, ids, vals, row, pos, id_map, f_map,
                              t_map, v_map, out)
     return out

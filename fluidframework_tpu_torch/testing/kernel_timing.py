@@ -24,20 +24,32 @@ batch (wave 9 packed into record planes) on the state the waves left;
 axis_apply,axis_resolve`` times K3 and K4 on the inputs in ``--axis-inputs
 FILE``: the matrix engine's widest launch of each kernel on each of its
 paths, saved by ``chip_smoke.py --parent`` (``save_axis_inputs``).
+``--kernel map_apply`` times K1 through its entry points at config #2's
+shapes: dense at D = 1,024 (the kernel loop's batches) and at D = 10,240
+(config #4's doc count), and the packed serving batch (D = 1,024, K = 64,
+O = 64). ``--kernel tree_expand`` times K6 through
+``expand_tree_wire_fused`` (what a caller pays, including any memset the
+checkout's entry point makes) on the serving engine's last record wave, as
+shipped (u16 ids and values) and widened to u32. Either adds a ``launch_floor`` row: a
+one-element ``x.add_(1)`` timed the same way, a yardstick for a kernel
+bound by its launch that the port never calls.
 
 Each row holds the kernel's result against the plain PyTorch version on
 the same input (``max_abs_err``: full planes, or ``[0, count)`` plus the
 digest after a compaction; K3 / K4: every plane and both outputs) and
-times the kernel with CUDA events: K2, K3, K4 and K5 as ``ms`` (20 calls
-back to back in one CUDA graph, each restoring its input state first,
-minus the same graph of the restores alone; K4 mutates nothing and
-restores nothing) and ``call_ms`` (one eager call, minus the restore).
+times the kernel with CUDA events: K1-K6 as ``ms`` (20 calls back to
+back in one CUDA graph, K1 and K6 50, each restoring its input state
+first, minus the same graph of the restores alone; K1 writes the same
+state again on every call, and K4 and K6 mutate nothing, so none of the
+three restores anything) and ``call_ms`` (one eager call, minus the
+restore).
 
 Usage (one card)::
 
     python3 fluidframework_tpu_torch/testing/kernel_timing.py \\
         [--kernel string_apply|cell_merge|tree_apply|axis_apply|
-                  axis_resolve[,...]] [--root DIR] [--profile] \\
+                  axis_resolve|map_apply|tree_expand[,...]] [--root DIR] \\
+        [--profile] \\
         [--tree-inputs FILE] [--axis-inputs FILE]
 
 ``--root`` imports ``fluidframework_tpu_torch`` from another checkout, for
@@ -62,8 +74,10 @@ SEG_LEN = 4   # chars per packed segment
 DOCS, OPS, CAPACITIES = 10_240, 64, (384, 512)   # config #4 shapes
 CELL_GRID, CELL_OPS, CELL_BATCHES, CELL_CHUNK = 1024, 1 << 16, 8, 4096
 TREE_DOCS, TREE_N, TREE_WAVES = 8192, 128, 7     # profile_tree.py
+MAP_D, MAP_K, MAP_O, MAP_WIDE_D = 1024, 64, 64, 10_240   # config #2, #4
 AXIS_KERNELS = ("axis_apply", "axis_resolve")
-KERNELS = ("string_apply", "cell_merge", "tree_apply") + AXIS_KERNELS
+KERNELS = ("string_apply", "cell_merge", "tree_apply") + AXIS_KERNELS + (
+    "map_apply", "tree_expand")
 AXIS_RESOLVE = 13                                # OpKind.AXIS_RESOLVE
 
 
@@ -290,11 +304,12 @@ def measure_cell(mx, synthetic, device="cuda", profile=False, **sizes):
     return rows
 
 
-def tree_inputs(tk, tstore, synthetic, device, docs=TREE_DOCS, N=TREE_N,
-                waves=TREE_WAVES):
-    """{"wire": (state, planes, base), "planes": (state, planes, None)}:
-    the serving engine's last record wave (wire mode; its dense records and
-    seq base) and the kernel-alone batch on the state the waves left."""
+def serving_waves(tstore, synthetic, device, docs=TREE_DOCS, N=TREE_N,
+                  waves=TREE_WAVES):
+    """(engine, doc ids, (state before, wire args, o)): a
+    ``TreeServingEngine`` through profile_tree.py's first ``waves`` waves
+    (two dict waves, then record waves) and its last record wave's wire as
+    it reached ``apply_tree_wire_fused``."""
     from fluidframework_tpu_torch.server.serving import TreeServingEngine
     from fluidframework_tpu_torch.server.tree_wire import encode_tree_batch
 
@@ -324,7 +339,19 @@ def tree_inputs(tk, tstore, synthetic, device, docs=TREE_DOCS, N=TREE_N,
         eng.sync()
     finally:
         tstore.apply_tree_wire_fused = wire_fused
-    before, args, o = captured["wire"]
+    return eng, ids, captured["wire"]
+
+
+def tree_inputs(tk, tstore, synthetic, device, docs=TREE_DOCS, N=TREE_N,
+                waves=TREE_WAVES, served=None):
+    """{"wire": (state, planes, base), "planes": (state, planes, None)}:
+    the serving engine's last record wave (wire mode; its dense records and
+    seq base) and the kernel-alone batch on the state the waves left.
+    ``served``: a ``serving_waves`` result to reuse."""
+    from fluidframework_tpu_torch.server.tree_wire import encode_tree_batch
+
+    eng, ids, (before, args, o) = served or serving_waves(
+        tstore, synthetic, device, docs, N, waves)
     cols, ids_, vals, row, pos, base = args[:6]
     dense = tk.expand_tree_wire(cols, ids_, vals, row, pos, *args[6:],
                                 n_docs=docs, o=o)
@@ -336,6 +363,24 @@ def tree_inputs(tk, tstore, synthetic, device, docs=TREE_DOCS, N=TREE_N,
     return {"wire": (before, dense, base),
             "planes": (eng.store.state.clone(),
                        torch.from_numpy(planes).to(device), None)}
+
+
+def expand_inputs(tstore, synthetic, device, docs=TREE_DOCS, N=TREE_N,
+                  waves=TREE_WAVES, served=None):
+    """{spec: (state before, wire args, o)}: the serving engine's last
+    record wave as shipped (u16 ids and values at these table sizes) and,
+    when it shipped u16 ids, the same records with ids and values widened
+    to u32. ``served``: a ``serving_waves`` result to reuse."""
+    _, _, (before, args, o) = served or serving_waves(
+        tstore, synthetic, device, docs, N, waves)
+    bits = 8 * args[1].element_size()
+    out = {f"serving wave, u{bits} ids": (before, args, o)}
+    if bits == 16:
+        wide = [torch.from_numpy(x.cpu().numpy().astype(np.uint32))
+                .to(args[1].device) for x in args[1:3]]
+        out["serving wave, u32 ids"] = (before, (args[0], *wide, *args[3:]),
+                                        o)
+    return out
 
 
 def saved_tree_inputs(tk, path, device):
@@ -351,10 +396,11 @@ def saved_tree_inputs(tk, path, device):
 
 
 def measure_tree(tk, ta, tstore, synthetic, device="cuda", profile=False,
-                 saved=None, **sizes):
+                 saved=None, served=None, **sizes):
     """K5's rows: wire and planes, then the ``saved`` inputs."""
     rows = []
-    inputs = tree_inputs(tk, tstore, synthetic, device, **sizes)
+    inputs = tree_inputs(tk, tstore, synthetic, device, served=served,
+                         **sizes)
     if saved:
         inputs.update(saved_tree_inputs(tk, saved, device))
     for spec, (state0, planes, base) in inputs.items():
@@ -380,6 +426,115 @@ def measure_tree(tk, ta, tstore, synthetic, device="cuda", profile=False,
                      "records": int((planes[0] != 0).sum()), **t,
                      "plain_ms": a.elapsed_time(z), "max_abs_err": err})
     return rows
+
+
+def expand_call(tk, wire, n_docs, o):
+    """K6 through its entry point: a fresh (9, D, o) buffer (the plain
+    version on CPU tensors)."""
+    cols, ids, vals, row, pos = wire[:5]
+    return tk.expand_tree_wire_fused(cols, ids, vals, row, pos, *wire[6:],
+                                     n_docs=n_docs, o=o)
+
+
+def measure_expand(tk, tstore, synthetic, device="cuda", profile=False,
+                   served=None, **sizes):
+    """K6's rows: the serving wave at u16 and at u32 ids."""
+    rows = []
+    for spec, (before, wire, o) in expand_inputs(
+            tstore, synthetic, device, served=served, **sizes).items():
+        D = before.node_id.shape[0]
+        cols, ids, vals, row, pos = wire[:5]
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = tk.expand_tree_wire(cols, ids, vals, row, pos, *wire[6:],
+                                   n_docs=D, o=o)
+        z.record()
+        fn = lambda: expand_call(tk, wire, D, o)  # noqa: E731
+        t = {"ms": _graph_ms(fn, 50), "call_ms": _eager_ms(fn)}
+        if profile:
+            t["device_ms_by_kernel"] = device_ms_by_kernel(fn)
+        got = fn()
+        torch.cuda.synchronize()
+        rows.append({"kernel": "tree_expand", "spec": spec, "D": D, "o": o,
+                     "R": cols.shape[0], "ids": str(ids.dtype), **t,
+                     "plain_ms": a.elapsed_time(z),
+                     "max_abs_err": int((got.long() - want.long()).abs()
+                                        .max())})
+    return rows
+
+
+def map_inputs(mk, synthetic, device, D=MAP_D, K=MAP_K, O=MAP_O,
+               wide_d=MAP_WIDE_D):
+    """{spec: (state, mode, args)}: dense (D, O) batches (mode "dense": the
+    four op planes) at D and at ``wide_d`` docs, as ``chip_smoke.py``'s map
+    phase times them (``map_raw_batches``, seed = the doc count), and
+    config #2's packed serving batch (mode "packed": buffer, R, O, wide
+    values; every row, in order). Each state starts zeroed."""
+    out = {}
+    for d in (D, wide_d):
+        planes = synthetic.map_raw_batches(d, K, O, 1, seed=d)[0]
+        out[f"dense, D = {d}"] = (
+            mk.MapState.create(d, K, device), "dense",
+            tuple(torch.as_tensor(p).to(device) for p in planes))
+    kind, kidx, _, vidx, _ = synthetic.map_serving_batch(D, O, 0, n_keys=K)
+    buf, wide = mk.pack_map_batch(kind, kidx, vidx + 1,
+                                  np.arange(D, dtype=np.int32) * O,
+                                  np.arange(D, dtype=np.int32))
+    out["packed, config #2 serving"] = (
+        mk.MapState.create(D, K, device), "packed",
+        (torch.as_tensor(buf).to(device), D, O, wide))
+    return out
+
+
+def map_call(mk, mode, state, args, plain=False):
+    """K1 through its entry point on ``state`` in place (the plain version
+    on CPU tensors), or the plain version's new state."""
+    if mode == "dense":
+        fn = mk.apply_map_batch if plain else mk.apply_map_batch_fused
+    else:
+        fn = mk.map_columnar_apply if plain else mk.map_columnar_apply_fused
+    return fn(state, *args)
+
+
+def measure_map(mk, synthetic, device="cuda", profile=False, **sizes):
+    """K1's rows: dense at two doc counts and the packed serving batch.
+    The kernel reads no state and writes the same planes on every call, so
+    the calls are timed back to back on one state."""
+    rows = []
+    for spec, (state0, mode, args) in map_inputs(mk, synthetic, device,
+                                                 **sizes).items():
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = map_call(mk, mode, state0, args, plain=True)
+        z.record()
+        fn = lambda: map_call(mk, mode, state0, args)  # noqa: E731
+        t = {"ms": _graph_ms(fn, 50), "call_ms": _eager_ms(fn)}
+        if profile:
+            t["device_ms_by_kernel"] = device_ms_by_kernel(fn)
+        torch.cuda.synchronize()
+        D, K = state0.present.shape
+        rows.append({"kernel": "map_apply", "spec": spec, "D": D, "K": K,
+                     "O": args[2] if mode == "packed" else args[0].shape[1],
+                     **t, "plain_ms": a.elapsed_time(z),
+                     "max_abs_err": max(
+                         int((getattr(state0, k).long()
+                              - getattr(want, k).long()).abs().max())
+                         for k in mk.PLANES)})
+    return rows
+
+
+def launch_floor(profile=False):
+    """The card's launch floor: ``x.add_(1)`` on one int32, timed as the
+    kernels are (a yardstick; the port never calls it)."""
+    x = torch.zeros(1, dtype=torch.int32, device="cuda")
+    fn = lambda: x.add_(1)  # noqa: E731
+    t = {"ms": _graph_ms(fn, 50), "call_ms": _eager_ms(fn)}
+    if profile:
+        t["device_ms_by_kernel"] = device_ms_by_kernel(fn)
+    return {"kernel": "launch_floor", "spec": "x.add_(1), one int32", **t,
+            "max_abs_err": 0}
 
 
 def save_axis_inputs(path, launches) -> None:
@@ -485,7 +640,7 @@ def main(argv=None) -> int:
                          "saved in this file (chip_smoke.py --parent "
                          "writes it)")
     ap.add_argument("--profile", action="store_true",
-                    help="K2 - K5 rows: add each launched kernel's device "
+                    help="K1 - K6 rows: add each launched kernel's device "
                          "ms (torch.profiler)")
     args = ap.parse_args(argv)
     kernels = args.kernel.split(",")
@@ -499,6 +654,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
     from fluidframework_tpu_torch.ops import axis_kernel as ak
+    from fluidframework_tpu_torch.ops import map_kernel as mk
     from fluidframework_tpu_torch.ops import matrix_kernel as mx
     from fluidframework_tpu_torch.ops import merge_tree as mt
     from fluidframework_tpu_torch.ops import string_kernel as sk
@@ -517,12 +673,24 @@ def main(argv=None) -> int:
                 rows.append(measure(mt, sk, synthetic, DOCS, S, OPS, spec))
     if "cell_merge" in kernels:
         rows += measure_cell(mx, synthetic, profile=args.profile)
+    if "map_apply" in kernels:
+        rows += measure_map(mk, synthetic, profile=args.profile)
+    served = None
+    if {"tree_apply", "tree_expand"} & set(kernels):
+        served = serving_waves(tstore, synthetic, "cuda")
     if "tree_apply" in kernels:
         rows += measure_tree(tk, ta, tstore, synthetic,
-                             profile=args.profile, saved=args.tree_inputs)
+                             profile=args.profile, saved=args.tree_inputs,
+                             served=served)
+    if "tree_expand" in kernels:
+        rows += measure_expand(tk, tstore, synthetic, profile=args.profile,
+                               served=served)
+    del served
     if axis:
         rows += measure_axis(mt, ak, args.axis_inputs, axis,
                              profile=args.profile)
+    if {"map_apply", "tree_expand"} & set(kernels):
+        rows.append(launch_floor(args.profile))
     bad = 0
     for row in rows:
         row.setdefault("kernel", "string_apply")

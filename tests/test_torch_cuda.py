@@ -580,6 +580,130 @@ def test_map_kernel_refused_launch_raises(cuda):
     assert mak.launches == before
 
 
+def test_map_kernel_warp_block_boundary(cuda):
+    """K = 256 is the widest state a row runs on one warp, 257 the
+    narrowest that takes the block path; both equal the plain version."""
+    assert mak.warp_keys() == 256
+    for K in (256, 257):
+        D, O = 40, 96
+        rng = np.random.default_rng(K)
+        st = _map_state(cuda, D, K, 3)
+        ref = _map_clone(st)
+        for b in range(2):
+            ops = [torch.as_tensor(p).to(cuda) for p in _map_planes(
+                rng, D, O, K, [SET, SET, DEL, CLR, NOOP])]
+            mk.apply_map_batch_fused(st, *ops)
+            ref = mk.apply_map_batch(ref, *ops)
+            torch.cuda.synchronize()
+            _map_same(st, ref, (K, b))
+
+
+def _map_edge(case, rng, R, O, K):
+    """(kind, key, value) (R, O) int32 planes for one edge of the warp
+    path; keys stay in the u8 range of the packed wire."""
+    kind = rng.choice([SET, DEL], size=(R, O)).astype(np.int32)
+    key = rng.integers(0, K, size=(R, O), dtype=np.int32)
+    value = rng.integers(0, 1 << 16, size=(R, O), dtype=np.int32)
+    j = np.arange(O)
+    if case == "repeats":   # a few keys, repeated in and across chunks
+        key = rng.integers(0, 3, size=(R, O), dtype=np.int32)
+    elif case in ("set_then_delete", "delete_then_set"):
+        first, second = (SET, DEL) if case == "set_then_delete" \
+            else (DEL, SET)
+        kind[:, 0::2], kind[:, 1::2] = first, second
+        key[:, 1::2] = key[:, 0:O - O % 2:2]   # each pair shares a key
+    elif case == "clear_last":
+        kind[:, -1] = CLR
+    elif case == "clear_then_set":
+        kind[:, (j % 32) == 5] = CLR   # the chunk's clear, then its sets
+        kind[:, (j % 32) == 6] = SET
+        key[:, (j % 32) == 6] = key[:, (j % 32) == 4] if O > 6 else 0
+    elif case == "out_of_range":   # keys past K, kinds outside the three
+        key = rng.integers(0, 256, size=(R, O), dtype=np.int32)
+        kind = rng.choice([SET, DEL, CLR, NOOP, 0, 7, 99, 200],
+                          size=(R, O)).astype(np.int32)
+    return kind, key, value
+
+
+MAP_EDGES = ("repeats", "set_then_delete", "delete_then_set", "clear_last",
+             "clear_then_set", "out_of_range")
+
+
+@pytest.mark.parametrize("case", MAP_EDGES)
+@pytest.mark.parametrize("O", [1, 33, 700])
+@pytest.mark.parametrize("wire", ["dense", "packed u16", "packed i32"])
+def test_map_kernel_warp_path_edges(cuda, case, O, wire):
+    """Each edge of the warp path's reduction (the last op on a key in and
+    across 32-op chunks, a set and a delete of one key in one chunk, a
+    clear as the last op and a clear followed by sets, ignored keys and
+    kinds) at O = 1, 33 and 700, dense and packed (u16 and i32 values, rows
+    permuted): equal to the plain version, and the rows a scatter batch
+    does not carry byte-identical."""
+    D, K = 96, 64
+    R = D if wire == "dense" else 40
+    rng = np.random.default_rng(MAP_EDGES.index(case) * 1000 + O)
+    kind, key, value = _map_edge(case, rng, R, O, K)
+    st = _map_state(cuda, D, K, O)
+    before = _map_clone(st)
+    launches = mak.launches
+    if wire == "dense":
+        seq = rng.integers(-2**31, 2**31 - 1, size=(R, O),
+                           dtype=np.int64).astype(np.int32)
+        ops = [torch.as_tensor(p).to(cuda) for p in (kind, key, value, seq)]
+        mk.apply_map_batch_fused(st, *ops)
+        ref = mk.apply_map_batch(before, *ops)
+        rows = np.arange(D)
+    else:
+        wide = wire == "packed i32"
+        if wide:
+            value = value + (1 << 20)
+        rows = rng.permutation(D)[:R].astype(np.int32)
+        base = rng.integers(-2**31, 2**31 - 1, size=R,
+                            dtype=np.int64).astype(np.int32)
+        buf, wide_vals = mk.pack_map_batch(kind, key, value, base, rows)
+        assert wide_vals == wide
+        b = torch.as_tensor(buf).to(cuda)
+        mk.map_columnar_apply_fused(st, b, R, O, wide)
+        ref = mk.map_columnar_apply(before, b, R, O, wide)
+    assert mak.launches == launches + 1
+    torch.cuda.synchronize()
+    _map_same(st, ref, (case, O, wire))
+    untouched = torch.ones(D, dtype=torch.bool, device=cuda)
+    untouched[torch.as_tensor(rows).long().to(cuda)] = False
+    for k in mk.PLANES:
+        assert torch.equal(getattr(st, k)[untouched],
+                           getattr(before, k)[untouched])
+
+
+def test_map_kernel_captured_in_a_cuda_graph(cuda):
+    """A dense and a packed launch captured in one CUDA graph and replayed
+    on a fresh state: the planes equal the plain version's."""
+    D, K, O = 256, 64, 64
+    rng = np.random.default_rng(4)
+    dense = [torch.as_tensor(p).to(cuda) for p in _map_planes(
+        rng, D, O, K, [SET, SET, DEL, CLR, NOOP])]
+    kind, key, value = _map_edge("repeats", rng, D, O, K)
+    rows = rng.permutation(D).astype(np.int32)
+    buf = torch.as_tensor(mk.pack_map_batch(
+        kind, key, value, np.arange(D, dtype=np.int32) * O, rows)[0]).to(
+            cuda)
+    st = _map_state(cuda, D, K, 9)
+    start = _map_clone(st)
+    mk.apply_map_batch_fused(st, *dense)   # warm-up outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        mk.apply_map_batch_fused(st, *dense)
+        mk.map_columnar_apply_fused(st, buf, D, O, False)
+    for k, v in st.fields().items():
+        v.copy_(getattr(start, k))
+    g.replay()
+    ref = mk.map_columnar_apply(mk.apply_map_batch(start, *dense), buf, D,
+                                O, False)
+    torch.cuda.synchronize()
+    _map_same(st, ref, "graph")
+
+
 def test_map_engine_on_card_matches_cpu(cuda):
     from fluidframework_tpu_torch.server.serving import MapServingEngine
     from fluidframework_tpu_torch.testing.synthetic import map_serving_batch
@@ -1520,6 +1644,90 @@ def test_tree_wire_matches_plain(cuda, width, O):
         ref = tk.apply_tree_wire(ref, *dev, o=o)
         torch.cuda.synchronize()
         _tree_same(st, ref, b)
+
+
+def _expand_wire(dev, R, D, o, widths, seed, pad=0.1):
+    """A random wire of R records on unique (row, pos) cells (a share
+    ``pad`` of them padding: pos >= o or row >= D) with ids and values past
+    their maps' ends; ``widths`` = (ids, values, pos) numpy dtypes."""
+    idt, valt, post = widths
+    rng = np.random.default_rng(seed)
+    cells = rng.permutation(D * o)[:R]
+    row = (cells // o).astype(np.uint16)
+    pos = (cells % o).astype(post)
+    drop = rng.random(R) < pad
+    pos[drop & (rng.random(R) < 0.5)] = o + rng.integers(0, 2)
+    row[drop & (pos < o)] = D + 5
+    maps = [torch.as_tensor(rng.integers(-9, 1 << 30, size=n)
+                            .astype(np.int32)).to(dev)
+            for n in (300, 20, 12, 200)]
+    wire = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+        rng.integers(0, 256, size=(R, 3)).astype(np.uint8),
+        rng.integers(0, 330, size=(R, 3)).astype(idt),
+        rng.integers(0, 230, size=R).astype(valt), row, pos)]
+    return wire, maps
+
+
+def _expand_dirty(dev, D, o):
+    """Leave a freed block of the (9, D, o) buffer's size full of -1 in the
+    caching allocator, where the next allocation of that size lands."""
+    junk = torch.full((9, D, o), -1, dtype=torch.int32, device=dev)
+    del junk
+
+
+_W16, _W32 = np.uint16, np.uint32
+
+
+@pytest.mark.parametrize("R,D,o,widths", [
+    (1000, 300, 4, (_W16, _W16, np.uint8)),
+    (1000, 300, 4, (_W16, _W32, np.uint8)),
+    (1000, 300, 4, (_W32, _W16, np.uint8)),
+    (1000, 300, 4, (_W32, _W32, np.uint8)),
+    (1000, 40, 160, (_W16, _W16, np.uint16)),
+    (1000, 40, 160, (_W16, _W32, np.uint16)),
+    (1000, 40, 160, (_W32, _W16, np.uint16)),
+    (1000, 40, 160, (_W32, _W32, np.uint16)),
+    (0, 64, 4, (_W16, _W16, np.uint8)),        # R = 0: all zeros
+    (257, 8192, 4, (_W16, _W16, np.uint8)),    # most docs get no record
+    (24576, 8192, 4, (_W16, _W16, np.uint8)),  # the serving wave's R
+    (200_000, 8192, 64, (_W32, _W32, np.uint8)),  # grid-stride records
+])
+def test_tree_expand_matches_plain(cuda, R, D, o, widths):
+    """K6 through ``expand_tree_wire_fused`` on a dirty block from the
+    caching allocator: every cell equals the plain version (records at
+    every width instantiation, padding dropped, map indices clamped,
+    zeros where no record lands), one launch a call."""
+    from fluidframework_tpu_torch.ops import tree_apply as ta
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    wire, maps = _expand_wire(cuda, R, D, o, widths, seed=R + o)
+    want = tk.expand_tree_wire(*wire, *maps, n_docs=D, o=o)
+    _expand_dirty(cuda, D, o)
+    e0 = ta.expand_launches
+    got = tk.expand_tree_wire_fused(*wire, *maps, n_docs=D, o=o)
+    assert ta.expand_launches == e0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if R:
+        assert bool((want[0] != 0).any())
+
+
+def test_tree_expand_captured_in_a_cuda_graph(cuda):
+    """K6's cooperative launch captured in a CUDA graph (with the
+    allocation of its output) and replayed after the buffer was dirtied:
+    equal to the plain version."""
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    D, o = 8192, 4
+    wire, maps = _expand_wire(cuda, 24576, D, o, (_W16, _W16, np.uint8), 3)
+    want = tk.expand_tree_wire(*wire, *maps, n_docs=D, o=o)
+    tk.expand_tree_wire_fused(*wire, *maps, n_docs=D, o=o)  # warm-up
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = tk.expand_tree_wire_fused(*wire, *maps, n_docs=D, o=o)
+    out.fill_(-1)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("N", [32, 128, 404, 1024, 1025])

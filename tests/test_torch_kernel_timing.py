@@ -4,7 +4,10 @@ the CPU: the same state and ops give the same planes (full planes after an
 apply; ``[0, count)`` plus the digest after a compaction), every op
 position is valid and no doc overflows. Its axis mode: K3 / K4 inputs
 saved and reloaded as ``chip_smoke.py --parent`` saves them, whose plain
-results equal JAX's and the entry points' on the CPU. Tolerance: exact
+results equal JAX's and the entry points' on the CPU. Its map and tree
+expansion modes: the K1 batches (dense and packed) and the K6 serving
+wave (u16 and widened u32 ids), at a small size, give JAX's planes through
+the plain versions and the entry points on the CPU. Tolerance: exact
 (int32)."""
 
 import jax.numpy as jnp
@@ -13,10 +16,16 @@ import pytest
 import torch
 
 from fluidframework_tpu.ops import axis_kernel as jak
+from fluidframework_tpu.ops import map_kernel as jmk
 from fluidframework_tpu.ops import merge_tree_kernel as jmt
+from fluidframework_tpu.ops import tree_kernel as jtk
 from fluidframework_tpu_torch.ops import axis_kernel as tak
 from fluidframework_tpu_torch.core.constants import NOT_REMOVED
+from fluidframework_tpu_torch.ops import map_kernel as tmk
 from fluidframework_tpu_torch.ops import merge_tree as tmt
+from fluidframework_tpu_torch.ops import tree_kernel as ttk
+from fluidframework_tpu_torch.ops.schema import OpKind
+from fluidframework_tpu_torch.ops import tree_store as tstore
 from fluidframework_tpu_torch.ops.string_kernel import (
     apply_string_batch_fused,
 )
@@ -167,3 +176,71 @@ def test_axis_plain_path_matches_jax(kernel):
     assert i < past.length.shape[1]
     past.length[0, i] += 5   # the first slot past count
     assert kt.axis_err(tmt, (past, got[1], got[2]), want) == 5
+
+
+def _same_map(jstate, tstate, what):
+    for k in tmk.PLANES:
+        assert np.array_equal(np.asarray(getattr(jstate, k)),
+                              getattr(tstate, k).numpy()), (what, k)
+
+
+def test_map_inputs_apply_like_jax():
+    """K1's timing inputs at a small size: dense at two doc counts and the
+    packed serving batch. JAX's ``apply_map_batch`` /
+    ``map_columnar_apply_jit``, the plain version and the entry point (in
+    place on the CPU state) give the same planes, and the batches clear,
+    set and delete."""
+    ins = kt.map_inputs(tmk, synthetic, "cpu", D=16, K=8, O=8, wide_d=24)
+    assert set(ins) == {"dense, D = 16", "dense, D = 24",
+                        "packed, config #2 serving"}
+    for spec, (st, mode, args) in ins.items():
+        want = kt.map_call(tmk, mode, st, args, plain=True)
+        js = jmk.MapState(*(jnp.asarray(v.numpy())
+                            for v in st.fields().values()))
+        if mode == "dense":
+            kind = args[0]
+            js = jmk.apply_map_batch(js, *(jnp.asarray(a.numpy())
+                                           for a in args))
+        else:
+            buf, R, O, wide = args
+            kind = tmk.map_unpack(buf, R, O, R, False, wide)[0]
+            js = jmk.map_columnar_apply_jit(
+                js, jnp.asarray(buf.numpy()), R=R, O=O,
+                n_docs=st.present.shape[0], scatter_rows=True,
+                wide_vals=wide)
+        for k in (OpKind.MAP_SET, OpKind.MAP_DELETE, OpKind.MAP_CLEAR):
+            assert bool((kind == int(k)).any()), (spec, k)
+        _same_map(js, want, spec)
+        out = kt.map_call(tmk, mode, st, args)
+        assert out is st
+        _same_map(js, st, spec)
+
+
+def test_expand_inputs_apply_like_jax():
+    """K6's timing inputs at a small size: the serving engine's last
+    record wave as shipped (u16) and widened to u32. The entry point's
+    buffer equals the plain expansion, both widths expand alike, and the
+    wire applied by JAX's ``apply_tree_wire``, the plain version and the
+    entry point (in place on the CPU state) gives the same planes."""
+    served = kt.serving_waves(tstore, synthetic, "cpu", docs=12, N=16,
+                              waves=4)
+    ins = kt.expand_inputs(tstore, synthetic, "cpu", served=served)
+    assert set(ins) == {"serving wave, u16 ids", "serving wave, u32 ids"}
+    first = None
+    for spec, (st, wire, o) in ins.items():
+        D = st.node_id.shape[0]
+        want = ttk.expand_tree_wire(*wire[:5], *wire[6:], n_docs=D, o=o)
+        assert torch.equal(kt.expand_call(ttk, wire, D, o), want)
+        first = want if first is None else first
+        assert torch.equal(want, first), spec
+        assert int((want[0] != 0).sum()) == 3 * D
+        js = jtk.apply_tree_wire(
+            jtk.TreeState(**{k: jnp.asarray(v.numpy())
+                             for k, v in st.fields().items()}),
+            *(jnp.asarray(x.numpy()) for x in wire), o=o)
+        port = ttk.apply_tree_wire(st, *wire, o=o)
+        fused = ttk.apply_tree_wire_fused(st.clone(), *wire, o=o)
+        for k in ttk.TREE_PLANES + ("overflow",):
+            j = np.asarray(getattr(js, k))
+            assert np.array_equal(j, getattr(port, k).numpy()), (spec, k)
+            assert np.array_equal(j, getattr(fused, k).numpy()), (spec, k)
