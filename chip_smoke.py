@@ -105,7 +105,23 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    the launch with the most records of each of the per-op, recovery and
    load paths, kept as the engines made it) and K6 (the serving wave as
    shipped, u16 ids, and widened to u32) timed in CUDA graphs beside their
-   plain versions and bounds.
+   plain versions and bounds;
+10. megadoc — the mega tier (long documents split into 8 shards, one
+   thread-block cluster of K7 ``megadoc_apply``, ``csrc/megadoc_apply.cu``,
+   a doc): (a) 64 mega docs × 8 shards × 4,096 slots (K = 4) grown by
+   windows of 512 ``megadoc_storm`` ops, rebalanced whenever a shard passes
+   75 %, until every doc holds more than 16,384 active slots, compacted
+   and taken 2 windows further, every K7 launch equal to the plain version
+   on its input (all planes), the widest launch timed beside its bound;
+   (b) ``StringServingEngine(mega_docs=16, mega_capacity_per_shard=4096)``
+   fed per-op submits from 4 clients a doc (lagging refs, inserts, removes,
+   annotates) until every doc passes 8,192 active slots, its texts and
+   sampled properties equal a ``device="cpu"`` twin fed the same stream
+   for 2 docs, ops/s; (c) its summary loaded on the card, a small engine's
+   summary with a ``markMega`` in the log tail loaded, and a mega overflow
+   that re-uploads and one that graduates. The line reports each part's
+   seconds, K7's launches by path, ``cudaOccupancyMaxActiveClusters`` and
+   its ptxas registers and spills.
 
 With ``--parent DIR`` (another checkout, e.g. an archive of the parent
 commit) a last phase, parent_timing, times K1-K6 of DIR and of this
@@ -118,14 +134,16 @@ get ``parent_ms`` (null without it). The ``axis_apply`` and
 ``axis_resolve`` entries also carry their ptxas report (registers,
 spills) and the eager ``call_ms`` beside the graph ``ms``.
 
-Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (the seven
+Then the ``nvidia-smi`` line, a ``{"kernels": [...]}`` line (the eight
 kernels: ``string_apply``, ``map_apply``, ``cell_merge``, ``axis_apply``,
-``axis_resolve``, ``tree_apply``, ``tree_expand``, each with its launches
+``axis_resolve``, ``tree_apply``, ``tree_expand``, ``megadoc_apply``, each
+with its launches
 on its own paths, every count set to 0 just before a path and read just
 after: config #4 serving; config #2's kernel loop and its serving route;
 config #3's kernel loop, the store route and the matrix engine's paths;
 the tree phase's kernel loop, serving, flat serving, per-op, recovery and
-load paths), and as the last line ``{"ok": true, "device": {...}}``. Any failed phase raises, so
+load paths; the megadoc phase's kernel loop and engine), and as the last
+line ``{"ok": true, "device": {...}}``. Any failed phase raises, so
 the exit code is non-zero. Without a card it exits 2 and prints no result.
 
 Usage: ``python3 chip_smoke.py [--parent DIR]`` (one card).
@@ -2231,6 +2249,404 @@ def tree_phase(smi, dev, keep_inputs=None):
                   expand_rows[0], expand_rows, launch_floor_ms=floor))
 
 
+MEGA_ENGINE_DOCS, MEGA_CLIENTS = 16, 4   # (b): mega docs, clients a doc
+MEGA_ENGINE_TARGET = 8192                # (b): active slots each doc passes
+MEGA_TWIN_DOCS = 2                       # (b): docs the CPU twin is fed
+MEGA_ENGINE_MAX_OPS = 12_000             # (b): ops a doc at most
+MEGA_PROP_SAMPLES = 512                  # (b): get_properties probes a doc
+MEGA_FLOOR_LAG = 16                      # (a): compaction floor, ops back
+
+
+class MegaOpStream:
+    """Per-op string edits for the engine part of the megadoc phase: per
+    doc, clients in turn with refs that lag the doc's seq by up to 8 and
+    never go back; 55 % inserts of 2-4 chars, 15 % removes of 2 chars, 30 %
+    annotates of 1-6 chars (one of 3 keys, a value or None). Positions are
+    drawn below a conservative bound of what the op's perspective sees:
+    the doc's estimated length at the ref seq, less 2 for every remove
+    sequenced since (an estimate that counts every remove in full)."""
+
+    KEYS, VALUES = ("bold", "color", "size"), (1, 2, "red", None)
+
+    def __init__(self, docs, n_clients, seed):
+        import numpy as np
+        self.rng = np.random.default_rng(seed)
+        self.docs = docs
+        self.n_clients = n_clients
+        self.est = {d: [0] for d in docs}     # estimate by doc seq
+        self.rms = {d: [0] for d in docs}     # removes up to doc seq
+        self.ref = {}
+        self.cseq = {}
+
+    def joined(self, doc, client, seq):
+        """A client's JOIN sequenced at ``seq``."""
+        self._grow(doc, seq, 0, False)
+        self.ref[(doc, client)] = seq
+        self.cseq[(doc, client)] = 0
+
+    def _grow(self, doc, seq, delta, removed):
+        est, rms = self.est[doc], self.rms[doc]
+        while len(est) <= seq:
+            est.append(est[-1])
+            rms.append(rms[-1])
+        est[seq] = est[seq - 1] + delta if seq else delta
+        rms[seq] = rms[seq - 1] + removed if seq else removed
+
+    def next(self, doc, client, doc_seq):
+        """(client_seq, ref_seq, contents) of the client's next op on a doc
+        whose last seq is ``doc_seq``; call ``acked`` with its seq."""
+        r = self.rng.random(4)
+        key = (doc, client)
+        ref = max(self.ref[key], doc_seq - int(r[0] * 9))
+        self.ref[key] = ref
+        self.cseq[key] += 1
+        bound = max(self.est[doc][ref]
+                    - 2 * (self.rms[doc][doc_seq] - self.rms[doc][ref]), 0)
+        if bound < 4 or r[1] < 0.55:
+            n = 2 + int(r[2] * 3)
+            op = {"mt": "insert", "kind": 0, "pos": int(r[3] * (bound + 1)),
+                  "text": "abcdefgh"[int(r[2] * 5):][:n].ljust(n, "x")}
+            self._pending = (len(op["text"]), False)
+        elif r[1] < 0.70:
+            start = int(r[3] * (bound - 2))
+            op = {"mt": "remove", "start": start, "end": start + 2}
+            self._pending = (-2, True)
+        else:
+            start = int(r[3] * (bound - 1))
+            op = {"mt": "annotate", "start": start,
+                  "end": min(start + 1 + int(r[2] * 6), bound),
+                  "props": {self.KEYS[int(r[2] * 3)]:
+                            self.VALUES[int(r[0] * 4)]}}
+            self._pending = (0, False)
+        return self.cseq[key], ref, op
+
+    def acked(self, doc, seq):
+        self._grow(doc, seq, *self._pending)
+
+
+def megadoc_phase(smi, dev, ptxas):
+    """Phase 10: the mega tier (long documents split into 8 shards, one
+    thread-block cluster of K7 a doc). (a) 64 mega docs × 8 shards × 4,096
+    slots, K = 4, grown by windows of 512 ops of ``megadoc_storm`` (typing
+    and conflict storms) with a rebalance whenever a shard passes 75 %,
+    until every doc holds more than 16,384 active slots, then compacted and
+    taken 2 windows further: every K7 launch equal to the plain version on
+    the same input, all planes; the widest launch timed (CUDA graph and
+    eager) beside its bound. (b) ``StringServingEngine(mega_docs=16,
+    mega_capacity_per_shard=4096)`` on the card: 16 docs marked mega, then
+    per-op submits from 4 clients a doc (lagging refs; inserts, removes,
+    annotates) until every doc passes 8,192 active slots; flush, compact,
+    texts and sampled properties equal a ``device="cpu"`` twin fed the same
+    stream for 2 of the docs; ops/s. (c) the engine's summary loaded on the
+    card; a small engine's summary with a ``markMega`` in its tail loaded;
+    a mega overflow that re-uploads and one that graduates
+    (``tests/test_overflow_recovery.py``'s shapes). Returns the
+    ``megadoc_apply`` kernels-line entry."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import megadoc_apply as ma
+    from fluidframework_tpu_torch.ops import megadoc_kernel as mgk
+    from fluidframework_tpu_torch.ops import merge_tree as mt
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    from fluidframework_tpu_torch.testing import kernel_timing as kt
+    from fluidframework_tpu_torch.testing import synthetic
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    launches = {}
+    seconds = {}
+
+    def clone(st):
+        return mt.StringState(**{k: v.clone()
+                                 for k, v in st.fields().items()})
+
+    def diff(a, b):
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    # ------------------------------------------------- (a) the kernel loop
+    t0 = time.perf_counter()
+    D, n, S, K, O = kt.MEGA_D, kt.MEGA_N, kt.MEGA_S, kt.MEGA_K, kt.MEGA_O
+    windows = kt.megadoc_windows(synthetic, D, O, kt.MEGA_WINDOWS)
+    st = mgk.create_megadoc_state(D, S, n, K, dev)
+    err, widest, compacted_at, rebalances = 0, None, None, 0
+    plain_s, kernel_launches = 0.0, 0
+    ma.launches = 0   # the kernel loop starts here
+    for w, planes in enumerate(windows):
+        new = kt.megadoc_rebalance(mgk, st, S)
+        rebalances += new is not st
+        st = new
+        ops = tuple(torch.from_numpy(planes[k]).to(dev)
+                    for k in mt.OP_FIELDS)
+        before = clone(st)
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        ref = mgk.apply_megadoc_plain(st, *ops)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - tp
+        mgk.apply_megadoc_batch(st, *ops)
+        torch.cuda.synchronize()
+        kernel_launches += 1
+        for k in mt.FIELDS:
+            err = max(err, diff(getattr(st, k), getattr(ref, k)))
+        if err:
+            raise AssertionError(f"megadoc window {w}: K7 != plain, max abs "
+                                 f"err {err}")
+        del ref
+        if compacted_at is None and \
+                int(st.count.sum(dim=1).min()) > kt.MEGA_TARGET:
+            widest = (before, ops)
+            floor = planes["seq"][:, -1 - MEGA_FLOOR_LAG]
+            st = mgk.compact_megadoc(st, torch.from_numpy(
+                np.ascontiguousarray(floor)).to(dev))
+            compacted_at = w
+        elif compacted_at is not None and w >= compacted_at + 2:
+            break
+    launches["kernel_loop"] = ma.launches   # the kernel loop ends here
+    if compacted_at is None or launches["kernel_loop"] != kernel_launches:
+        raise AssertionError("megadoc kernel loop: the docs never passed "
+                             f"{kt.MEGA_TARGET} active slots, or K7 was not "
+                             "launched once a window")
+    if st.overflow.any():
+        raise AssertionError("megadoc kernel loop: a shard overflowed")
+    loop = {"windows": w + 1, "compacted_after_window": compacted_at,
+            "rebalances": rebalances,
+            "active_slots_min_max_at_compaction": [
+                int(widest[0].count.sum(dim=1).min()),
+                int(widest[0].count.sum(dim=1).max())],
+            "active_slots_after": int(st.count.sum()),
+            "plain_s": plain_s}
+    del st
+    before, ops = widest
+    work = clone(before)
+    t = kt.time_in_place(lambda s: s.fields(), before, work,
+                         lambda x: mgk.apply_megadoc_batch(x, *ops))
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = mgk.apply_megadoc_plain(before, *ops)
+    z.record()
+    torch.cuda.synchronize()
+    for k in mt.FIELDS:
+        err = max(err, diff(getattr(work, k), getattr(want, k)))
+    bound_ms, nbytes = kt.megadoc_bound(D, n, S, O, K)
+    timing = {"D": D, "n": n, "S": S, "O": O, "K": K,
+              "spec": "widest kernel-loop launch", **t,
+              "plain_ms": a.elapsed_time(z), "bound_ms": bound_ms,
+              "bound_by": "bytes", "bytes": nbytes}
+    del before, ops, work, want, widest
+    torch.cuda.empty_cache()
+    seconds["kernel_loop"] = time.perf_counter() - t0
+
+    # ------------------------------------------------------ (b) the engine
+    t0 = time.perf_counter()
+    docs = [f"mega-{i}" for i in range(MEGA_ENGINE_DOCS)]
+
+    def engine(device, n_mega, window):
+        e = StringServingEngine(n_docs=4, capacity=64, batch_window=window,
+                                compact_every=4, mega_docs=n_mega,
+                                mega_capacity_per_shard=S, device=device)
+        return e
+
+    card = engine(dev, MEGA_ENGINE_DOCS, 1024)
+    stream = MegaOpStream(docs, MEGA_CLIENTS, seed=11)
+    plan = []
+    kept = {}   # the input of the engine's last widest K7 launch
+    launch = ma.launch
+
+    def keep_widest(state, *ops):
+        if ops[0].shape[1] >= kept.get("O", 0):
+            kept.update(O=ops[0].shape[1], state=clone(state),
+                        ops=tuple(o.clone() for o in ops))
+        launch(state, *ops)
+
+    ma.launch = keep_widest
+    ma.launches = 0   # the engine path starts here
+    for d in docs:
+        card.mark_mega(d)
+        for c in range(1, MEGA_CLIENTS + 1):
+            stream.joined(d, c, card.connect(d, c).seq)
+    n_ops, per_doc = 0, 0
+    while True:
+        for _ in range(256):
+            for d in docs:
+                c = 1 + per_doc % MEGA_CLIENTS
+                cs, ref, op = stream.next(d, c, card.deli.doc_seq(d))
+                msg, nack = card.submit(d, c, cs, ref, op)
+                if nack is not None:
+                    raise AssertionError(f"megadoc engine: {d} nacked: "
+                                         f"{nack}")
+                stream.acked(d, msg.seq)
+                plan.append((d, c, cs, ref, op))
+                n_ops += 1
+            per_doc += 1
+        card.flush()
+        card.compact()
+        active = card.mega_store.slot_usage().sum(axis=1)
+        if int(active.min()) > MEGA_ENGINE_TARGET:
+            break
+        if per_doc >= MEGA_ENGINE_MAX_OPS:
+            raise AssertionError(f"megadoc engine: docs hold {active} "
+                                 f"active slots after {per_doc} ops a doc")
+    torch.cuda.synchronize()
+    launches["engine"] = ma.launches   # the engine path ends here
+    engine_s = time.perf_counter() - t0
+    ma.launch = launch
+    if launches["engine"] <= 0:
+        raise AssertionError("megadoc engine never launched K7")
+    if card.overflowed_docs():
+        raise AssertionError(f"megadoc engine overflowed: "
+                             f"{card.overflowed_docs()}")
+    t1 = time.perf_counter()
+    twin = engine("cpu", MEGA_TWIN_DOCS, 1024 // 8)
+    sampled = docs[:MEGA_TWIN_DOCS]
+    for d in sampled:
+        twin.mark_mega(d)
+        for c in range(1, MEGA_CLIENTS + 1):
+            twin.connect(d, c)
+    for d, c, cs, ref, op in plan:
+        if d in sampled:
+            msg, nack = twin.submit(d, c, cs, ref, op)
+            if nack is not None:
+                raise AssertionError(f"megadoc twin: {d} nacked: {nack}")
+    twin.flush()
+    twin.compact()
+    twin_s = time.perf_counter() - t1
+    rng = np.random.default_rng(3)
+    lengths = {}
+    for d in sampled:
+        text = card.read_text(d)
+        if text != twin.read_text(d):
+            raise AssertionError(f"megadoc engine: {d} text differs from "
+                                 "the CPU twin")
+        lengths[d] = len(text)
+        for pos in rng.integers(0, len(text), size=MEGA_PROP_SAMPLES):
+            if card.get_properties(d, int(pos)) != \
+                    twin.get_properties(d, int(pos)):
+                raise AssertionError(f"megadoc engine: {d}@{pos} props "
+                                     "differ from the CPU twin")
+    before, ops = kept["state"], kept["ops"]
+    work = clone(before)
+    t = kt.time_in_place(lambda s: s.fields(), before, work,
+                         lambda x: mgk.apply_megadoc_batch(x, *ops))
+    a.record()
+    want = mgk.apply_megadoc_plain(before, *ops)
+    z.record()
+    torch.cuda.synchronize()
+    for k in mt.FIELDS:
+        err = max(err, diff(getattr(work, k), getattr(want, k)))
+    De, ne = before.count.shape
+    bound_ms, nbytes = kt.megadoc_bound(De, ne, S, kept["O"], K)
+    timing_engine = {"D": De, "n": ne, "S": S, "O": kept["O"], "K": K,
+                     "spec": "widest engine launch", **t,
+                     "plain_ms": a.elapsed_time(z), "bound_ms": bound_ms,
+                     "bound_by": "bytes", "bytes": nbytes,
+                     "active_slots_min": int(before.count.sum(dim=1).min())}
+    del before, ops, work, want, kept
+    serve = {"docs": MEGA_ENGINE_DOCS, "clients_a_doc": MEGA_CLIENTS,
+             "ops": n_ops, "ops_a_doc": per_doc, "engine_s": engine_s,
+             "ops_per_s": n_ops / engine_s, "twin_s": twin_s,
+             "active_slots_min_max": [int(active.min()), int(active.max())],
+             "twin_docs": sampled, "text_lengths": lengths}
+    seconds["engine"] = time.perf_counter() - t0
+
+    # -------------------------------------- (c) summaries and recovery
+    t0 = time.perf_counter()
+    ma.launches = 0   # the summary / recovery path starts here
+    loaded = StringServingEngine.load(card.summarize(), card.log,
+                                      device=dev)
+    for d in docs:
+        if loaded.read_text(d) != card.read_text(d):
+            raise AssertionError(f"megadoc load: {d} text differs")
+    del card, twin, loaded
+    torch.cuda.empty_cache()
+
+    small = StringServingEngine(n_docs=1, capacity=16, batch_window=4,
+                                mega_docs=1, mega_capacity_per_shard=64,
+                                n_partitions=4, device=dev)
+    small.connect("old", 1)
+    small.submit("old", 1, 1, 1, {"mt": "insert", "kind": 0, "pos": 0,
+                                  "text": "x"})
+    summary = small.summarize()
+    small.mark_mega("huge")   # a markMega in the log tail
+    small.connect("huge", 5)
+    want = ""
+    for i in range(30):
+        word = f"t{i} "
+        small.submit("huge", 5, i + 1, small.deli.doc_seq("huge"),
+                     {"mt": "insert", "kind": 0, "pos": len(want),
+                      "text": word})
+        want += word
+    tail = StringServingEngine.load(summary, small.log, device=dev)
+    if tail.read_text("huge") != want or tail.read_text("old") != "x" \
+            or "huge" not in tail._mega_rows or tail.overflowed_docs():
+        raise AssertionError("megadoc: a markMega in the tail did not "
+                             "replay onto the mega tier")
+
+    def overflowed(n_churn, n_keep):
+        e = StringServingEngine(n_docs=1, capacity=64, batch_window=8,
+                                compact_every=10 ** 9, mega_docs=1,
+                                mega_capacity_per_shard=16, device=dev)
+        e.auto_recover = False
+        e.mark_mega("m")
+        e.connect("m", 1)
+        cs, shadow = 0, ""
+        for _ in range(n_churn):
+            for op in ({"mt": "insert", "kind": 0, "pos": 0, "text": "ab"},
+                       {"mt": "remove", "start": 0, "end": 2}):
+                cs += 1
+                e.submit("m", 1, cs, e.deli.doc_seq("m"), op)
+        for i in range(n_keep):
+            cs += 1
+            e.submit("m", 1, cs, e.deli.doc_seq("m"),
+                     {"mt": "insert", "kind": 0, "pos": 0, "text": f"k{i}"})
+            shadow = f"k{i}" + shadow
+        e.flush()
+        if e.overflowed_docs() != ["m"]:
+            raise AssertionError("megadoc: the mega doc did not overflow")
+        return e, shadow
+
+    recovery = {}
+    for name, churn, keep in (("reuploaded", 150, 10),
+                              ("graduated", 0, 200)):
+        e, shadow = overflowed(churn, keep)
+        report = e.recover_overflowed()
+        if report != {"m": name} or e.overflowed_docs() or \
+                e.read_text("m") != shadow:
+            raise AssertionError(f"megadoc recovery: {report}, want "
+                                 f"{{'m': {name!r}}}")
+        recovery[name] = report
+    torch.cuda.synchronize()
+    launches["summary_recovery"] = ma.launches   # the path ends here
+    seconds["summary_recovery"] = time.perf_counter() - t0
+
+    clusters = {f"{c}x{S}": ma.active_clusters(c, S, K) for c in (8, 16)}
+    k7 = [k for k in ptxas if "megadoc_apply_kernel" in k.get("entry", "")]
+    if not k7:
+        raise RuntimeError("no -Xptxas -v report for megadoc_apply")
+    emit({"phase": "megadoc", "docs": D, "shards": n, "slots_a_shard": S,
+          "K": K, "ops_a_window": O, "kernel_loop": loop,
+          "timing": [timing, timing_engine], "engine": serve,
+          "summary_recovery": recovery, "launches": launches,
+          "max_abs_err": err, "active_clusters": clusters,
+          "max_slots_per_shard": ma.max_slots_per_shard(K),
+          "max_shards": ma.max_shards(S, K), "ptxas": k7,
+          "seconds": seconds, "total_s": time.perf_counter() - t_phase,
+          "card": smi})
+    return {"name": "megadoc_apply", "route": "cuda",
+            "source": "fluidframework_tpu_torch/csrc/megadoc_apply.cu",
+            "replaces": "fluidframework_tpu/ops/megadoc_kernel.py:154",
+            "launches": launches["kernel_loop"] + launches["engine"],
+            "launches_by_path": launches, "max_abs_err": err,
+            "ms": timing["ms"], "call_ms": timing["call_ms"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "shape": {k: timing[k] for k in ("D", "n", "S", "O", "K",
+                                             "spec")},
+            "specialisations": [timing, timing_engine],
+            "active_clusters": clusters, "ptxas": k7}
+
+
 def parent_timing(parent, tree_inputs=None, axis_inputs=None):
     """K1-K6 of ``parent`` (another checkout, e.g. an archive
     of the parent commit) and of this checkout, timed by
@@ -2612,6 +3028,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tree_entries = tree_phase(smi, dev, keep_tree)
     torch.cuda.empty_cache()
+    mega_entry = megadoc_phase(smi, dev, reports["megadoc_apply"])
+    torch.cuda.empty_cache()
     timing_pc = parent_timing(args.parent, keep_tree, keep_axis) \
         if args.parent else None
     if tmp:
@@ -2642,7 +3060,7 @@ def main(argv=None) -> int:
             {"spec": name, "S": S, "state": state, **t}
             for (name, S, state), t in timing.items()] + rebuild_rows,
         "total_s": time.perf_counter() - t_start,
-    }, map_entry, cell_entry, *axis_entries, *tree_entries]})
+    }, map_entry, cell_entry, *axis_entries, *tree_entries, mega_entry]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

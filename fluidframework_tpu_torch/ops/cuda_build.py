@@ -31,7 +31,8 @@ BUILD_DIR = os.path.join(PKG_ROOT, "_build")
 #: kernel name → source file under ``csrc/``
 SOURCES = {"string_apply": "string_apply.cu", "map_apply": "map_apply.cu",
            "cell_merge": "cell_merge.cu", "axis_apply": "axis_apply.cu",
-           "tree_apply": "tree_apply.cu"}
+           "tree_apply": "tree_apply.cu",
+           "megadoc_apply": "megadoc_apply.cu"}
 # -split-compile=0: a source's template instantiations compile in parallel
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-split-compile=0", "-shared", "-Xcompiler", "-fPIC",

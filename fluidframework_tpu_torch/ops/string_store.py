@@ -927,8 +927,11 @@ class TensorStringStore(StringOpInterner):
             fields[k] = plane
         fields["count"] = snap["count"]
         fields["overflow"] = snap["overflow"]
+        # copies: the state is updated in place and must not write
+        # through to the snapshot's arrays
         store.state = StringState(**{
-            k: torch.as_tensor(np.asarray(v, np.int32)).to(store.device)
+            k: torch.as_tensor(np.asarray(v, np.int32)).to(store.device,
+                                                            copy=True)
             for k, v in fields.items()})
         store._payloads = [tuple(p) for p in snap["payloads"]]
         store._client_idx = [dict(m) for m in snap["client_idx"]]

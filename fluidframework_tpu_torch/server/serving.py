@@ -17,13 +17,15 @@ a serial walk of four stage methods (prepare → sequence → dispatch → log)
 that ``server.ingest_pipeline.PipelinedIngestExecutor`` also runs from its
 worker threads.
 
-Two tiers: the flat store (one row per doc, capacity S) and the graduated
-tier (a doc whose compacted state outgrew S gets a store of its own). A doc
-whose row overflows (the kernel drops the op and sets a sticky flag) is
-healed by ``recover_overflowed``: its whole history is replayed from the
-log into a rebuild store at doubled capacity, compacted at the doc's window
-floor, then re-uploaded into its row or graduated. Every store recovery
-builds sits on the engine's device.
+Three tiers: the flat store (one row per doc, capacity S), the mega tier
+(documents declared long with ``mark_mega``, each split into shards of a
+``MegaDocStringStore``) and the graduated tier (a doc whose compacted state
+outgrew its tier gets a store of its own). A doc whose row overflows (the
+kernel drops the op and sets a sticky flag) is healed by
+``recover_overflowed``: its whole history is replayed from the log into a
+rebuild store at doubled capacity, compacted at the doc's window floor,
+then re-uploaded into its row or graduated. Every store recovery builds
+sits on the engine's device.
 
 Recovery of the whole engine is one primitive: ``summarize`` (full, or an
 incremental delta over the last summary) captures the compacted stores,
@@ -47,6 +49,7 @@ from ..core.protocol import MessageType, SequencedDocumentMessage
 from ..ops import string_kernel
 from ..ops.axis_kernel import TensorAxisStore
 from ..ops.map_kernel import TensorMapStore, pack_map_batch, refuse_mesh
+from ..ops.megadoc_store import MegaDocStringStore
 from ..ops.matrix_kernel import TensorMatrixStore, tuple_key
 from ..ops.schema import OpKind, positions_in_doc
 from ..ops.string_store import TensorStringStore
@@ -598,12 +601,14 @@ class ServingEngineBase:
                     f"log p{p} holds {self.log.size(p)} records but the "
                     f"summary was cut at offset {int(off)}")
 
-    def _replay_tail(self, summary: dict) -> None:
+    def _replay_tail(self, summary: dict, control_hook=None) -> None:
         """Replay every tail message through the sequencer (so sequencing
         resumes past the tail), the member set and the dedup ledger; OPs
-        queue for the device merge. Columnar records of any family
-        ("str", "map" or "ops") expand to their per-op messages, which the
-        engine's own ``_flush_impl`` applies. The tail is sorted by (doc,
+        queue for the device merge. A ``control_hook(msg) -> True``
+        consumes an engine's own control records (the string engine's
+        ``markMega``) before they reach the stores. Columnar records of
+        any family ("str", "map" or "ops") expand to their per-op
+        messages, which the engine's own ``_flush_impl`` applies. The tail is sorted by (doc,
         seq): columnar records round-robin across partitions while
         JOIN/LEAVE stay in the doc's own partition, so the scan order is
         not the order of events."""
@@ -616,13 +621,10 @@ class ServingEngineBase:
                             else (rec,))
         tail.sort(key=lambda m: (m.doc_id, m.seq))
         for msg in tail:
-            if msg.type == MessageType.PROPOSAL and \
-                    isinstance(msg.contents, dict) and \
-                    msg.contents.get("markMega"):
-                raise ValueError(f"log routes {msg.doc_id!r} to the mega "
-                                 "tier, which is not ported")
             self.deli.replay(msg)
             self._absorb_resilience(msg)
+            if control_hook is not None and control_hook(msg):
+                continue
             if msg.type == MessageType.OP:
                 self._enqueue(msg.doc_id, msg)
                 self._min_seq[msg.doc_id] = max(
@@ -660,18 +662,34 @@ class _IngestWave:
 class StringServingEngine(ServingEngineBase):
     """Sequencer + log + batched device merge for many documents, on
     ``device`` (default the card; ``device="cpu"`` runs the plain
-    versions). ``store`` adopts an existing flat store (``load``)."""
+    versions). ``store`` adopts an existing flat store (``load``).
+
+    ``mega_docs`` > 0 gives the engine a mega tier: a
+    ``MegaDocStringStore`` of that many documents, 8 shards of
+    ``mega_capacity_per_shard`` slots each (or the caller's own
+    ``mega_store``), on the flat store's device. ``mark_mega`` routes a
+    document there before its first op."""
 
     def __init__(self, n_docs: int, capacity: int = 256, n_props: int = 4,
                  batch_window: int = 64, n_partitions: int = 8,
                  compact_every: int = 16,
                  log: Optional[PartitionedLog] = None,
                  sequencer: str = "python", device="cuda",
-                 store: Optional[TensorStringStore] = None):
+                 store: Optional[TensorStringStore] = None,
+                 mega_docs: int = 0, mega_capacity_per_shard: int = 256,
+                 mega_store: Optional[MegaDocStringStore] = None):
         self.store = store if store is not None \
             else TensorStringStore(n_docs, capacity, n_props, device)
+        self.mega_store = mega_store
+        if mega_store is None and mega_docs > 0:
+            self.mega_store = MegaDocStringStore(
+                mega_docs, mega_capacity_per_shard, device=self.store.device)
         super().__init__(n_docs, batch_window, n_partitions, compact_every,
                          log, sequencer=sequencer)
+        # mega tier: doc → mega row, rows freed by graduation, the queue
+        self._mega_rows: Dict[str, int] = {}
+        self._free_mega_rows: List[int] = []
+        self._mega_queue: List[Tuple[int, SequencedDocumentMessage]] = []
         # in-flight async copy of the overflow flags (deferred read)
         self._ov_pending = None
         self._admit_token = None
@@ -684,6 +702,46 @@ class StringServingEngine(ServingEngineBase):
         self.auto_recover = True
         #: time split and shapes of the last flat-tier recovery
         self.last_recovery: dict = {}
+
+    # ------------------------------------------------------------ membership
+
+    def doc_row(self, doc_id: str) -> int:
+        """The doc's row in its tier's store (a mega row for a mega doc);
+        allocates a flat row for a doc that has none yet."""
+        if doc_id in self._mega_rows:
+            return self._mega_rows[doc_id]
+        return super().doc_row(doc_id)
+
+    def mark_mega(self, doc_id: str) -> None:
+        """Route ``doc_id`` to the mega tier; before its first op (a JOIN
+        does not pin a doc to the flat tier). The mark is appended to the
+        log, so a load replays it before the doc's ops."""
+        if self.mega_store is None:
+            raise ValueError("engine created without a mega tier")
+        if doc_id in self._doc_rows:
+            raise ValueError(f"{doc_id} already has ops on the flat tier")
+        if doc_id not in self._mega_rows:
+            self._register_mega(doc_id)
+            self._log_append(doc_id, SequencedDocumentMessage(
+                doc_id=doc_id, client_id=-1, client_seq=0, ref_seq=0,
+                seq=0, min_seq=0, type=MessageType.PROPOSAL,
+                contents={"markMega": True}))
+
+    def _register_mega(self, doc_id: str) -> None:
+        if self._free_mega_rows:
+            self._mega_rows[doc_id] = self._free_mega_rows.pop()
+            return
+        nxt = len(self._mega_rows) + len(self._free_mega_rows)
+        if nxt >= self.mega_store.n_docs:
+            raise KeyError("mega-doc capacity exhausted")
+        self._mega_rows[doc_id] = nxt
+
+    def _mega_min_seq(self) -> np.ndarray:
+        """(mega docs,) window floors of the mega rows (0 where free)."""
+        ms = np.zeros((self.mega_store.n_docs,), np.int32)
+        for doc_id, row in self._mega_rows.items():
+            ms[row] = self._min_seq.get(doc_id, 0)
+        return ms
 
     # --------------------------------------------------------------- ingress
 
@@ -747,11 +805,14 @@ class StringServingEngine(ServingEngineBase):
     def _enqueue(self, doc_id: str, msg: SequencedDocumentMessage) -> None:
         if doc_id in self._graduated:
             self._grad_queue.append((doc_id, msg))
+        elif doc_id in self._mega_rows:
+            self._mega_queue.append((self._mega_rows[doc_id], msg))
         else:
             self._queue.append((self.doc_row(doc_id), msg))
 
     def _queued(self) -> int:
-        return len(self._queue) + len(self._grad_queue)
+        return len(self._queue) + len(self._mega_queue) + \
+            len(self._grad_queue)
 
     def heartbeat(self, doc_id: str, client_id: int, ref_seq: int) -> None:
         """NOOP: advances the client's refSeq (and the doc's MSN) so zamboni
@@ -911,6 +972,8 @@ class StringServingEngine(ServingEngineBase):
             tidx=w.tidx, props=w.props, prepacked=w.prepacked)
         if w.compact_due:
             self._flushes_since_compact = 0
+            if self.mega_store is not None and self._mega_rows:
+                self.mega_store.compact(self._mega_min_seq())
             for doc_id, store in self._graduated.items():
                 store.compact(self._min_seq.get(doc_id, 0))
             if self.auto_recover:
@@ -1001,11 +1064,14 @@ class StringServingEngine(ServingEngineBase):
 
     def _flush_impl(self) -> int:
         """Merge the queued window on the device: one batched apply for the
-        flat tier, one per graduated doc."""
+        flat tier, one for the mega tier, one per graduated doc."""
         n = self._queued()
         if self._queue:
             self.store.apply_messages(self._queue)
             self._queue.clear()
+        if self._mega_queue:
+            self.mega_store.apply_messages(self._mega_queue)
+            self._mega_queue.clear()
         if self._grad_queue:
             per_doc: Dict[str, list] = {}
             for doc_id, msg in self._grad_queue:
@@ -1022,6 +1088,8 @@ class StringServingEngine(ServingEngineBase):
         for doc_id, row in self._doc_rows.items():
             min_seq[row] = self._min_seq.get(doc_id, 0)
         self.store.compact(min_seq)
+        if self.mega_store is not None and self._mega_rows:
+            self.mega_store.compact(self._mega_min_seq())
         for doc_id, store in self._graduated.items():
             store.compact(self._min_seq.get(doc_id, 0))
         super().compact()
@@ -1035,6 +1103,8 @@ class StringServingEngine(ServingEngineBase):
         that has none yet."""
         if doc_id in self._graduated:
             return self._graduated[doc_id], 0
+        if doc_id in self._mega_rows:
+            return self.mega_store, self._mega_rows[doc_id]
         return self.store, self.doc_row(doc_id)
 
     def read_text(self, doc_id: str) -> str:
@@ -1048,10 +1118,15 @@ class StringServingEngine(ServingEngineBase):
         return store.get_properties(row, pos)
 
     def overflowed_docs(self) -> List[str]:
-        """Flat-tier docs whose device capacity overflowed (ops dropped
-        until ``recover_overflowed`` rebuilds them)."""
+        """Flat-tier and mega docs whose device capacity overflowed (ops
+        dropped until ``recover_overflowed`` rebuilds them)."""
         flags = self.store.overflowed()
-        return [d for d, row in self._doc_rows.items() if flags[row]]
+        out = [d for d, row in self._doc_rows.items() if flags[row]]
+        if self.mega_store is not None and self._mega_rows:
+            mflags = self.mega_store.overflowed()
+            out += [d for d, row in self._mega_rows.items()
+                    if mflags[row].any()]
+        return out
 
     # ----------------------------------------------------- overflow recovery
 
@@ -1062,9 +1137,11 @@ class StringServingEngine(ServingEngineBase):
         log into a rebuild store at doubled capacity (the same apply path),
         compact it at the doc's window floor, then re-upload it into its
         row when it fits again, or graduate it to a store of its own. The
-        log holds every sequenced op, so no acked op is lost. A graduated
-        store that overflows is rebuilt at doubled capacity ("regrown").
-        Returns {doc_id: "reuploaded" | "graduated" | "regrown"}.
+        log holds every sequenced op, so no acked op is lost. A mega doc is
+        rebuilt the same way from its tier's capacity a shard, then dealt
+        back over its shards or graduated. A graduated store that
+        overflows is rebuilt at doubled capacity ("regrown"). Returns
+        {doc_id: "reuploaded" | "graduated" | "regrown"}.
 
         Rebuild stores sit on the engine's device. On the card a rebuild
         past what the kernel takes raises MemoryError, as does one past
@@ -1077,6 +1154,11 @@ class StringServingEngine(ServingEngineBase):
         flat = [d for d, r in self._doc_rows.items() if flags[r]]
         if flat:
             report.update(self._recover_flat_batch(flat, grow_limit))
+        if self.mega_store is not None and self._mega_rows:
+            mflags = self.mega_store.overflowed()
+            for doc_id in [d for d, r in self._mega_rows.items()
+                           if mflags[r].any()]:
+                report[doc_id] = self._recover_mega(doc_id, grow_limit)
         for doc_id, store in list(self._graduated.items()):
             if store.overflowed().any():
                 self._graduated[doc_id] = self._rebuild_doc(
@@ -1085,10 +1167,10 @@ class StringServingEngine(ServingEngineBase):
         return report
 
     def _check_rebuild_capacity(self, doc_id: str, cap: int,
-                                grow_limit: int,
-                                src: TensorStringStore) -> None:
-        """Refuse a rebuild of ``src``'s doc at capacity ``cap`` past
-        ``grow_limit``, or, on the card, past what the kernel takes."""
+                                grow_limit: int, src) -> None:
+        """Refuse a rebuild of ``src``'s doc (a flat, graduated or mega
+        store) at capacity ``cap`` past ``grow_limit``, or, on the card,
+        past what the string kernel takes."""
         if cap > grow_limit:
             raise MemoryError(
                 f"{doc_id}: rebuild exceeds grow limit {grow_limit}")
@@ -1124,13 +1206,13 @@ class StringServingEngine(ServingEngineBase):
             msgs.sort(key=lambda m: m.seq)
         return buckets
 
-    def _rebuild_doc(self, doc_id: str, src: TensorStringStore,
-                     grow_limit: int) -> TensorStringStore:
+    def _rebuild_doc(self, doc_id: str, src, grow_limit: int,
+                     capacity: Optional[int] = None) -> TensorStringStore:
         """Replay one doc's whole history into a fresh single-doc store,
-        from twice ``src``'s capacity, doubling until it fits, compacted
-        at the window floor."""
+        from twice ``capacity`` (``src``'s by default), doubling until it
+        fits, compacted at the window floor."""
         msgs = self._docs_log_messages([doc_id])[doc_id]
-        cap = max(src.capacity, 128)
+        cap = max(src.capacity if capacity is None else capacity, 128)
         while True:
             cap *= 2
             self._check_rebuild_capacity(doc_id, cap, grow_limit, src)
@@ -1207,6 +1289,26 @@ class StringServingEngine(ServingEngineBase):
         self.last_recovery = stats
         return report
 
+    def _recover_mega(self, doc_id: str, grow_limit: int) -> str:
+        """Rebuild an overflowed mega doc through a flat single-doc store
+        (doubling from the tier's capacity a shard), then deal it back over
+        its shards, or graduate it when it outgrew them all. A graduated
+        doc's mega row is emptied (an empty rebuild adopted) and freed."""
+        mega = self.mega_store
+        row = self._mega_rows[doc_id]
+        tmp = self._rebuild_doc(doc_id, mega, grow_limit,
+                                capacity=mega.capacity_per_shard)
+        fits = mega.capacity_per_shard * mega.n_shards
+        if int(tmp.state.count[0]) <= fits:
+            self.mega_store = mega.adopt_doc(row, tmp)
+            return "reuploaded"
+        self._graduated[doc_id] = tmp
+        self.mega_store = mega.adopt_doc(
+            row, TensorStringStore(1, 128, mega.n_props, mega.device))
+        del self._mega_rows[doc_id]
+        self._free_mega_rows.append(row)
+        return "graduated"
+
     def _release_flat_row(self, doc_id: str) -> None:
         """Return a graduated doc's row to the allocator and forget its
         doc id and native handle, so a reused row cannot hit them."""
@@ -1245,9 +1347,11 @@ class StringServingEngine(ServingEngineBase):
             summary["store"] = self.store.snapshot()
             self._chain_depth = 0
             cur_seqs = {d: self.deli.doc_seq(d) for d in self._doc_rows}
-        # graduated stores are single-doc: they ride in full every time
-        summary["mega_store"] = None
-        summary["mega_rows"] = {}
+        # the mega and graduated stores hold few docs: they ride in full
+        # every time
+        summary["mega_store"] = self.mega_store.snapshot() \
+            if self.mega_store is not None else None
+        summary["mega_rows"] = dict(self._mega_rows)
         summary["graduated"] = {d: s.snapshot()
                                 for d, s in self._graduated.items()}
         self._note_summary(summary, cur_seqs,
@@ -1260,28 +1364,48 @@ class StringServingEngine(ServingEngineBase):
              **kwargs) -> "StringServingEngine":
         """Resume from a summary (this package's or the JAX engine's, full
         or incremental) and the log: restore the flat store (the newest
-        full summary, then each delta's rows), the graduated stores, the
-        sequencer and the dedup state, then replay the log tail through
-        the same apply path. Every store is built on ``device``. A summary
-        holding intervals, a mega store or attribution is refused."""
+        full summary, then each delta's rows), the mega and graduated
+        stores, the sequencer and the dedup state, then replay the log
+        tail through the same apply path (a ``markMega`` record in the
+        tail routes its doc to the mega tier again). Every store is built
+        on ``device``. A summary holding intervals or attribution is
+        refused."""
         full, deltas = cls.resolve_summary_chain(summary)
         for s in [full] + deltas:
-            if s.get("mega_store") is not None or s.get("mega_rows"):
-                raise ValueError("summary holds a mega tier, which is not "
-                                 "ported")
             if s.get("attribution") is not None:
                 raise ValueError("summary holds attribution, which is not "
                                  "ported")
         store = TensorStringStore.from_jax_snapshot(full["store"], device)
         for delta in deltas:
             store.apply_row_snapshot(delta["store_delta"])
+        mega = None
+        if summary.get("mega_store") is not None:
+            mega = MegaDocStringStore.restore(summary["mega_store"], device)
+        elif summary.get("mega_rows"):
+            raise ValueError("summary routes docs to a mega tier but holds "
+                             "no mega store")
         engine = cls(store.n_docs, store.capacity, store.n_props, log=log,
-                     store=store, **kwargs)
+                     store=store, mega_store=mega, **kwargs)
         engine._restore_base(summary)
+        engine._mega_rows = dict(summary.get("mega_rows") or {})
+        used = set(engine._mega_rows.values())
+        engine._free_mega_rows = [r for r in range(max(used, default=-1))
+                                  if r not in used]
         engine._graduated = {
             d: TensorStringStore.from_jax_snapshot(s, device)
             for d, s in summary.get("graduated", {}).items()}
-        engine._replay_tail(summary)
+
+        def mark_mega_hook(msg):
+            if msg.type == MessageType.PROPOSAL and \
+                    isinstance(msg.contents, dict) and \
+                    msg.contents.get("markMega"):
+                if msg.doc_id not in engine._mega_rows:
+                    engine._register_mega(msg.doc_id)  # not logged again
+                return True
+            return False
+
+        engine._replay_tail(summary, control_hook=mark_mega_hook)
+        engine._mega_queue.sort(key=lambda dm: dm[1].seq)
         engine._grad_queue.sort(key=lambda dm: dm[1].seq)
         engine.flush()
         return engine

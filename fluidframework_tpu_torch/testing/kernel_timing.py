@@ -30,14 +30,21 @@ shapes: dense at D = 1,024 (the kernel loop's batches) and at D = 10,240
 O = 64). ``--kernel tree_expand`` times K6 through
 ``expand_tree_wire_fused`` (what a caller pays, including any memset the
 checkout's entry point makes) on the serving engine's last record wave, as
-shipped (u16 ids and values) and widened to u32. Either adds a ``launch_floor`` row: a
+shipped (u16 ids and values) and widened to u32. ``--kernel
+megadoc_apply`` times K7 on the widest launch of ``chip_smoke.py``'s
+megadoc kernel loop (64 mega docs × 8 shards × 4,096 slots, K = 4, O =
+512): K7 grows the docs window by window of ``synthetic.megadoc_storm``,
+rebalancing whenever a shard passes 75 %, until every doc holds more than
+16,384 active slots; the last of those windows is timed, with its bound
+(the state planes in and out once and the op planes, at 3.35 TB/s).
+``map_apply`` or ``tree_expand`` add a ``launch_floor`` row: a
 one-element ``x.add_(1)`` timed the same way, a yardstick for a kernel
 bound by its launch that the port never calls.
 
 Each row holds the kernel's result against the plain PyTorch version on
 the same input (``max_abs_err``: full planes, or ``[0, count)`` plus the
 digest after a compaction; K3 / K4: every plane and both outputs) and
-times the kernel with CUDA events: K1-K6 as ``ms`` (20 calls back to
+times the kernel with CUDA events: K1-K7 as ``ms`` (20 calls back to
 back in one CUDA graph, K1 and K6 50, each restoring its input state
 first, minus the same graph of the restores alone; K1 writes the same
 state again on every call, and K4 and K6 mutate nothing, so none of the
@@ -48,7 +55,8 @@ Usage (one card)::
 
     python3 fluidframework_tpu_torch/testing/kernel_timing.py \\
         [--kernel string_apply|cell_merge|tree_apply|axis_apply|
-                  axis_resolve|map_apply|tree_expand[,...]] [--root DIR] \\
+                  axis_resolve|map_apply|tree_expand|megadoc_apply[,...]]
+        [--root DIR] \\
         [--profile] \\
         [--tree-inputs FILE] [--axis-inputs FILE]
 
@@ -77,7 +85,13 @@ TREE_DOCS, TREE_N, TREE_WAVES = 8192, 128, 7     # profile_tree.py
 MAP_D, MAP_K, MAP_O, MAP_WIDE_D = 1024, 64, 64, 10_240   # config #2, #4
 AXIS_KERNELS = ("axis_apply", "axis_resolve")
 KERNELS = ("string_apply", "cell_merge", "tree_apply") + AXIS_KERNELS + (
-    "map_apply", "tree_expand")
+    "map_apply", "tree_expand", "megadoc_apply")
+# chip_smoke.py's megadoc phase: mega docs × shards × slots a shard, property
+# planes, ops a window; the active slots every doc passes before its
+# compaction, the windows of the corpus, the shard fill that rebalances
+MEGA_D, MEGA_N, MEGA_S, MEGA_K, MEGA_O = 64, 8, 4096, 4, 512
+MEGA_TARGET, MEGA_WINDOWS, MEGA_REBALANCE = 16_384, 28, 0.75
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 AXIS_RESOLVE = 13                                # OpKind.AXIS_RESOLVE
 
 
@@ -625,6 +639,75 @@ def measure_axis(mt, ak, path, kernels=AXIS_KERNELS, device="cuda",
     return rows
 
 
+def megadoc_windows(synthetic, D=MEGA_D, O=MEGA_O, windows=MEGA_WINDOWS,
+                    seed=0):
+    """The megadoc phase's op windows: (D, O) int32 numpy planes by field
+    name, in order (columns of one ``megadoc_storm``)."""
+    planes = synthetic.megadoc_storm(D, O * windows, seed)
+    return [{k: np.ascontiguousarray(v[:, w * O:(w + 1) * O])
+             for k, v in planes.items()} for w in range(windows)]
+
+
+def megadoc_rebalance(mgk, state, S=MEGA_S):
+    """The phase's preemptive rebalance: once a shard passes
+    ``MEGA_REBALANCE`` of S (and nothing overflowed)."""
+    if int(state.count.max()) > MEGA_REBALANCE * S and \
+            not bool(state.overflow.any()):
+        return mgk.rebalance_megadoc(state)
+    return state
+
+
+def megadoc_bound(D, n, S, O, K):
+    """(ms, bytes): the least time for one launch, bound by bytes: the
+    state planes (7 + K a slot) and count / overflow in and out once, the
+    op planes in once, at the card's memory rate."""
+    nbytes = 2 * (7 + K) * 4 * D * n * S + 2 * 2 * 4 * D * n + 7 * 4 * D * O
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def megadoc_inputs(mt, mgk, synthetic, device="cuda"):
+    """(state, op tensors) of the megadoc kernel loop's widest launch: K7
+    grows the docs window by window until every doc holds more than
+    ``MEGA_TARGET`` active slots; the input of the last of those
+    windows."""
+    st = mgk.create_megadoc_state(MEGA_D, MEGA_S, MEGA_N, MEGA_K, device)
+    for planes in megadoc_windows(synthetic):
+        st = megadoc_rebalance(mgk, st)
+        ops = tuple(torch.from_numpy(planes[k]).to(device)
+                    for k in mt.OP_FIELDS)
+        before = _clone(mt, st)
+        mgk.apply_megadoc_batch(st, *ops)
+        if int(st.count.sum(dim=1).min()) > MEGA_TARGET:
+            return before, ops
+    raise AssertionError("the megadoc corpus ran out before every doc held "
+                         f"{MEGA_TARGET} active slots")
+
+
+def measure_megadoc(mt, mgk, synthetic, device="cuda", profile=False):
+    """K7's row on the widest launch of the megadoc kernel loop."""
+    state0, ops = megadoc_inputs(mt, mgk, synthetic, device)
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = mgk.apply_megadoc_plain(state0, *ops)
+    z.record()
+    work = _clone(mt, state0)
+    t = time_in_place(lambda s: s.fields(), state0, work,
+                      lambda w: mgk.apply_megadoc_batch(w, *ops), profile)
+    err = max(int((getattr(work, k).long() - getattr(want, k).long())
+                  .abs().max()) for k in mt.FIELDS)
+    D, n = state0.count.shape
+    S = state0.seq.shape[1] // n
+    K = state0.prop_val.shape[2]
+    O = ops[0].shape[1]
+    bound_ms, nbytes = megadoc_bound(D, n, S, O, K)
+    return [{"kernel": "megadoc_apply", "spec": "widest", "D": D, "n": n,
+             "S": S, "O": O, "K": K,
+             "active_slots_min": int(state0.count.sum(dim=1).min()), **t,
+             "plain_ms": a.elapsed_time(z), "bound_ms": bound_ms,
+             "bound_by": "bytes", "bytes": nbytes, "max_abs_err": err}]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -640,7 +723,7 @@ def main(argv=None) -> int:
                          "saved in this file (chip_smoke.py --parent "
                          "writes it)")
     ap.add_argument("--profile", action="store_true",
-                    help="K1 - K6 rows: add each launched kernel's device "
+                    help="K1 - K7 rows: add each launched kernel's device "
                          "ms (torch.profiler)")
     args = ap.parse_args(argv)
     kernels = args.kernel.split(",")
@@ -689,6 +772,9 @@ def main(argv=None) -> int:
     if axis:
         rows += measure_axis(mt, ak, args.axis_inputs, axis,
                              profile=args.profile)
+    if "megadoc_apply" in kernels:
+        from fluidframework_tpu_torch.ops import megadoc_kernel as mgk
+        rows += measure_megadoc(mt, mgk, synthetic, profile=args.profile)
     if {"map_apply", "tree_expand"} & set(kernels):
         rows.append(launch_floor(args.profile))
     bad = 0

@@ -144,6 +144,18 @@ def conflict_storm(n_docs: int, n_ops: int, seed: int = 0,
     return planes, int(start_seq + D * O)
 
 
+def megadoc_storm(n_docs: int, n_ops: int, seed: int = 0) -> dict:
+    """Dense (D, n_ops) op planes for long (mega) documents: the first
+    half of the docs take a ``typing_storm`` (one writer, caught up), the
+    rest a ``conflict_storm`` (4 clients, lagging perspectives,
+    annotates). Seqs rise along each doc's row; a window of columns
+    continues the docs the earlier windows built."""
+    h = n_docs // 2
+    a, _ = typing_storm(h, n_ops, seed=seed)
+    b, _ = conflict_storm(n_docs - h, n_ops, seed=seed + 1)
+    return {k: np.concatenate([a[k], b[k]]) for k in a}
+
+
 def edge_storm(n_docs: int, n_ops: int, seed: int = 0,
                start_seq: int = 1) -> Tuple[dict, int]:
     """conflict_storm with client indexes drawn from {-1, 0, 30, 31} (bit

@@ -2003,3 +2003,213 @@ def test_tree_engine_on_card_matches_cpu(cuda):
                                     sequencer="native")
         for d in docs:
             assert ld.to_dict(d) == card.to_dict(d), d
+
+
+# ------------------------------------------------------------ the mega tier
+# K7 (``csrc/megadoc_apply.cu``): one thread-block cluster a document, one
+# CTA a shard. Shapes cross the slots-per-thread tiers (S <= 512, then 2, 4,
+# 8 and 16 slots a thread), shard counts 1, 3 and 8, docs whose slots sit on
+# every shard (rebalanced) or on the last one, and shards at the overflow
+# edge.
+
+def _mega_chain(dev, D, n, S, K, gen, batches, O, rebalance, seed=0):
+    """K7 and the plain version over chained batches from the same input
+    state; every launch equal in every plane (slots past count too)."""
+    from fluidframework_tpu_torch.ops import megadoc_apply as ma
+    from fluidframework_tpu_torch.ops import megadoc_kernel as mgk
+    st = mgk.create_megadoc_state(D, S, n, K, device=dev)
+    seq = 1
+    for b in range(batches):
+        planes, seq2 = gen(D, O, seed=seed * 10 + b, start_seq=seq)
+        ops = _ops(planes, dev)
+        ref = mgk.apply_megadoc_plain(st, *ops)
+        before = ma.launches
+        mgk.apply_megadoc_batch(st, *ops)
+        assert ma.launches == before + 1
+        torch.cuda.synchronize()
+        for k in mt.FIELDS:
+            assert torch.equal(getattr(st, k), getattr(ref, k)), (b, k)
+        if b % 2:
+            st = mgk.compact_megadoc(st, torch.full(
+                (D,), seq, dtype=torch.int32, device=dev))
+        if rebalance and not bool(st.overflow.any()):
+            st = mgk.rebalance_megadoc(st)
+        seq = seq2
+    return st
+
+
+@pytest.mark.parametrize("n,S,O,K,corpus", [
+    (8, 64, 64, 4, "typing"), (8, 16, 24, 4, "conflict"),
+    (3, 128, 64, 2, "conflict"), (1, 600, 128, 4, "conflict"),
+    (2, 2000, 256, 4, "typing"), (8, 4096, 128, 4, "conflict"),
+    (2, 5000, 128, 0, "typing"), (8, 4, 64, 4, "typing"),
+    (16, 256, 64, 4, "conflict")])
+@pytest.mark.parametrize("rebalance", [False, True])
+def test_megadoc_kernel_matches_plain(cuda, n, S, O, K, corpus, rebalance):
+    from fluidframework_tpu_torch.ops import megadoc_apply as ma
+    if n > ma.max_shards(S, K):
+        pytest.skip(f"this card places no cluster of {n} CTAs at S={S}")
+    gen = typing_storm if corpus == "typing" else conflict_storm
+    st = _mega_chain(cuda, 3, n, S, K, gen, 4, O, rebalance)
+    if S == 4:
+        assert bool(st.overflow.any())
+
+
+def test_megadoc_kernel_boundary_insert(cuda):
+    """A later-sequenced insert at a shard boundary lands LEFT of an
+    earlier concurrent insert held by the earlier shard, whose
+    perspective-visible length is zero."""
+    from fluidframework_tpu_torch.ops import megadoc_kernel as mgk
+    I, R = int(OpKind.STR_INSERT), int(OpKind.STR_REMOVE)
+    recs = [(I, 0, 2, 10, 1, 0, 0), (R, 0, 2, 0, 2, 1, 1),
+            (I, 0, 3, 11, 3, 2, 1), (I, 0, 4, 12, 4, 3, 2)]
+    planes = np.zeros((7, 1, 4), np.int32)
+    for j, r in enumerate(recs):
+        planes[:, 0, j] = r
+    ops = torch.from_numpy(planes).to(cuda)
+    st = mgk.create_megadoc_state(1, 8, device=cuda)
+    mgk.apply_megadoc_batch(st, *(p[:, :1].contiguous() for p in ops))
+    st = mgk.rebalance_megadoc(st)
+    assert int(st.count[0, 0]) == 1
+    tail = [p[:, 1:].contiguous() for p in ops]
+    ref = mgk.apply_megadoc_plain(st, *tail)
+    mgk.apply_megadoc_batch(st, *tail)
+    for k in mt.FIELDS:
+        assert torch.equal(getattr(st, k), getattr(ref, k)), k
+    assert [r[0] for r in mgk.visible_runs(st)[0]] == [12, 11]
+
+
+def test_megadoc_kernel_captured_in_a_cuda_graph(cuda):
+    """A K7 launch captured in a CUDA graph and replayed on its restored
+    input state: equal to the plain version."""
+    from fluidframework_tpu_torch.ops import megadoc_kernel as mgk
+    st0 = _mega_chain(cuda, 4, 8, 256, 4, conflict_storm, 2, 64, True)
+    planes, _ = conflict_storm(4, 64, seed=7, start_seq=10 ** 5)
+    ops = _ops(planes, cuda)
+    ref = mgk.apply_megadoc_plain(st0, *ops)
+    st = _clone(st0)
+    mgk.apply_megadoc_batch(st, *ops)   # warm-up
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        mgk.apply_megadoc_batch(st, *ops)
+    for _ in range(2):
+        for k, v in st.fields().items():
+            v.copy_(getattr(st0, k))
+        g.replay()
+        torch.cuda.synchronize()
+        for k in mt.FIELDS:
+            assert torch.equal(getattr(st, k), getattr(ref, k)), k
+
+
+def test_megadoc_layout_refused_at_construction(cuda):
+    """A capacity a shard or a shard count that K7 does not take is
+    refused when the store, a restore or the engine is built; a mega
+    rebuild past the string kernel's capacity raises MemoryError."""
+    from fluidframework_tpu_torch.ops import megadoc_apply as ma
+    from fluidframework_tpu_torch.ops.megadoc_store import (
+        MegaDocStringStore,
+    )
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    S = ma.max_slots_per_shard(4)
+    assert 4096 <= S < 8192
+    assert ma.max_shards(4096, 4) >= 8
+    assert ma.active_clusters(8, 4096, 4) >= 1
+    with pytest.raises(ValueError, match=str(S)):
+        MegaDocStringStore(2, S + 1, device=cuda)
+    with pytest.raises(ValueError, match="shards"):
+        MegaDocStringStore(2, 64, n_shards=ma.max_shards(64, 4) + 1,
+                           device=cuda)
+    with pytest.raises(ValueError, match=str(S)):
+        StringServingEngine(n_docs=2, capacity=64, mega_docs=1,
+                            mega_capacity_per_shard=S + 1, device=cuda)
+    snap = MegaDocStringStore(1, S + 1, device="cpu").snapshot()
+    with pytest.raises(ValueError, match=str(S)):
+        MegaDocStringStore.restore(snap, device=cuda)
+    # one shard of 4,096 slots overflows; its rebuild outgrows the string
+    # kernel (kMaxS = 8,192) before it fits
+    mega = MegaDocStringStore(1, 4096, n_shards=1, device=cuda)
+    eng = StringServingEngine(n_docs=1, capacity=64, batch_window=10 ** 9,
+                              compact_every=10 ** 9, mega_store=mega,
+                              device=cuda)
+    eng.auto_recover = False
+    eng.mark_mega("big")
+    eng.connect("big", 1)
+    for i in range(8200):
+        eng.submit("big", 1, i + 1, i + 1, {"mt": "insert", "kind": 0,
+                                            "pos": 0, "text": "x"})
+    eng.flush()
+    assert eng.overflowed_docs() == ["big"]
+    with pytest.raises(MemoryError, match="string_apply"):
+        eng.recover_overflowed()
+
+
+def test_mega_engine_on_card_matches_cpu(cuda):
+    """Per-op submits from 3 clients a doc with lagging refs (inserts,
+    removes, annotates) into the mega tier, compaction, recovery of an
+    overflowed doc, a summary with a markMega in the tail loaded on the
+    card: the card engine reads what the CPU engine reads."""
+    from fluidframework_tpu_torch.ops import megadoc_apply as ma
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    engines = [StringServingEngine(n_docs=2, capacity=64, batch_window=32,
+                                   compact_every=4, mega_docs=3,
+                                   mega_capacity_per_shard=32, device=d)
+               for d in (cuda, "cpu")]
+    rng = np.random.default_rng(0)
+    docs = ["m0", "m1", "flat"]
+    length = {d: 0 for d in docs}
+    refs = {}
+    plan = []
+    for i in range(600):
+        d = docs[int(rng.integers(0, 3))]
+        c = int(rng.integers(1, 4))
+        r = rng.random()
+        if length[d] < 4 or r < 0.6:
+            op = {"mt": "insert", "kind": 0,
+                  "pos": int(rng.integers(0, max(length[d] - 8, 0) + 1)),
+                  "text": "ab"}
+            length[d] += 2
+        elif r < 0.8:
+            s = int(rng.integers(0, length[d] - 3))
+            op = {"mt": "remove", "start": s, "end": s + 2}
+            length[d] -= 2
+        else:
+            s = int(rng.integers(0, length[d] - 3))
+            op = {"mt": "annotate", "start": s, "end": s + 3,
+                  "props": {"k": int(rng.integers(0, 3))}}
+        plan.append((d, c, op, int(rng.integers(0, 6))))
+    before = ma.launches
+    summaries = []
+    for eng in engines:
+        eng.mark_mega("m0")
+        for d in docs:
+            for c in (1, 2, 3):
+                eng.connect(d, c)
+        cs = {}
+        for i, (d, c, op, lag) in enumerate(plan):
+            if i == 300:
+                summaries.append(eng.summarize())
+                eng.mark_mega("m1")  # a markMega in the log tail
+            key = (d, c)
+            cs[key] = cs.get(key, 0) + 1
+            ref = max(refs.get((id(eng),) + key, 0),
+                      eng.deli.doc_seq(d) - lag)
+            refs[(id(eng),) + key] = ref
+            _, nack = eng.submit(d, c, cs[key], ref, op)
+            assert nack is None
+        eng.flush()
+    assert ma.launches > before
+    card, cpu = engines
+    assert card.recover_overflowed() == cpu.recover_overflowed()
+    for d in docs:
+        text = cpu.read_text(d)
+        assert card.read_text(d) == text, d
+        for pos in range(len(text)):
+            assert card.get_properties(d, pos) == cpu.get_properties(d, pos)
+    for k in mt.FIELDS:
+        assert torch.equal(getattr(card.mega_store.state, k).cpu(),
+                           getattr(cpu.mega_store.state, k)), k
+    loaded = StringServingEngine.load(summaries[0], card.log, device=cuda)
+    assert loaded._mega_rows == card._mega_rows
+    for d in docs:
+        assert loaded.read_text(d) == card.read_text(d), d

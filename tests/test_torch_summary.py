@@ -266,8 +266,7 @@ def test_load_refuses_what_is_not_ported():
     t.connect("d0", 1)
     Feed((t,)).op("d0", _ins(0, "a"))
     base = t.summarize()
-    bad = [dict(base, mega_store={"planes": {}}),
-           dict(base, mega_rows={"m": 0}),
+    bad = [dict(base, mega_rows={"m": 0}),
            dict(base, attribution={"d0": {}}),
            dict(base, store=dict(base["store"],
                                  intervals=[{"i": [None, None, {}]}]
