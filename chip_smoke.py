@@ -117,20 +117,29 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    fed per-op submits from 4 clients a doc (lagging refs, inserts, removes,
    annotates) until every doc passes 8,192 active slots, its texts and
    sampled properties equal a ``device="cpu"`` twin fed the same stream
-   for 2 docs, ops/s; (c) its summary loaded on the card, a small engine's
-   summary with a ``markMega`` in the log tail loaded, and a mega overflow
-   that re-uploads and one that graduates. The line reports each part's
-   seconds, K7's launches by path, ``cudaOccupancyMaxActiveClusters`` and
-   its ptxas registers and spills.
+   for 2 docs, ops/s, and the same plan replayed on a second card engine
+   with every K7 launch against the plain version; (c) its summary loaded
+   on the card, a small engine's summary with a ``markMega`` in the log
+   tail loaded, a mega overflow that re-uploads and one that graduates
+   (every K7 launch against the plain version), and a mega doc at the engine's
+   shape (``mega_capacity_per_shard=4096``, compaction off) whose history
+   of tombstone churn passes 8 × 4,096 slots while its live text stays
+   inside the tier: recovered through K7 (a one-doc mega rebuild on a
+   wider layout) as ``reuploaded``, its text equal to the shadow text and
+   to a ``device="cpu"`` twin's. The line reports each part's seconds,
+   K7's launches by path, ``cudaOccupancyMaxActiveClusters``, the cluster
+   waves and per-op time of each timed launch and its ptxas registers and
+   spills.
 
 With ``--parent DIR`` (another checkout, e.g. an archive of the parent
-commit) a last phase, parent_timing, times K1-K6 of DIR and of this
+commit) a last phase, parent_timing, times K1-K7 of DIR and of this
 checkout in turns (parent, change, change, parent) with
 ``testing/kernel_timing.py`` at the shapes it defines (and the launch
-floor beside K1 / K6) and at the widest launches the tree and
-matrix_engine phases saved, and the ``map_apply``, ``cell_merge``,
-``axis_apply``, ``axis_resolve``, ``tree_apply`` and ``tree_expand`` rows
-get ``parent_ms`` (null without it). The ``axis_apply`` and
+floor beside K1 / K6) and at the widest launches the tree,
+matrix_engine and megadoc phases saved, and the ``map_apply``,
+``cell_merge``, ``axis_apply``, ``axis_resolve``, ``tree_apply``,
+``tree_expand`` and ``megadoc_apply`` rows get ``parent_ms`` (null
+without it). The ``axis_apply`` and
 ``axis_resolve`` entries also carry their ptxas report (registers,
 spills) and the eager ``call_ms`` beside the graph ``ms``.
 
@@ -142,7 +151,8 @@ on its own paths, every count set to 0 just before a path and read just
 after: config #4 serving; config #2's kernel loop and its serving route;
 config #3's kernel loop, the store route and the matrix engine's paths;
 the tree phase's kernel loop, serving, flat serving, per-op, recovery and
-load paths; the megadoc phase's kernel loop and engine), and as the last
+load paths; the megadoc phase's kernel loop and engine, and its summary /
+recovery path beside them), and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase raises, so
 the exit code is non-zero. Without a card it exits 2 and prints no result.
 
@@ -157,6 +167,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 D = 10_240          # documents (config #4)
@@ -1560,7 +1571,7 @@ def matrix_engine_phase(smi, dev, docs_a=MX_DOCS, grid_a=MX_DOC_GRID,
                      for (kind, tag), x in widest.items()}
             saved["axis_apply", "card test: S = 8,192 deep rows"] = \
                 _deep_axis_rows(dev)
-            kernel_timing.save_axis_inputs(keep_inputs, saved)
+            kernel_timing.save_inputs(keep_inputs, saved)
         del widest
         for kind in ("apply", "resolve"):
             err[kind] = max([err[kind]] + [r["max_abs_err"]
@@ -2253,6 +2264,8 @@ MEGA_ENGINE_DOCS, MEGA_CLIENTS = 16, 4   # (b): mega docs, clients a doc
 MEGA_ENGINE_TARGET = 8192                # (b): active slots each doc passes
 MEGA_TWIN_DOCS = 2                       # (b): docs the CPU twin is fed
 MEGA_ENGINE_MAX_OPS = 12_000             # (b): ops a doc at most
+MEGA_HISTORY_OPS = 20_500                # (c): ops of the history
+MEGA_HISTORY_LIVE = 2_000                # (c): chars its text keeps
 MEGA_PROP_SAMPLES = 512                  # (b): get_properties probes a doc
 MEGA_FLOOR_LAG = 16                      # (a): compaction floor, ops back
 
@@ -2324,7 +2337,29 @@ class MegaOpStream:
         self._grow(doc, seq, *self._pending)
 
 
-def megadoc_phase(smi, dev, ptxas):
+def megadoc_history(n_ops, seed, live=MEGA_HISTORY_LIVE, word=16):
+    """(ops, text): one client's caught-up edits of a doc that keep its
+    text near ``live`` chars while its history grows: inserts of ``word``
+    chars and removes of ``word`` chars at random positions, most of them
+    cutting a segment (two slots an op), and the text they leave."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    text, ops = "", []
+    for _ in range(n_ops):
+        if len(text) < live or rng.random() < 0.5:
+            pos = int(rng.integers(0, len(text) + 1))
+            w = "".join("abcdefghij"[int(c)]
+                        for c in rng.integers(0, 10, word))
+            ops.append({"mt": "insert", "kind": 0, "pos": pos, "text": w})
+            text = text[:pos] + w + text[pos:]
+        else:
+            at = int(rng.integers(0, len(text) - word))
+            ops.append({"mt": "remove", "start": at, "end": at + word})
+            text = text[:at] + text[at + word:]
+    return ops, text
+
+
+def megadoc_phase(smi, dev, ptxas, keep_inputs=None):
     """Phase 10: the mega tier (long documents split into 8 shards, one
     thread-block cluster of K7 a doc). (a) 64 mega docs × 8 shards × 4,096
     slots, K = 4, grown by windows of 512 ops of ``megadoc_storm`` (typing
@@ -2337,10 +2372,17 @@ def megadoc_phase(smi, dev, ptxas):
     per-op submits from 4 clients a doc (lagging refs; inserts, removes,
     annotates) until every doc passes 8,192 active slots; flush, compact,
     texts and sampled properties equal a ``device="cpu"`` twin fed the same
-    stream for 2 of the docs; ops/s. (c) the engine's summary loaded on the
+    stream for 2 of the docs; ops/s; the same plan replayed on a second
+    card engine with every K7 launch held against the plain version on its
+    input (all planes). (c) the engine's summary loaded on the
     card; a small engine's summary with a ``markMega`` in its tail loaded;
     a mega overflow that re-uploads and one that graduates
-    (``tests/test_overflow_recovery.py``'s shapes). Returns the
+    (``tests/test_overflow_recovery.py``'s shapes); a mega doc at (b)'s
+    shape whose history passes the tier while its text stays inside it,
+    recovered through K7 as ``reuploaded``, equal to its shadow text and a
+    CPU twin's; every K7 launch of (c) held against the plain version.
+    ``keep_inputs`` (a path) saves the widest kernel-loop and
+    engine launches for ``kernel_timing.py --megadoc-inputs``. Returns the
     ``megadoc_apply`` kernels-line entry."""
     import numpy as np
     import torch
@@ -2434,6 +2476,7 @@ def megadoc_phase(smi, dev, ptxas):
               "spec": "widest kernel-loop launch", **t,
               "plain_ms": a.elapsed_time(z), "bound_ms": bound_ms,
               "bound_by": "bytes", "bytes": nbytes}
+    keep_loop = widest
     del before, ops, work, want, widest
     torch.cuda.empty_cache()
     seconds["kernel_loop"] = time.perf_counter() - t0
@@ -2452,6 +2495,8 @@ def megadoc_phase(smi, dev, ptxas):
     stream = MegaOpStream(docs, MEGA_CLIENTS, seed=11)
     plan = []
     kept = {}   # the input of the engine's last widest K7 launch
+    checked = {"launches": 0, "err": 0}   # K7 launches of (b) and (c)
+    recorded = []
     launch = ma.launch
 
     def keep_widest(state, *ops):
@@ -2459,6 +2504,46 @@ def megadoc_phase(smi, dev, ptxas):
             kept.update(O=ops[0].shape[1], state=clone(state),
                         ops=tuple(o.clone() for o in ops))
         launch(state, *ops)
+
+    def recording_launch(state, *ops):
+        # a K7 launch keeps its input and output (device copies), held
+        # against the plain version outside the timed parts
+        before = clone(state)
+        launch(state, *ops)
+        recorded.append((before, tuple(o.clone() for o in ops),
+                         clone(state)))
+
+    def check_recorded(docs_a_call=512):
+        # the plain version is vectorised over docs, and each launch is
+        # held against it on its own input: launches of one layout run as
+        # the docs of one plain call, their op columns padded with NOOPs
+        by_layout = {}
+        for rec in recorded:
+            by_layout.setdefault(tuple(rec[0].prop_val.shape) +
+                                 tuple(rec[0].count.shape), []).append(rec)
+        for recs in by_layout.values():
+            per_call = max(1, docs_a_call // recs[0][0].count.shape[0])
+            for i in range(0, len(recs), per_call):
+                part = recs[i:i + per_call]
+                width = max(r[1][0].shape[1] for r in part)
+                cat = lambda j: mt.StringState(**{
+                    k: torch.cat([getattr(r[j], k) for r in part])
+                    for k in mt.FIELDS})
+                ops = [torch.cat([torch.nn.functional.pad(
+                    r[1][f], (0, width - r[1][f].shape[1]),
+                    value=NOOP if f == 0 else 0) for r in part])
+                    for f in range(7)]
+                want = mgk.apply_megadoc_plain(cat(0), *ops)
+                got = cat(2)
+                checked["err"] = max([checked["err"]] + [
+                    diff(getattr(got, k), getattr(want, k))
+                    for k in mt.FIELDS])
+                checked["launches"] += len(part)
+        recorded.clear()
+        if checked["err"]:
+            raise AssertionError("megadoc: a K7 launch of the engine or "
+                                 "recovery paths differs from the plain "
+                                 "version")
 
     ma.launch = keep_widest
     ma.launches = 0   # the engine path starts here
@@ -2491,7 +2576,31 @@ def megadoc_phase(smi, dev, ptxas):
     torch.cuda.synchronize()
     launches["engine"] = ma.launches   # the engine path ends here
     engine_s = time.perf_counter() - t0
+    # the same plan again on a second card engine, every K7 launch kept
+    # and held against the plain version (the timed run above copies
+    # nothing but its widest input)
+    t1 = time.perf_counter()
+    ma.launch = recording_launch
+    replay = engine(dev, MEGA_ENGINE_DOCS, 1024)
+    for d in docs:
+        replay.mark_mega(d)
+        for c in range(1, MEGA_CLIENTS + 1):
+            replay.connect(d, c)
+    for i, (d, c, cs, ref, op) in enumerate(plan):
+        if replay.submit(d, c, cs, ref, op)[1] is not None:
+            raise AssertionError(f"megadoc replay: {d} nacked")
+        if (i + 1) % (256 * MEGA_ENGINE_DOCS) == 0:
+            replay.flush()
+            replay.compact()
+    replay.flush()
+    replay.compact()
     ma.launch = launch
+    if [replay.read_text(d) for d in docs] != \
+            [card.read_text(d) for d in docs]:
+        raise AssertionError("megadoc replay: texts differ from the engine")
+    del replay
+    check_recorded()
+    seconds["engine_replay_plain_checks"] = time.perf_counter() - t1
     if launches["engine"] <= 0:
         raise AssertionError("megadoc engine never launched K7")
     if card.overflowed_docs():
@@ -2542,6 +2651,7 @@ def megadoc_phase(smi, dev, ptxas):
                      "plain_ms": a.elapsed_time(z), "bound_ms": bound_ms,
                      "bound_by": "bytes", "bytes": nbytes,
                      "active_slots_min": int(before.count.sum(dim=1).min())}
+    kept_state, kept_ops = kept.pop("state"), kept.pop("ops")
     del before, ops, work, want, kept
     serve = {"docs": MEGA_ENGINE_DOCS, "clients_a_doc": MEGA_CLIENTS,
              "ops": n_ops, "ops_a_doc": per_doc, "engine_s": engine_s,
@@ -2552,6 +2662,7 @@ def megadoc_phase(smi, dev, ptxas):
 
     # -------------------------------------- (c) summaries and recovery
     t0 = time.perf_counter()
+    ma.launch = recording_launch
     ma.launches = 0   # the summary / recovery path starts here
     loaded = StringServingEngine.load(card.summarize(), card.log,
                                       device=dev)
@@ -2620,7 +2731,82 @@ def megadoc_phase(smi, dev, ptxas):
     launches["summary_recovery"] = ma.launches   # the path ends here
     seconds["summary_recovery"] = time.perf_counter() - t0
 
+    # the engine's shape: a history past the tier's 8 × 4,096 slots with
+    # live text inside it, recovered through K7 on a wider layout; the CPU
+    # twin runs in a thread beside the card's
+    t0 = time.perf_counter()
+    hist_ops, shadow = megadoc_history(MEGA_HISTORY_OPS, seed=21)
+    big = {}
+
+    def history(device):
+        e = StringServingEngine(n_docs=1, capacity=64, batch_window=1024,
+                                compact_every=10 ** 9, mega_docs=1,
+                                mega_capacity_per_shard=S, device=device)
+        e.auto_recover = False
+        e.mark_mega("big")
+        e.connect("big", 1)
+        for cs, op in enumerate(hist_ops, 1):
+            if e.submit("big", 1, cs, e.deli.doc_seq("big"), op)[1]:
+                raise AssertionError(f"megadoc history: op {cs} nacked")
+        e.flush()
+        if e.overflowed_docs() != ["big"]:
+            raise AssertionError("megadoc history: the mega doc did not "
+                                 "overflow the tier")
+        if device != "cpu":
+            torch.cuda.synchronize()
+            ma.launches = 0   # the recovery at the engine's shape starts
+        t1 = time.perf_counter()
+        report = e.recover_overflowed()
+        if device != "cpu":
+            torch.cuda.synchronize()
+            launches["recovery"] = ma.launches   # ... and ends here
+        big[device] = {"report": report, "recover_s": time.perf_counter() - t1,
+                       "text": e.read_text("big"),
+                       "live_slots": int(e.mega_store.slot_usage()[0].sum()),
+                       "rebuild": e.last_mega_rebuild}
+        if report != {"big": "reuploaded"} or e.overflowed_docs() or \
+                big[device]["text"] != shadow:
+            raise AssertionError(f"megadoc recovery at the engine's shape "
+                                 f"on {device}: {report}")
+
+    twin_thread = threading.Thread(target=history, args=("cpu",))
+    twin_thread.start()
+    try:
+        history(dev)
+    finally:
+        ma.launch = launch
+        twin_thread.join()
+    t1 = time.perf_counter()
+    check_recorded()
+    seconds["summary_recovery_plain_checks"] = time.perf_counter() - t1
+    if "cpu" not in big:
+        raise AssertionError("megadoc recovery at the engine's shape: the "
+                             "CPU twin failed")
+    if big[dev]["text"] != big["cpu"]["text"] or launches["recovery"] <= 0:
+        raise AssertionError("megadoc recovery at the engine's shape: the "
+                             "card and its CPU twin differ, or K7 was not "
+                             "launched")
+    hist = {"ops": len(hist_ops), "text_chars": len(shadow),
+            "launches": launches["recovery"],
+            **{f"{k}_{d}": v[k] for d, v in (("card", big[dev]),
+                                            ("cpu", big["cpu"]))
+               for k in ("recover_s", "live_slots", "rebuild")},
+            "report": big[dev]["report"]}
+    recovery["engine_shape"] = hist
+    seconds["recovery_engine_shape"] = time.perf_counter() - t0
+    err = max(err, checked["err"])
+
     clusters = {f"{c}x{S}": ma.active_clusters(c, S, K) for c in (8, 16)}
+    for row in (timing, timing_engine):
+        # cluster waves a launch takes, and the time an op column takes
+        # in each wave (the ops of a doc are a serial chain)
+        row["waves"] = -(-row["D"] // ma.active_clusters(row["n"], S, K))
+        row["us_per_op_wave"] = row["ms"] * 1e3 / (row["O"] * row["waves"])
+    if keep_inputs:
+        kt.save_inputs(keep_inputs, {
+            "widest kernel-loop launch": keep_loop,
+            "widest engine launch": (kept_state, kept_ops)})
+    del keep_loop, kept_state, kept_ops
     k7 = [k for k in ptxas if "megadoc_apply_kernel" in k.get("entry", "")]
     if not k7:
         raise RuntimeError("no -Xptxas -v report for megadoc_apply")
@@ -2628,8 +2814,10 @@ def megadoc_phase(smi, dev, ptxas):
           "K": K, "ops_a_window": O, "kernel_loop": loop,
           "timing": [timing, timing_engine], "engine": serve,
           "summary_recovery": recovery, "launches": launches,
+          "launches_checked_against_plain": checked["launches"],
           "max_abs_err": err, "active_clusters": clusters,
           "max_slots_per_shard": ma.max_slots_per_shard(K),
+          "slots_a_lane_threads": ma.launch_shape(S),
           "max_shards": ma.max_shards(S, K), "ptxas": k7,
           "seconds": seconds, "total_s": time.perf_counter() - t_phase,
           "card": smi})
@@ -2647,14 +2835,17 @@ def megadoc_phase(smi, dev, ptxas):
             "active_clusters": clusters, "ptxas": k7}
 
 
-def parent_timing(parent, tree_inputs=None, axis_inputs=None):
-    """K1-K6 of ``parent`` (another checkout, e.g. an archive
+def parent_timing(parent, tree_inputs=None, axis_inputs=None,
+                  mega_inputs=None):
+    """K1-K7 of ``parent`` (another checkout, e.g. an archive
     of the parent commit) and of this checkout, timed by
     ``testing/kernel_timing.py`` in turns: parent, change, change, parent,
     at its shapes, at the K5 inputs saved in ``tree_inputs`` (the tree
-    phase's widest launches of the per-op, recovery and load paths) and at
+    phase's widest launches of the per-op, recovery and load paths), at
     the K3 / K4 inputs saved in ``axis_inputs`` (the matrix engine's
-    widest launch of each path).
+    widest launch of each path) and at the K7 inputs saved in
+    ``mega_inputs`` (the megadoc phase's widest kernel-loop and engine
+    launches).
     Returns {(kernel, spec): {"parent": [ms, ms], "change": [ms, ms], and
     each label's first per-kernel device split}} and raises when a run
     fails or disagrees with its plain version."""
@@ -2665,12 +2856,14 @@ def parent_timing(parent, tree_inputs=None, axis_inputs=None):
     for label, root in (("parent", parent), ("change", here),
                         ("change", here), ("parent", parent)):
         kernels = "map_apply,cell_merge,tree_apply,tree_expand" + (
-            ",axis_apply,axis_resolve" if axis_inputs else "")
+            ",axis_apply,axis_resolve" if axis_inputs else "") + (
+            ",megadoc_apply" if mega_inputs else "")
         proc = subprocess.run(
             [sys.executable, script, "--kernel", kernels,
              "--profile", "--root", os.path.abspath(root)]
             + (["--tree-inputs", tree_inputs] if tree_inputs else [])
-            + (["--axis-inputs", axis_inputs] if axis_inputs else []),
+            + (["--axis-inputs", axis_inputs] if axis_inputs else [])
+            + (["--megadoc-inputs", mega_inputs] if mega_inputs else []),
             capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise AssertionError(f"kernel_timing --root {root} exited "
@@ -2702,7 +2895,7 @@ def add_parent_ms(entry, kernel, timing):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
-                    help="another checkout whose K1 - K6 are timed in "
+                    help="another checkout whose K1 - K7 are timed in "
                          "turns with this one's (parent_ms)")
     args = ap.parse_args(argv)
     import torch
@@ -3028,10 +3221,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tree_entries = tree_phase(smi, dev, keep_tree)
     torch.cuda.empty_cache()
-    mega_entry = megadoc_phase(smi, dev, reports["megadoc_apply"])
+    keep_mega = os.path.join(tmp, "megadoc_inputs.pt") if tmp else None
+    mega_entry = megadoc_phase(smi, dev, reports["megadoc_apply"], keep_mega)
     torch.cuda.empty_cache()
-    timing_pc = parent_timing(args.parent, keep_tree, keep_axis) \
-        if args.parent else None
+    timing_pc = parent_timing(args.parent, keep_tree, keep_axis,
+                              keep_mega) if args.parent else None
     if tmp:
         shutil.rmtree(tmp)
     add_parent_ms(cell_entry, "cell_merge", timing_pc)
@@ -3040,6 +3234,7 @@ def main(argv=None) -> int:
     add_parent_ms(tree_entries[0], "tree_apply", timing_pc)
     add_parent_ms(map_entry, "map_apply", timing_pc)
     add_parent_ms(tree_entries[1], "tree_expand", timing_pc)
+    add_parent_ms(mega_entry, "megadoc_apply", timing_pc)
 
     main_t = timing[("no-props+compact", S_SERVE, "chained")]
     print(smi, flush=True)

@@ -3,8 +3,9 @@
 K7 replaces ``fluidframework_tpu/ops/megadoc_kernel.py``'s
 ``apply_megadoc_batch`` (body ``_shard_step``): one thread-block cluster a
 document, one CTA a shard, the all-gathers of position resolution read
-through distributed shared memory; see the source for its design. It
-updates the state IN PLACE. ``launch`` takes CUDA tensors only, checks
+through distributed shared memory; slots lane-strided in warp chunks, work
+bounded by the live extent, one move pass an edit and the tail written
+back once; see the source for its design. It updates the state IN PLACE. ``launch`` takes CUDA tensors only, checks
 device, dtype, shape and contiguity, launches on the current stream and
 raises when the launch is refused (``cudaGetLastError()`` after it). The
 device dispatch (plain version on the CPU) lives in ``megadoc_kernel``.
@@ -45,6 +46,9 @@ def _load():
             for name in ("max_shards", "portable_shards"):
                 fn = getattr(lib, "megadoc_apply_" + name)
                 fn.restype, fn.argtypes = i32, []
+            for name in ("slots_per_lane", "threads"):
+                fn = getattr(lib, "megadoc_apply_" + name)
+                fn.restype, fn.argtypes = i32, [i32]
             lib.megadoc_apply_max_slots.restype = i32
             lib.megadoc_apply_max_slots.argtypes = [i32]
             lib.megadoc_apply_error_string.restype = ctypes.c_char_p
@@ -62,6 +66,12 @@ def max_slots_per_shard(K: int = 4) -> int:
     and scratch in one CTA's shared memory), read from the built
     library."""
     return _load().megadoc_apply_max_slots(K)
+
+
+def launch_shape(S: int) -> tuple:
+    """(slots a lane, threads a CTA) of a launch at S slots a shard."""
+    lib = _load()
+    return lib.megadoc_apply_slots_per_lane(S), lib.megadoc_apply_threads(S)
 
 
 def smem_bytes(S: int, K: int = 4) -> int:

@@ -46,6 +46,11 @@ _ANN = int(OpKind.STR_ANNOTATE)
 KEYS = PLANES + ("prop_val",)
 
 
+class MegaCapacityError(ValueError):
+    """A doc's live slots exceed its layout's n_shards × capacity a shard
+    (``rebalance_megadoc`` cannot deal them out)."""
+
+
 def create_megadoc_state(n_docs: int, capacity_per_shard: int,
                          n_shards: int = 8, n_props: int = 4,
                          device="cuda", mesh=None) -> StringState:
@@ -225,7 +230,8 @@ def rebalance_megadoc(state: StringState) -> StringState:
     neighbours. Returns a new state on the same device.
 
     Raises on sticky overflow: ops were dropped, and the doc must be
-    rebuilt from the log instead (a rebalance would erase the evidence)."""
+    rebuilt from the log instead (a rebalance would erase the evidence);
+    raises ``MegaCapacityError`` when a doc's live slots exceed n × S."""
     if bool(state.overflow.any()):
         raise ValueError(
             "mega-doc state has sticky overflow: ops were dropped; drain "
@@ -247,8 +253,8 @@ def rebalance_megadoc(state: StringState) -> StringState:
         for s in range(n):
             c = base + (1 if s < extra else 0)
             if c > S:
-                raise ValueError(f"doc {d}: {tot} live slots exceed "
-                                 f"mesh capacity {n * S}")
+                raise MegaCapacityError(f"doc {d}: {tot} live slots exceed "
+                                        f"mesh capacity {n * S}")
             for k in KEYS:
                 new[k][d, s * S: s * S + c] = cat[k][off:off + c]
             new_count[d, s] = c

@@ -42,6 +42,20 @@ def _check_layout(device: torch.device, n_shards: int, capacity: int,
         megadoc_apply.check_layout(n_shards, capacity, n_props)
 
 
+def live_slots(state: StringState, doc: int = 0) -> Dict[str, np.ndarray]:
+    """Doc ``doc``'s live slots in document order as host arrays: every
+    plane (m,) and ``prop_val`` (m, K). Takes both layouts: flat (count
+    (D,)) and mega (count (D, n_shards), shard-major: [0, count) of each
+    shard in shard order)."""
+    count = state.count[doc].reshape(-1).cpu().numpy()
+    S = state.seq.shape[1] // count.shape[0]
+    idx = np.concatenate([np.arange(s * S, s * S + c, dtype=np.int64)
+                          for s, c in enumerate(count.tolist())])
+    out = {k: getattr(state, k)[doc].cpu().numpy()[idx] for k in PLANES}
+    out["prop_val"] = state.prop_val[doc].cpu().numpy()[idx]
+    return out
+
+
 class MegaDocStringStore(StringOpInterner):
     """D mega-docs of ``n_shards`` × ``capacity_per_shard`` slots on
     ``device``. The state is updated in place by every apply; compaction
@@ -173,39 +187,38 @@ class MegaDocStringStore(StringOpInterner):
     # ----------------------------------------------------- overflow recovery
 
     def adopt_doc(self, row: int, tmp) -> "MegaDocStringStore":
-        """Adopt a rebuilt single-doc flat store's state (``tmp``, row 0)
-        into mega-doc ``row``: the re-upload step of overflow recovery.
-        The compacted slots are dealt evenly over the shards (ceil quota,
-        in order), payloads and props re-intern into this store's tables
-        and the doc's client map moves over whole. Goes through a snapshot
-        → restore round trip and returns the NEW store."""
-        n = int(tmp.state.count[0])
+        """Adopt a rebuilt single-doc store's state (``tmp``, doc 0: a flat
+        ``TensorStringStore`` or a one-doc ``MegaDocStringStore``) into
+        mega-doc ``row``: the re-upload step of overflow recovery. Its
+        live slots in document order (``live_slots``) are dealt evenly
+        over the shards (ceil quota, in order), payloads and props
+        re-intern into this store's tables and the doc's client map moves
+        over whole. Goes through a snapshot → restore round trip and
+        returns the NEW store."""
+        live = live_slots(tmp.state)
+        n = len(live["seq"])
         S = self.capacity_per_shard
         if n > self.n_shards * S:
             raise ValueError(
                 f"rebuilt doc needs {n} slots > mega capacity "
                 f"{self.n_shards}×{S}; graduate it instead")
         # intern into this store's tables first; the snapshot takes them
-        hop = self.remap_payload_handles(
-            tmp, tmp.state.handle_op[0, :n].cpu().numpy())
+        live["handle_op"] = self.remap_payload_handles(tmp,
+                                                       live["handle_op"])
         prop = np.zeros((self.n_shards * S, self.n_props), np.int32)
         if tmp._has_props:
             self._has_props = True
-            self.remap_props(tmp, tmp.state.prop_val[0, :n].cpu().numpy(),
-                             prop)
+            self.remap_props(tmp, live["prop_val"], prop)
         self._client_idx[row] = dict(tmp._client_idx[0])
         snap = self.snapshot()
 
-        flat = {k: getattr(tmp.state, k)[0, :n].cpu().numpy()
-                for k in PLANES if k != "handle_op"}
-        flat["handle_op"] = hop
         quota = -(-n // self.n_shards)
         counts = np.zeros(self.n_shards, np.int32)
         for k in PLANES:
             fill = NOT_REMOVED if k == "removed_seq" else 0
             rowvals = np.full(self.n_shards * S, fill, np.int32)
             for s in range(self.n_shards):
-                chunk = flat[k][s * quota:(s + 1) * quota]
+                chunk = live[k][s * quota:(s + 1) * quota]
                 rowvals[s * S:s * S + len(chunk)] = chunk
                 counts[s] = len(chunk)
             snap["planes"][k][row] = rowvals

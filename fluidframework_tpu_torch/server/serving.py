@@ -49,6 +49,7 @@ from ..core.protocol import MessageType, SequencedDocumentMessage
 from ..ops import string_kernel
 from ..ops.axis_kernel import TensorAxisStore
 from ..ops.map_kernel import TensorMapStore, pack_map_batch, refuse_mesh
+from ..ops.megadoc_kernel import MegaCapacityError
 from ..ops.megadoc_store import MegaDocStringStore
 from ..ops.matrix_kernel import TensorMatrixStore, tuple_key
 from ..ops.schema import OpKind, positions_in_doc
@@ -659,6 +660,30 @@ class _IngestWave:
         self.ov_prev = None
 
 
+def mega_rebuild_layouts(doc_id: str, n: int, S: int, grow_limit: int,
+                         limits: Optional[Tuple[int, int]] = None):
+    """The layouts (shards, slots a shard) a mega rebuild tries, each past
+    the tier's (n, S) and the last: the capacity a shard doubles, then the
+    shard count. ``limits`` (the card's: what K7 takes) caps the capacity
+    a shard, then the shard count. MemoryError past ``grow_limit`` total
+    slots, or past the widest layout within ``limits``."""
+    while True:
+        if limits is None:
+            S *= 2
+        elif S < limits[0]:
+            S = min(2 * S, limits[0])
+        elif n < limits[1]:
+            n = min(2 * n, limits[1])
+        else:
+            raise MemoryError(
+                f"{doc_id}: a mega rebuild past {n} shards × {S} slots is "
+                "past what the megadoc_apply kernel takes on this card")
+        if n * S > grow_limit:
+            raise MemoryError(
+                f"{doc_id}: rebuild exceeds grow limit {grow_limit}")
+        yield n, S
+
+
 class StringServingEngine(ServingEngineBase):
     """Sequencer + log + batched device merge for many documents, on
     ``device`` (default the card; ``device="cpu"`` runs the plain
@@ -702,6 +727,8 @@ class StringServingEngine(ServingEngineBase):
         self.auto_recover = True
         #: time split and shapes of the last flat-tier recovery
         self.last_recovery: dict = {}
+        #: layout and history size of the last mega rebuild
+        self.last_mega_rebuild: dict = {}
 
     # ------------------------------------------------------------ membership
 
@@ -1138,8 +1165,9 @@ class StringServingEngine(ServingEngineBase):
         compact it at the doc's window floor, then re-upload it into its
         row when it fits again, or graduate it to a store of its own. The
         log holds every sequenced op, so no acked op is lost. A mega doc is
-        rebuilt the same way from its tier's capacity a shard, then dealt
-        back over its shards or graduated. A graduated store that
+        rebuilt into a one-doc mega store through the mega tier's own
+        apply (K7 on the card), its layout grown from the tier's, then
+        dealt back over its shards, or graduated. A graduated store that
         overflows is rebuilt at doubled capacity ("regrown"). Returns
         {doc_id: "reuploaded" | "graduated" | "regrown"}.
 
@@ -1290,24 +1318,73 @@ class StringServingEngine(ServingEngineBase):
         return report
 
     def _recover_mega(self, doc_id: str, grow_limit: int) -> str:
-        """Rebuild an overflowed mega doc through a flat single-doc store
-        (doubling from the tier's capacity a shard), then deal it back over
-        its shards, or graduate it when it outgrew them all. A graduated
-        doc's mega row is emptied (an empty rebuild adopted) and freed."""
+        """Rebuild an overflowed mega doc through K7 (``_rebuild_mega``),
+        then deal its compacted live slots back over its shards, or, when
+        they outgrew the tier, graduate it to a flat store rebuilt from
+        the log (``_rebuild_doc``, doubling from the tier's capacity a
+        shard). A graduated doc's mega row is emptied (an empty rebuild
+        adopted) and freed."""
         mega = self.mega_store
         row = self._mega_rows[doc_id]
-        tmp = self._rebuild_doc(doc_id, mega, grow_limit,
-                                capacity=mega.capacity_per_shard)
-        fits = mega.capacity_per_shard * mega.n_shards
-        if int(tmp.state.count[0]) <= fits:
+        tmp = self._rebuild_mega(doc_id, mega, grow_limit)
+        if int(tmp.state.count.sum()) <= mega.capacity_per_shard * \
+                mega.n_shards:
             self.mega_store = mega.adopt_doc(row, tmp)
             return "reuploaded"
-        self._graduated[doc_id] = tmp
+        self._graduated[doc_id] = self._rebuild_doc(
+            doc_id, mega, grow_limit, capacity=mega.capacity_per_shard)
         self.mega_store = mega.adopt_doc(
             row, TensorStringStore(1, 128, mega.n_props, mega.device))
         del self._mega_rows[doc_id]
         self._free_mega_rows.append(row)
         return "graduated"
+
+    def _rebuild_mega(self, doc_id: str, mega: MegaDocStringStore,
+                      grow_limit: int) -> MegaDocStringStore:
+        """Replay a mega doc's whole history into a one-doc mega store on
+        the tier's device (K7 on the card, the plain version on the CPU),
+        growing its layout (``mega_rebuild_layouts``) while the replay
+        overflows or a rebalance refuses, compacted at the window floor; its
+        layout and history size go to ``last_mega_rebuild``. A history
+        that the JAX engine's flat rebuild, doubling from the tier's
+        capacity a shard, would only hold past ``grow_limit`` is refused
+        with MemoryError, as that rebuild refuses it."""
+        msgs = self._docs_log_messages([doc_id])[doc_id]
+        for tries, (n, S) in enumerate(mega_rebuild_layouts(
+                doc_id, mega.n_shards, mega.capacity_per_shard, grow_limit,
+                self._mega_limits(mega)), 1):
+            tmp = MegaDocStringStore(
+                1, S, n_shards=n, rebalance_headroom=mega.rebalance_headroom,
+                device=mega.device)
+            try:
+                tmp.apply_messages((0, m) for m in msgs)
+            except MegaCapacityError:
+                continue
+            if not tmp.overflowed().any():
+                break
+        slots = int(tmp.state.count.sum())
+        self.last_mega_rebuild = {"shards": tmp.n_shards,
+                                  "slots_a_shard": tmp.capacity_per_shard,
+                                  "layouts_tried": tries,
+                                  "history_slots": slots}
+        cap = max(mega.capacity_per_shard, 128) * 2
+        while cap < slots:
+            cap *= 2
+        if cap > grow_limit:
+            raise MemoryError(
+                f"{doc_id}: rebuild exceeds grow limit {grow_limit}")
+        tmp.compact(self._min_seq.get(doc_id, 0))
+        return tmp
+
+    @staticmethod
+    def _mega_limits(mega: MegaDocStringStore) -> Optional[Tuple[int, int]]:
+        """(slots a shard, shards) K7 takes at the tier's K on the card;
+        None on the CPU, where no kernel limit applies."""
+        if mega.device.type != "cuda":
+            return None
+        from ..ops import megadoc_apply
+        top_s = megadoc_apply.max_slots_per_shard(mega.n_props)
+        return top_s, megadoc_apply.max_shards(top_s, mega.n_props)
 
     def _release_flat_row(self, doc_id: str) -> None:
         """Return a graduated doc's row to the allocator and forget its

@@ -23,7 +23,7 @@ batch (wave 9 packed into record planes) on the state the waves left;
 (the per-op, recovery and load paths' widest launches). ``--kernel
 axis_apply,axis_resolve`` times K3 and K4 on the inputs in ``--axis-inputs
 FILE``: the matrix engine's widest launch of each kernel on each of its
-paths, saved by ``chip_smoke.py --parent`` (``save_axis_inputs``).
+paths, saved by ``chip_smoke.py --parent`` (``save_inputs``).
 ``--kernel map_apply`` times K1 through its entry points at config #2's
 shapes: dense at D = 1,024 (the kernel loop's batches) and at D = 10,240
 (config #4's doc count), and the packed serving batch (D = 1,024, K = 64,
@@ -37,6 +37,9 @@ megadoc kernel loop (64 mega docs × 8 shards × 4,096 slots, K = 4, O =
 rebalancing whenever a shard passes 75 %, until every doc holds more than
 16,384 active slots; the last of those windows is timed, with its bound
 (the state planes in and out once and the op planes, at 3.35 TB/s).
+``--megadoc-inputs FILE`` times K7 on the inputs saved there instead
+(``save_inputs``; ``chip_smoke.py --parent`` writes the megadoc
+phase's widest kernel-loop and engine launches).
 ``map_apply`` or ``tree_expand`` add a ``launch_floor`` row: a
 one-element ``x.add_(1)`` timed the same way, a yardstick for a kernel
 bound by its launch that the port never calls.
@@ -58,7 +61,7 @@ Usage (one card)::
                   axis_resolve|map_apply|tree_expand|megadoc_apply[,...]]
         [--root DIR] \\
         [--profile] \\
-        [--tree-inputs FILE] [--axis-inputs FILE]
+        [--tree-inputs FILE] [--axis-inputs FILE] [--megadoc-inputs FILE]
 
 ``--root`` imports ``fluidframework_tpu_torch`` from another checkout, for
 example an archive of a parent commit, so two versions of a kernel can be
@@ -551,19 +554,20 @@ def launch_floor(profile=False):
             "max_abs_err": 0}
 
 
-def save_axis_inputs(path, launches) -> None:
-    """Save K3 / K4 inputs with ``torch.save`` as {(kernel, spec): (state
-    planes by name, op planes)}, on the CPU. ``launches`` maps the same
-    keys to (a ``StringState``, its op tensors): for K3 the seven op
-    planes, for K4 kind, pos, client and ref_seq."""
+def save_inputs(path, launches) -> None:
+    """Save kernel inputs with ``torch.save`` as {key: (state planes by
+    name, op planes)}, on the CPU. ``launches`` maps each key to (a
+    ``StringState``, its op tensors): K3 / K4 keys are (kernel, spec) —
+    for K3 the seven op planes, for K4 kind, pos, client and ref_seq —
+    and K7 keys a spec, with the seven op planes."""
     torch.save({key: ({k: v.cpu() for k, v in st.fields().items()},
                       [o.cpu() for o in ops])
                 for key, (st, ops) in launches.items()}, path)
 
 
-def saved_axis_inputs(mt, path, device):
+def saved_inputs(mt, path, device):
     """{(kernel, spec): (state, op planes)} on ``device`` from a file of
-    ``save_axis_inputs``."""
+    ``save_inputs``."""
     return {key: (mt.StringState(**{k: v.to(device)
                                     for k, v in fields.items()}),
                   [o.to(device) for o in ops])
@@ -604,7 +608,7 @@ def measure_axis(mt, ak, path, kernels=AXIS_KERNELS, device="cuda",
                  profile=False):
     """K3 / K4 rows on the saved inputs of ``path``."""
     rows = []
-    for (kernel, spec), (state0, ops) in saved_axis_inputs(
+    for (kernel, spec), (state0, ops) in saved_inputs(
             mt, path, device).items():
         if kernel not in kernels:
             continue
@@ -683,29 +687,40 @@ def megadoc_inputs(mt, mgk, synthetic, device="cuda"):
                          f"{MEGA_TARGET} active slots")
 
 
-def measure_megadoc(mt, mgk, synthetic, device="cuda", profile=False):
-    """K7's row on the widest launch of the megadoc kernel loop."""
-    state0, ops = megadoc_inputs(mt, mgk, synthetic, device)
-    a = torch.cuda.Event(enable_timing=True)
-    z = torch.cuda.Event(enable_timing=True)
-    a.record()
-    want = mgk.apply_megadoc_plain(state0, *ops)
-    z.record()
-    work = _clone(mt, state0)
-    t = time_in_place(lambda s: s.fields(), state0, work,
-                      lambda w: mgk.apply_megadoc_batch(w, *ops), profile)
-    err = max(int((getattr(work, k).long() - getattr(want, k).long())
-                  .abs().max()) for k in mt.FIELDS)
-    D, n = state0.count.shape
-    S = state0.seq.shape[1] // n
-    K = state0.prop_val.shape[2]
-    O = ops[0].shape[1]
-    bound_ms, nbytes = megadoc_bound(D, n, S, O, K)
-    return [{"kernel": "megadoc_apply", "spec": "widest", "D": D, "n": n,
-             "S": S, "O": O, "K": K,
-             "active_slots_min": int(state0.count.sum(dim=1).min()), **t,
-             "plain_ms": a.elapsed_time(z), "bound_ms": bound_ms,
-             "bound_by": "bytes", "bytes": nbytes, "max_abs_err": err}]
+def measure_megadoc(mt, mgk, synthetic, device="cuda", profile=False,
+                    saved=None):
+    """K7's rows: the widest launch of the megadoc kernel loop, or each
+    launch saved in ``saved`` (a file of ``save_inputs``)."""
+    if saved:
+        launches = saved_inputs(mt, saved, device)
+    else:
+        launches = {"widest": megadoc_inputs(mt, mgk, synthetic, device)}
+    rows = []
+    for spec, (state0, ops) in launches.items():
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = mgk.apply_megadoc_plain(state0, *ops)
+        z.record()
+        work = _clone(mt, state0)
+        t = time_in_place(lambda s: s.fields(), state0, work,
+                          lambda w: mgk.apply_megadoc_batch(w, *ops),
+                          profile)
+        err = max(int((getattr(work, k).long() - getattr(want, k).long())
+                      .abs().max()) for k in mt.FIELDS)
+        D, n = state0.count.shape
+        S = state0.seq.shape[1] // n
+        K = state0.prop_val.shape[2]
+        O = ops[0].shape[1]
+        bound_ms, nbytes = megadoc_bound(D, n, S, O, K)
+        rows.append({"kernel": "megadoc_apply", "spec": spec, "D": D,
+                     "n": n, "S": S, "O": O, "K": K,
+                     "active_slots_min": int(state0.count.sum(dim=1).min()),
+                     **t, "plain_ms": a.elapsed_time(z), "bound_ms": bound_ms,
+                     "bound_by": "bytes", "bytes": nbytes,
+                     "max_abs_err": err})
+        del want, work
+    return rows
 
 
 def main(argv=None) -> int:
@@ -722,6 +737,9 @@ def main(argv=None) -> int:
                     help="axis_apply / axis_resolve: the K3 / K4 inputs "
                          "saved in this file (chip_smoke.py --parent "
                          "writes it)")
+    ap.add_argument("--megadoc-inputs", default=None,
+                    help="megadoc_apply: time K7 on the inputs saved in "
+                         "this file (chip_smoke.py --parent writes it)")
     ap.add_argument("--profile", action="store_true",
                     help="K1 - K7 rows: add each launched kernel's device "
                          "ms (torch.profiler)")
@@ -774,7 +792,8 @@ def main(argv=None) -> int:
                              profile=args.profile)
     if "megadoc_apply" in kernels:
         from fluidframework_tpu_torch.ops import megadoc_kernel as mgk
-        rows += measure_megadoc(mt, mgk, synthetic, profile=args.profile)
+        rows += measure_megadoc(mt, mgk, synthetic, profile=args.profile,
+                                saved=args.megadoc_inputs)
     if {"map_apply", "tree_expand"} & set(kernels):
         rows.append(launch_floor(args.profile))
     bad = 0

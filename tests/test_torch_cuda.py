@@ -2104,8 +2104,9 @@ def test_megadoc_kernel_captured_in_a_cuda_graph(cuda):
 
 def test_megadoc_layout_refused_at_construction(cuda):
     """A capacity a shard or a shard count that K7 does not take is
-    refused when the store, a restore or the engine is built; a mega
-    rebuild past the string kernel's capacity raises MemoryError."""
+    refused when the store, a restore or the engine is built; a mega doc
+    whose graduation needs a flat rebuild past the string kernel's
+    capacity raises MemoryError."""
     from fluidframework_tpu_torch.ops import megadoc_apply as ma
     from fluidframework_tpu_torch.ops.megadoc_store import (
         MegaDocStringStore,
@@ -2126,8 +2127,10 @@ def test_megadoc_layout_refused_at_construction(cuda):
     snap = MegaDocStringStore(1, S + 1, device="cpu").snapshot()
     with pytest.raises(ValueError, match=str(S)):
         MegaDocStringStore.restore(snap, device=cuda)
-    # one shard of 4,096 slots overflows; its rebuild outgrows the string
-    # kernel (kMaxS = 8,192) before it fits
+    # one shard of 4,096 slots overflows with 8,200 live slots: the K7
+    # rebuild holds them on a wider layout, but they outgrow the tier, and
+    # the graduation's flat rebuild outgrows the string kernel (kMaxS =
+    # 8,192) before it fits
     mega = MegaDocStringStore(1, 4096, n_shards=1, device=cuda)
     eng = StringServingEngine(n_docs=1, capacity=64, batch_window=10 ** 9,
                               compact_every=10 ** 9, mega_store=mega,
@@ -2213,3 +2216,237 @@ def test_mega_engine_on_card_matches_cpu(cuda):
     assert loaded._mega_rows == card._mega_rows
     for d in docs:
         assert loaded.read_text(d) == card.read_text(d), d
+
+
+# K7's edges (its Hopper design: warp-chunked lane-strided slots, a move
+# pass that carries two slots across warps, work bounded by the live
+# extent and a tail written back once, from the launch's input). States
+# are built directly: runs of 5-char segments on every shard (one shard
+# empty), every slot past count random non-default values in every plane.
+# Ops come from distinct clients at the state's last seq, so every op
+# sees the built text and its positions are known: ranges with both ends
+# in one slot, in adjacent slots and across shard boundaries, inserts at
+# every shard boundary, inside a slot and at both ends.
+
+def _edge_state(D, n, S, K, seed):
+    rng = np.random.default_rng(seed)
+    W = n * S
+    junk = lambda *shape: rng.integers(-2 ** 31, 2 ** 31, shape,
+                                       dtype=np.int64).astype(np.int32)
+    planes = {k: junk(D, W) for k in mt.PLANES}
+    prop = junk(D, W, K)
+    count = rng.integers(1, max(S // 2, 1) + 1, (D, n)).astype(np.int32)
+    count[np.arange(D), rng.integers(0, n, D)] = 0
+    for d in range(D):
+        g = 0
+        for s in range(n):
+            c = int(count[d, s])
+            at = slice(s * S, s * S + c)
+            ids = np.arange(g + 1, g + c + 1, dtype=np.int32)
+            planes["seq"][d, at] = ids
+            planes["client"][d, at] = 0
+            planes["removed_seq"][d, at] = 0x7FFFFFFF
+            planes["removers"][d, at] = 0
+            planes["length"][d, at] = 5
+            planes["handle_op"][d, at] = ids
+            planes["handle_off"][d, at] = 0
+            prop[d, at] = rng.integers(0, 3, (c, K))
+            g += c
+    return dict(planes, prop_val=prop, count=count,
+                overflow=np.zeros((D, n), np.int32))
+
+
+def _edge_ops(state, K, O, seed, noop_share=0.0):
+    """(7, D, O) op planes over the edges of ``_edge_state``'s docs."""
+    rng = np.random.default_rng(seed)
+    I, R, A = (int(OpKind.STR_INSERT), int(OpKind.STR_REMOVE),
+               int(OpKind.STR_ANNOTATE))
+    count = state["count"]
+    D = count.shape[0]
+    planes = np.zeros((7, D, O), np.int32)
+    planes[0] = int(OpKind.NOOP)
+    for d in range(D):
+        G = int(count[d].sum())
+        L = 5 * G
+        cands = [(I, 0, 3, 7), (I, L, 2, 8)]
+        for B in (5 * np.cumsum(count[d])[:-1]).tolist():
+            cands.append((I, B, 3, 9))
+            if 2 <= B <= L - 2:
+                cands.append((A, B - 2, B + 2, (int(K) << 20) | 4
+                              if rng.random() < 0.1 else (1 % max(K, 1)) << 20
+                              | 5))
+            if B + 5 <= L:
+                cands.append((R, B, B + 5, 0))
+        for k in rng.integers(0, max(G, 1), 24).tolist():
+            if k + 1 < G:
+                cands += [(R, 5 * k + 1, 5 * k + 3, 0),
+                          (R, 5 * k + 2, 5 * k + 7, 0),
+                          (A, 5 * k, 5 * k + 5, (k % max(K, 1)) << 20 | 6),
+                          (A, 5 * k + 1, 5 * k + 2, 0 << 20 | 3),
+                          (I, 5 * k + 2, 1, 10)]
+        order = rng.permutation(len(cands))
+        cols = [o for o in range(O) if rng.random() >= noop_share] or [0]
+        for j, o in enumerate(cols[:min(len(cols), 31)]):
+            kind, a0, a1, a2 = cands[order[j % len(order)]]
+            planes[:, d, o] = (kind, a0, a1, a2, G + 1 + j, 1 + j, G)
+    return planes
+
+
+def _edge_launch(dev, n, S, K, O, seed, noop_share=0.0, D=2):
+    """K7 against the plain version on one edge batch, every plane."""
+    from fluidframework_tpu_torch.ops import megadoc_apply as ma
+    from fluidframework_tpu_torch.ops import megadoc_kernel as mgk
+    arrays = _edge_state(D, n, S, K, seed)
+    st = mt.StringState(**{k: torch.from_numpy(v).to(dev)
+                           for k, v in arrays.items()})
+    ops = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+           for p in _edge_ops(arrays, K, O, seed + 1, noop_share)]
+    ref = mgk.apply_megadoc_plain(st, *ops)
+    before = ma.launches
+    mgk.apply_megadoc_batch(st, *ops)
+    torch.cuda.synchronize()
+    assert ma.launches == before + 1
+    for k in mt.FIELDS:
+        assert torch.equal(getattr(st, k), getattr(ref, k)), k
+    return arrays, st
+
+
+@pytest.mark.parametrize("S", [20, 100, 512, 700, 1500, 3000, 4096, 5000])
+@pytest.mark.parametrize("K", [0, 4])
+def test_megadoc_kernel_edges(cuda, S, K):
+    """Every slots-a-lane tier (S <= 512: 1; then 2, 4, 8, 16), S not a
+    multiple of a warp's chunk, K = 0 and 4: the edge ops and a random
+    non-default tail equal the plain version in every plane."""
+    from fluidframework_tpu_torch.ops import megadoc_apply as ma
+    if S > ma.max_slots_per_shard(K):
+        pytest.skip(f"S={S} is past K7's {ma.max_slots_per_shard(K)}")
+    arrays, st = _edge_launch(cuda, 8, S, K, 31, seed=S + K)
+    assert (st.count.cpu().numpy() > arrays["count"]).any()
+
+
+@pytest.mark.parametrize("huge", [1 << 18, (1 << 31) - 64])
+def test_megadoc_kernel_long_segments_exchange_flags(cuda, huge):
+    """A visible segment of 2^18 chars or more (or a doc whose length
+    passes int32) makes K7 exchange the owner flags, as the plain version
+    resolves them, instead of deriving the owner from the shards' totals:
+    inserts around it and at every shard boundary equal the plain
+    version."""
+    from fluidframework_tpu_torch.ops import megadoc_kernel as mgk
+    arrays = _edge_state(2, 8, 64, 4, seed=11)
+    s = int(np.flatnonzero(arrays["count"][0])[0])
+    arrays["length"][0, s * 64] = huge   # doc 0's first segment
+    st = mt.StringState(**{k: torch.from_numpy(v).to(cuda)
+                           for k, v in arrays.items()})
+    planes = _edge_ops(arrays, 4, 31, seed=12)
+    planes[1, 0] = np.where(planes[0, 0] == int(OpKind.STR_INSERT),
+                            planes[1, 0] + np.where(planes[1, 0] > 0,
+                                                    huge - 5, 0),
+                            planes[1, 0])
+    ops = [torch.from_numpy(np.ascontiguousarray(p)).to(cuda) for p in planes]
+    ref = mgk.apply_megadoc_plain(st, *ops)
+    mgk.apply_megadoc_batch(st, *ops)
+    torch.cuda.synchronize()
+    for k in mt.FIELDS:
+        assert torch.equal(getattr(st, k), getattr(ref, k)), k
+
+
+@pytest.mark.parametrize("noop_share", [0.9, 0.99])
+def test_megadoc_kernel_mostly_noop_columns(cuda, noop_share):
+    """O columns mostly NOOP (skipped by every CTA alike)."""
+    _edge_launch(cuda, 8, 1500, 4, 512, seed=3, noop_share=noop_share)
+
+
+def test_megadoc_kernel_edges_in_a_cluster_of_16(cuda):
+    """The non-portable 16-CTA cluster, where the card places one."""
+    from fluidframework_tpu_torch.ops import megadoc_apply as ma
+    if ma.max_shards(640, 4) < 16:
+        pytest.skip("this card places no cluster of 16 CTAs at S=640")
+    _edge_launch(cuda, 16, 640, 4, 31, seed=16)
+
+
+def test_megadoc_kernel_full_shards_overflow_like_plain(cuda):
+    """Shards at the overflow edge: splits and inserts that pass S set
+    the sticky flag exactly where the plain version does."""
+    from fluidframework_tpu_torch.ops import megadoc_kernel as mgk
+    arrays = _edge_state(2, 8, 40, 4, seed=9)
+    arrays["count"][:] = np.minimum(arrays["count"] + 19, 40)
+    for d in range(2):   # make the grown runs valid segments again
+        g = 0
+        for s in range(8):
+            c = int(arrays["count"][d, s])
+            at = slice(s * 40, s * 40 + c)
+            ids = np.arange(g + 1, g + c + 1, dtype=np.int32)
+            for k, v in (("seq", ids), ("client", 0),
+                         ("removed_seq", 0x7FFFFFFF), ("removers", 0),
+                         ("length", 5), ("handle_op", ids),
+                         ("handle_off", 0)):
+                arrays[k][d, at] = v
+            g += c
+    st = mt.StringState(**{k: torch.from_numpy(v).to(cuda)
+                           for k, v in arrays.items()})
+    ops = [torch.from_numpy(np.ascontiguousarray(p)).to(cuda)
+           for p in _edge_ops(arrays, 4, 31, seed=10)]
+    ref = mgk.apply_megadoc_plain(st, *ops)
+    mgk.apply_megadoc_batch(st, *ops)
+    torch.cuda.synchronize()
+    for k in mt.FIELDS:
+        assert torch.equal(getattr(st, k), getattr(ref, k)), k
+    assert bool(st.overflow.any())
+
+
+def test_mega_recovery_through_k7_on_card(cuda):
+    """A one-shard mega tier of 4,096 slots whose history (tombstone
+    churn) passes the tier, with live text inside it — before K7 rebuilt
+    mega docs, this raised MemoryError (the flat rebuild's first doubling,
+    8,192 slots with K = 4, is past the string kernel): recovered through
+    K7 (a one-doc mega rebuild on a wider layout) as ``reuploaded``, with
+    K7 launches on the recovery path; the mega row, text and properties
+    equal a CPU twin's."""
+    from fluidframework_tpu_torch.ops import megadoc_apply as ma
+    from fluidframework_tpu_torch.ops.megadoc_store import (
+        MegaDocStringStore,
+    )
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    rng = np.random.default_rng(8)
+    text, ops = "", []
+    for _ in range(2700):   # ~1.7 slots an op: 16-char edits that cut
+        r = rng.random()
+        if len(text) < 400 or r < 0.45:
+            pos = int(rng.integers(0, len(text) + 1))
+            ops.append({"mt": "insert", "kind": 0, "pos": pos,
+                        "text": "abcdefghijklmnop"})
+            text = text[:pos] + "abcdefghijklmnop" + text[pos:]
+        else:
+            at = int(rng.integers(0, len(text) - 16))
+            if r < 0.9:
+                ops.append({"mt": "remove", "start": at, "end": at + 16})
+                text = text[:at] + text[at + 16:]
+            else:
+                ops.append({"mt": "annotate", "start": at, "end": at + 5,
+                            "props": {"b": int(rng.integers(0, 3))}})
+    engines = []
+    for dev in (cuda, "cpu"):
+        e = StringServingEngine(
+            n_docs=1, capacity=64, batch_window=1024, compact_every=10 ** 9,
+            mega_store=MegaDocStringStore(1, 4096, n_shards=1, device=dev),
+            device=dev)
+        e.auto_recover = False
+        e.mark_mega("m")
+        e.connect("m", 1)
+        for cs, op in enumerate(ops, 1):
+            assert e.submit("m", 1, cs, e.deli.doc_seq("m"), op)[1] is None
+        e.flush()
+        assert e.overflowed_docs() == ["m"]
+        before = ma.launches
+        assert e.recover_overflowed() == {"m": "reuploaded"}
+        if dev is cuda:
+            assert ma.launches > before
+            assert e.last_mega_rebuild["history_slots"] > 4096
+        engines.append(e)
+    card, cpu = engines
+    assert card.read_text("m") == cpu.read_text("m") == text
+    for pos in range(0, len(text), 7):
+        assert card.get_properties("m", pos) == cpu.get_properties("m", pos)
+    for k in mt.FIELDS:
+        assert torch.equal(getattr(card.mega_store.state, k).cpu(),
+                           getattr(cpu.mega_store.state, k)), k

@@ -140,8 +140,8 @@ def test_axis_inputs_round_trip(tmp_path):
     every plane and op plane comes back equal, under the same keys."""
     launches = _axis_launches()
     path = str(tmp_path / "axis.pt")
-    kt.save_axis_inputs(path, launches)
-    back = kt.saved_axis_inputs(tmt, path, "cpu")
+    kt.save_inputs(path, launches)
+    back = kt.saved_inputs(tmt, path, "cpu")
     assert set(back) == set(launches)
     for key, (st, ops) in launches.items():
         st2, ops2 = back[key]

@@ -10,9 +10,11 @@ packages in both directions, a ``markMega`` in the log tail included.
 Tolerance: exact."""
 
 import copy
+import itertools
 import random
 
 import numpy as np
+import pytest
 
 from fluidframework_tpu.core.protocol import (
     SequencedDocumentMessage as JMessage,
@@ -23,6 +25,11 @@ from fluidframework_tpu.server.serving import StringServingEngine as JEngine
 from fluidframework_tpu_torch.core.protocol import (
     MessageType, SequencedDocumentMessage,
 )
+from fluidframework_tpu_torch.ops.megadoc_store import (
+    MegaDocStringStore, live_slots,
+)
+from fluidframework_tpu_torch.ops.string_store import TensorStringStore
+from fluidframework_tpu_torch.server import serving
 from fluidframework_tpu_torch.server.oplog import PartitionedLog
 from fluidframework_tpu_torch.server.serving import (
     StringServingEngine as TEngine,
@@ -306,3 +313,192 @@ def test_freed_mega_row_is_reused_after_a_load():
     assert loaded.read_text("new") == "fresh"
     assert loaded.read_text("keep") == "kept"
     assert loaded.read_text("m") == e.read_text("m")
+
+
+# ------------------------------------------- recovery through the mega tier
+# The port rebuilds an overflowed mega doc through a one-doc mega store
+# (the tier's own apply: K7 on the card, the plain version here), the JAX
+# engine through a flat single-doc store; both end with the same mega row.
+
+def _mega_churn(tee, doc, n_ops, keep_len, seed, clients=(1, 2, 3)):
+    """Per-op edits of ``doc`` from several clients with lagging refs:
+    inserts, removes and annotates keep the text near ``keep_len`` chars
+    while the history grows (tombstones). Returns nothing: the engines'
+    reads are compared."""
+    rng = np.random.default_rng(seed)
+    length, refs, cs = 0, {}, {}
+    for c in clients:
+        tee.connect(doc, c)
+    for _ in range(n_ops):
+        c = int(rng.choice(clients))
+        cs[c] = cs.get(c, 0) + 1
+        refs[c] = max(refs.get(c, 0),
+                      tee.deli.doc_seq(doc) - int(rng.integers(0, 5)))
+        r = rng.random()
+        # positions stay 8 below the length: a lagging ref sees at least
+        # that much of the text
+        if length < keep_len or r < 0.3:
+            op = {"mt": "insert", "kind": 0,
+                  "pos": int(rng.integers(0, max(length - 8, 0) + 1)),
+                  "text": "abc"[:1 + int(rng.integers(0, 3))]}
+            length += len(op["text"])
+        elif r < 0.8:
+            s = int(rng.integers(0, length - 10))
+            op = {"mt": "remove", "start": s, "end": s + 2}
+            length -= 2
+        else:
+            s = int(rng.integers(0, length - 10))
+            op = {"mt": "annotate", "start": s, "end": s + 3,
+                  "props": {"k": int(rng.integers(0, 3))}}
+        _, nack = tee.submit(doc, c, cs[c], refs[c], op)
+        assert nack is None
+    tee.j.flush()
+    tee.t.flush()
+
+
+def _churned_tee(n_ops, keep_len, seed=0, **kw):
+    tee = Tee(n_docs=1, capacity=64, batch_window=8, compact_every=10 ** 9,
+              mega_docs=1, mega_capacity_per_shard=16, **kw)
+    for eng in (tee.j, tee.t):
+        eng.auto_recover = False
+    tee.mark_mega("m")
+    _mega_churn(tee, "m", n_ops, keep_len, seed)
+    assert tee.t.overflowed_docs() == tee.j.overflowed_docs() == ["m"]
+    return tee
+
+
+@pytest.mark.parametrize("want,n_ops,keep_len,seed", [
+    ("reuploaded", 250, 24, 0), ("reuploaded", 300, 40, 1),
+    ("graduated", 200, 400, 2)])
+def test_mega_recovery_through_the_mega_tier_like_jax(want, n_ops, keep_len,
+                                                      seed):
+    """Multi-client churn with lagging refs and annotates overflows the
+    mega doc; both engines recover it alike: the same report, the mega
+    row's planes and interner tables bit-identical, reads and digests
+    equal, and a later edit lands alike."""
+    tee = _churned_tee(n_ops, keep_len, seed)
+    reports = [eng.recover_overflowed() for eng in (tee.j, tee.t)]
+    assert reports[0] == reports[1] == {"m": want}
+    assert tee.t.overflowed_docs() == []
+    _assert_same(tee.j.mega_store, tee.t.mega_store)
+    if want == "graduated":
+        assert np.array_equal(tee.j._graduated["m"].digests(),
+                              tee.t._graduated["m"].digests())
+    _same_reads(tee.j, tee.t, ["m"])
+    tee.submit("m", 1, 10 ** 4, tee.deli.doc_seq("m"),
+               {"mt": "insert", "kind": 0, "pos": 0, "text": "NEW"})
+    _same_reads(tee.j, tee.t, ["m"])
+
+
+def test_mega_rebuild_flattens_to_jax_flat_rebuild():
+    """The port's one-doc mega rebuild, compacted, holds in document order
+    (shard by shard, [0, count) of each) exactly the JAX engine's flat
+    rebuild's [0, count): every plane, property handles and the payload
+    and client tables."""
+    tee = _churned_tee(300, 32, seed=3)
+    t = tee.t._rebuild_mega("m", tee.t.mega_store, 1 << 20)
+    j = tee.j._rebuild_doc("m", 16, 1 << 20, tee.j.mega_store.n_props)
+    assert t.n_shards == 8 and t.capacity_per_shard > 16
+    live = live_slots(t.state)
+    n = int(np.asarray(j.state.count[0]))
+    assert len(live["seq"]) == n
+    for k in live:
+        assert np.array_equal(live[k],
+                              np.asarray(getattr(j.state, k)[0][:n])), k
+    assert t._payloads == j._payloads
+    assert t._client_idx[0] == j._client_idx[0]
+    assert t._prop_planes == j._prop_planes
+
+
+def test_mega_rebuild_grows_capacity_then_shards():
+    """Under K7's limits (here a stand-in: 64 slots a shard, 8 shards) a
+    rebuild of a 2-shard tier grows the capacity a shard first, then the
+    shard count, and holds the history; its compacted live slots equal a
+    flat replay of the same log, and the doc re-uploads."""
+    e = TEngine(n_docs=1, capacity=64, batch_window=8, compact_every=10 ** 9,
+                mega_store=MegaDocStringStore(1, 16, n_shards=2,
+                                              device="cpu"),
+                device="cpu")
+    e.auto_recover = False
+    e._mega_limits = lambda mega: (64, 8)
+    e.mark_mega("m")
+    e.connect("m", 1)
+    ops = [{"mt": "insert", "kind": 0, "pos": 0, "text": "ab"},
+           {"mt": "remove", "start": 0, "end": 2}] * 140 + \
+        [{"mt": "insert", "kind": 0, "pos": 0, "text": "ab"}] * 10
+    for cs, op in enumerate(ops, 1):   # 290 slots of history, 20 live
+        assert e.submit("m", 1, cs, e.deli.doc_seq("m"), op)[1] is None
+    e.flush()
+    assert e.overflowed_docs() == ["m"]
+    tried = []
+    grow = serving.mega_rebuild_layouts
+
+    def record(*args):
+        for layout in grow(*args):
+            tried.append(layout)
+            yield layout
+
+    serving.mega_rebuild_layouts = record
+    try:
+        t = e._rebuild_mega("m", e.mega_store, 1 << 20)
+    finally:
+        serving.mega_rebuild_layouts = grow
+    assert tried[:3] == [(2, 32), (2, 64), (4, 64)]
+    assert (t.n_shards, t.capacity_per_shard) == tried[-1]
+    flat = TensorStringStore(1, 1024, device="cpu")
+    flat.apply_messages((0, m) for m in e._docs_log_messages(["m"])["m"])
+    flat.compact(e._min_seq.get("m", 0))
+    live = live_slots(t.state)
+    n = int(flat.state.count[0])
+    for k in live:
+        assert np.array_equal(live[k],
+                              getattr(flat.state, k)[0, :n].numpy()), k
+    assert e.recover_overflowed() == {"m": "reuploaded"}
+    assert e.read_text("m") == "ab" * 10
+
+
+def test_mega_rebuild_layouts():
+    """The layout sequence: on the CPU the capacity a shard doubles up to
+    ``grow_limit``; under the card's limits it stops at the widest
+    capacity, then the shards double; past either, MemoryError."""
+    grow = serving.mega_rebuild_layouts
+    assert list(itertools.islice(grow("d", 8, 16, 1 << 20), 3)) == [
+        (8, 32), (8, 64), (8, 128)]
+    with pytest.raises(MemoryError, match="grow limit 512"):
+        list(grow("d", 8, 16, 512))
+    assert list(itertools.islice(grow("d", 8, 4096, 1 << 20), 1)) == [
+        (8, 8192)]
+    with pytest.raises(MemoryError, match="megadoc_apply"):
+        layouts = []
+        for layout in grow("d", 8, 4096, 1 << 20, (5000, 16)):
+            layouts.append(layout)
+    assert layouts == [(8, 5000), (16, 5000)]
+    with pytest.raises(MemoryError, match="grow limit 60000"):
+        list(grow("d", 8, 4096, 60000, (5000, 16)))
+
+
+def _history_slots(eng, doc):
+    """Slots the doc's whole history takes in a flat store (no
+    compaction): what JAX's doubling rebuild must hold."""
+    flat = TensorStringStore(1, 1 << 14, device="cpu")
+    flat.apply_messages((0, m) for m in eng._docs_log_messages([doc])[doc])
+    assert not flat.overflowed().any()
+    return int(flat.state.count[0])
+
+
+@pytest.mark.parametrize("grow_limit,refused", [(255, True), (256, False)])
+def test_mega_recovery_grow_limit_like_jax(grow_limit, refused):
+    """A history of 129 - 256 slots: JAX's flat doubling from 128 fits it
+    at 256 slots, past a grow limit of 255; the port refuses
+    (MemoryError) exactly where JAX does."""
+    tee = _churned_tee(300, 24, seed=4)
+    assert 128 < _history_slots(tee.t, "m") <= 256
+    for eng in (tee.j, tee.t):
+        if refused:
+            with pytest.raises(MemoryError, match="grow limit"):
+                eng.recover_overflowed(grow_limit=grow_limit)
+        else:
+            assert eng.recover_overflowed(grow_limit=grow_limit) == {
+                "m": "reuploaded"}
+    if not refused:
+        _assert_same(tee.j.mega_store, tee.t.mega_store)

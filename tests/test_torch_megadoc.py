@@ -7,6 +7,7 @@ every step the FULL (D, 8·S_local) planes agree (slots past ``count``
 included), with ``count`` and ``overflow`` (D, 8). Tolerance: exact
 (everything is int32)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -199,3 +200,43 @@ def test_megadoc_storm_windows_match_jax(mesh):
         _assert_same(js, ts)
     assert int(ts.count.sum()) > 0
     _assert_digest(mesh, js, ts)
+
+
+def test_megadoc_tail_slides_by_the_count_growth(mesh):
+    """The identity K7's deferred tail write-back rests on: after a launch,
+    slot t >= count_end of every (doc, shard) holds the launch's input
+    slot t - Δ (Δ = count_end - count_start), whatever the tail holds —
+    here random non-default values in every plane past count. The port's
+    plain version and JAX's apply_megadoc_batch agree on every slot."""
+    from jax.sharding import NamedSharding
+    S, D = 32, 2
+    js, ts = _pair(mesh, D, S)
+    ops, seq = _ops(D, 12)
+    js, ts = _apply(mesh, js, ts, ops)
+    js, ts = jmk.rebalance_megadoc(mesh, js), tmk.rebalance_megadoc(ts)
+    rng = np.random.default_rng(5)
+    count = ts.count.numpy()
+    arrays = {k: getattr(ts, k).numpy().copy() for k in tmt.FIELDS}
+    for k in tmt.PLANES + ("prop_val",):
+        for d in range(D):
+            for s in range(N):
+                tail = arrays[k][d, s * S + count[d, s]:(s + 1) * S]
+                tail[...] = rng.integers(-2 ** 31, 2 ** 31, tail.shape,
+                                         dtype=np.int64).astype(np.int32)
+    ts = tmt.StringState(**{k: torch.from_numpy(v.copy())
+                            for k, v in arrays.items()})
+    js = JState(**{k: jax.device_put(jnp.asarray(v), NamedSharding(
+        mesh, jmk.STATE_SPECS[k])) for k, v in arrays.items()})
+    ops, _ = _ops(D, 16, seed=3, start_seq=seq)
+    js, ts = _apply(mesh, js, ts, ops)
+    _assert_same(js, ts)
+    end = ts.count.numpy()
+    assert (end > count).any()
+    for k in tmt.PLANES + ("prop_val",):
+        after = getattr(ts, k).numpy()
+        for d in range(D):
+            for s in range(N):
+                delta = end[d, s] - count[d, s]
+                t = np.arange(s * S + end[d, s], (s + 1) * S)
+                assert np.array_equal(after[d, t], arrays[k][d, t - delta]), \
+                    (k, d, s)

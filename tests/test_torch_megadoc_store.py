@@ -17,7 +17,9 @@ from fluidframework_tpu.ops.megadoc_store import (
 from fluidframework_tpu.ops.string_store import (
     TensorStringStore as JFlatStore,
 )
-from fluidframework_tpu_torch.ops.megadoc_store import MegaDocStringStore
+from fluidframework_tpu_torch.ops.megadoc_store import (
+    MegaDocStringStore, live_slots,
+)
 from fluidframework_tpu_torch.ops.string_store import TensorStringStore
 from tests.test_merge_tree_kernel import collab_stream
 
@@ -141,6 +143,33 @@ def test_megadoc_store_adopt_doc_matches():
     j, t = _stores(2, 32)
     j = j.adopt_doc(1, jflat)
     t = t.adopt_doc(1, tflat)
+    _assert_same(j, t)
+    assert t.read_text(1) == text
+    _assert_reads(j, t, 1)
+
+
+@pytest.mark.parametrize("n_shards", [3, 8])
+def test_megadoc_store_adopts_a_one_doc_mega_rebuild_like_jax(n_shards):
+    """The re-upload step from a one-doc mega rebuild (the port's
+    recovery path): its compacted live slots in document order (shard by
+    shard, [0, count) of each) equal a flat rebuild's [0, count), and
+    dealt over the shards they leave the row exactly as the JAX store's
+    ``adopt_doc`` of its flat rebuild does."""
+    text, _, msgs = collab_stream(5, n_rounds=10, with_annotates=True)
+    floor = msgs[len(msgs) // 2].seq
+    jflat = JFlatStore(1, 512)
+    tmega = MegaDocStringStore(1, 64, n_shards=n_shards, device="cpu")
+    for s in (jflat, tmega):
+        s.apply_messages((0, m) for m in msgs)
+        s.compact(floor)
+    assert not tmega.overflowed().any()
+    n = int(np.asarray(jflat.state.count[0]))
+    live = live_slots(tmega.state)
+    for k, v in live.items():
+        assert np.array_equal(v, np.asarray(getattr(jflat.state, k)[0][:n])), k
+    j, t = _stores(2, 32)
+    j = j.adopt_doc(1, jflat)
+    t = t.adopt_doc(1, tmega)
     _assert_same(j, t)
     assert t.read_text(1) == text
     _assert_reads(j, t, 1)
