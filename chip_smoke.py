@@ -129,7 +129,32 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    to a ``device="cpu"`` twin's. The line reports each part's seconds,
    K7's launches by path, ``cudaOccupancyMaxActiveClusters``, the cluster
    waves and per-op time of each timed launch and its ptxas registers and
-   spills.
+   spills;
+11. intervals — config #4's serving shape (10,240 docs, S=512,
+   compact_every=1, the native sequencer) with the interval docs' base
+   text in every doc and 4 intervals with props on every 10th (1,024
+   docs, ``add_intervals_bulk``): (a) a warm-up wave, heartbeats on 64
+   interval docs, 2 pipelined waves, heartbeats, 2 more
+   (``synthetic.interval_wave``: annotate 50 %, insert 30 %, remove 20 %,
+   refs pinned at each wave's first seq, so floors cross the previous
+   wave's tombstones mid-wave and each wave is cut into segments, one
+   string_apply launch each, the crossing docs' anchors slid off one row
+   gather after their segment); every launch of the last wave against the
+   plain version (all planes); 64 sampled docs (32 with intervals)
+   against a ``device="cpu"`` engine fed the same rows (texts, planes and
+   digest with payload handles ranked per doc, every interval's endpoints
+   and props); the same waves on a second card engine with no intervals;
+   (b) a 1,024-doc engine at capacity 128, intervals on every doc, fed
+   waves (inserts only on every 16th) until docs overflow, heartbeats,
+   ``recover_overflowed`` (re-uploads and graduations) and one graduated
+   doc regrown, equal to a ``device="cpu"`` twin that recovers the same
+   way (reports, texts, digests, anchors, endpoints); (c) a full and an
+   incremental summary of both engines loaded on the card, their
+   intervals equal to the live engine's and the next interval id going
+   on. The line reports each wave's wall, segments and their widths,
+   slide gathers and launches by width beside the bare engine's walls,
+   the unfused compactions' device ms and host s, and (b)'s and (c)'s
+   seconds.
 
 With ``--parent DIR`` (another checkout, e.g. an archive of the parent
 commit) a last phase, parent_timing, times K1-K7 of DIR and of this
@@ -152,7 +177,9 @@ after: config #4 serving; config #2's kernel loop and its serving route;
 config #3's kernel loop, the store route and the matrix engine's paths;
 the tree phase's kernel loop, serving, flat serving, per-op, recovery and
 load paths; the megadoc phase's kernel loop and engine, and its summary /
-recovery path beside them), and as the last
+recovery path beside them; the interval phase's serving and recovery paths
+as ``string_apply``'s ``interval_launches`` and
+``interval_recovery_launches``), and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase raises, so
 the exit code is non-zero. Without a card it exits 2 and prints no result.
 
@@ -2835,6 +2862,431 @@ def megadoc_phase(smi, dev, ptxas, keep_inputs=None):
             "active_clusters": clusters, "ptxas": k7}
 
 
+IV_EVERY = 10          # every 10th row holds intervals (1,024 docs)
+IV_HEARTBEAT_STEP = 16  # heartbeats on every 16th interval doc (64 docs)
+IV_REC_DOCS, IV_REC_CAP = 1024, 128    # the recovery part's engine
+
+
+def intervals_phase(smi, dev):
+    """Phase 11: intervals on the string engine at config #4's width.
+    (a) serving with 1,024 interval docs, waves cut into segments, every
+    B1 launch of one wave against the plain version, a CPU twin of 64
+    sampled docs, beside a second card engine without intervals; (b) a
+    1,024-doc engine whose interval docs overflow, re-upload, graduate
+    and regrow, against a CPU twin; (c) full and incremental summaries of
+    both loaded on the card. Returns (launches of (a)'s path, launches of
+    (b)'s, max abs error, the line's summary)."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import merge_tree as mt
+    from fluidframework_tpu_torch.ops import string_kernel as sk
+    from fluidframework_tpu_torch.ops import string_store
+    from fluidframework_tpu_torch.server.ingest_pipeline import (
+        PipelinedIngestExecutor,
+    )
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    from fluidframework_tpu_torch.testing import synthetic
+
+    t_phase = time.perf_counter()
+    docs = [f"iv-{i}" for i in range(D)]
+    iv_set = set(range(0, D, IV_EVERY))
+    hb_set = set(sorted(iv_set)[::IV_HEARTBEAT_STEP])
+    rng = np.random.default_rng(12)
+    lengths = np.full(D, len(synthetic.IV_BASE_TEXT), np.int64)
+    waves = [synthetic.interval_wave(rng, lengths, O, w)
+             for w in range(N_BATCHES + 1)]
+
+    def spans_of(i):
+        return [(2 + k, 6 + 3 * k, {"note": k, "doc": i}) for k in range(4)]
+
+    def engine(device, idx, intervals, n_docs=None, capacity=S_SERVE):
+        """An engine holding docs ``idx`` in rows 0.. with the base text
+        and, if ``intervals``, the interval docs' spans. Returns (engine,
+        rows, {row: interval ids})."""
+        e = StringServingEngine(n_docs=n_docs or len(idx), capacity=capacity,
+                                batch_window=10 ** 9, compact_every=1,
+                                sequencer="native", device=device)
+        rows = np.arange(len(idx), dtype=np.int32)
+        for i in idx:
+            e.connect(docs[i], 1)
+        if [e.doc_row(docs[i]) for i in idx] != rows.tolist():
+            raise AssertionError("rows not allocated in doc order")
+        one = np.ones((len(idx), 1), np.int32)
+        e.ingest_planes(rows, one, one, 0 * one, 0 * one, 0 * one, 0 * one,
+                        text=synthetic.IV_BASE_TEXT)
+        ids = {}
+        if intervals:
+            ids = e.store.add_intervals_bulk(
+                {r: spans_of(i) for r, i in enumerate(idx) if i in iv_set})
+        return e, rows, ids
+
+    def sub(w, idx):
+        return {k: (v[idx] if isinstance(v, np.ndarray) else v)
+                for k, v in w.items()}
+
+    def heartbeats(e, idx, wave_next):
+        # at the next wave's pinned ref: the floor passes the tombstones of
+        # the waves so far outside the op stream (a slide on interval docs)
+        for i in idx:
+            if i in hb_set:
+                e.heartbeat(docs[i], 1, 2 + wave_next * O)
+
+    def drive(e, rows, idx, per_wave=None):
+        """The warm-up serially, heartbeats, waves 1-2 pipelined,
+        heartbeats, waves 3-4 pipelined. Returns the timed waves' walls."""
+        if e.ingest_planes(rows, **sub(waves[0], idx))["nacked"]:
+            raise AssertionError("intervals: nacked warm-up ops")
+        heartbeats(e, idx, 1)
+        walls = []
+        with PipelinedIngestExecutor(e, depth=3) as ex:
+            for lo, hi in ((1, 3), (3, 5)):
+                t0 = time.perf_counter()
+                tks = [ex.submit(rows, **sub(w, idx)) for w in waves[lo:hi]]
+                ex.drain()
+                if any(tk.result()["nacked"] for tk in tks):
+                    raise AssertionError("intervals: nacked ops")
+                for tk in tks:
+                    walls.append(tk.t_done - t0)
+                    t0 = tk.t_done
+                heartbeats(e, idx, hi)
+            busy = ex.stats()["stage_busy_ms"]
+        torch.cuda.synchronize()
+        return walls, busy
+
+    # (a) serving: the interval engine, its per-wave record, one wave's
+    # launches kept to hold against the plain version
+    every = list(range(D))
+    live, rows, ids = engine(dev, every, True)
+    store = live.store
+    per_wave, kept, compactions = [], [], []
+    fused = string_store.apply_string_batch_fused
+    keep_wave = N_BATCHES   # the last wave
+
+    def clone(st):
+        return mt.StringState(**{k: v.clone()
+                                 for k, v in st.fields().items()})
+
+    def keep(state, *ops, min_seq=None, with_props=False):
+        if len(per_wave) != keep_wave:
+            return fused(state, *ops, min_seq=min_seq,
+                         with_props=with_props)
+        before = clone(state)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fused(state, *ops, min_seq=min_seq, with_props=with_props)
+        b.record()
+        kept.append((before, clone(state), ops, min_seq, with_props, a, b))
+        return state
+
+    apply_planes, compact = store.apply_planes, store.compact
+
+    def recording_apply(*a, **kw):
+        reads, shapes = store.device_reads, dict(sk.shapes)
+        t0 = time.perf_counter()
+        apply_planes(*a, **kw)
+        host_s = time.perf_counter() - t0
+        by_width = {}
+        for (d_, s_, o_, k_, c_), n in sk.shapes.items():
+            if d_ == D and n > shapes.get((d_, s_, o_, k_, c_), 0):
+                by_width[o_] = by_width.get(o_, 0) + \
+                    n - shapes.get((d_, s_, o_, k_, c_), 0)
+        per_wave.append({**store.last_apply_stats,
+                         "slide_gathers": store.device_reads - reads,
+                         "launches_by_width": by_width,
+                         "apply_planes_host_s": host_s})
+
+    def timed_compact(ms):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        compact(ms)
+        b.record()
+        compactions.append((a, b, time.perf_counter() - t0))
+
+    store.apply_planes, store.compact = recording_apply, timed_compact
+    string_store.apply_string_batch_fused = keep
+    reads0 = store.device_reads
+    try:
+        sk.launches = 0   # the interval path starts here
+        walls, busy = drive(live, rows, every)
+        iv_launches = sk.launches   # and ends here
+    finally:
+        string_store.apply_string_batch_fused = fused
+    store.apply_planes, store.compact = apply_planes, compact
+    heartbeat_reads = store.device_reads - reads0 - sum(
+        w["slide_gathers"] for w in per_wave)
+    if live.overflowed_docs():
+        raise AssertionError("intervals: docs overflowed at S=512")
+    if iv_launches <= 0:
+        raise AssertionError("the interval path never launched string_apply")
+    if max(w["segments"] for w in per_wave) < 2:
+        raise AssertionError(f"no wave was cut into segments: {per_wave}")
+    if sum(w["segments"] for w in per_wave) != iv_launches:
+        raise AssertionError("launches differ from the segments")
+    compact_device_ms = [a.elapsed_time(b) for a, b, _ in compactions]
+    compact_host_s = [h for _, _, h in compactions]
+
+    # every launch of the kept wave against the plain version, all planes
+    max_err = 0
+    launch_ms = [{"O": ops[0].shape[1], "ms": a.elapsed_time(b)}
+                 for _, _, ops, _, _, a, b in kept]
+    for before, after, ops, ms, props, _, _ in kept:
+        ref = mt.apply_string_batch(before, *ops, with_props=props)
+        if ms is not None:
+            ref = mt.compact_string_state(ref, ms, props)
+        for k in mt.FIELDS:
+            a, b = getattr(after, k), getattr(ref, k)
+            err = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+            max_err = max(max_err, err)
+    if max_err or not kept:
+        raise AssertionError(f"intervals: kernel != plain on the kept wave "
+                             f"({len(kept)} launches, max abs err {max_err})")
+    n_kept = len(kept)
+    del kept
+    torch.cuda.empty_cache()
+
+    # the same waves and heartbeats on a card engine without intervals
+    bare, brows, _ = engine(dev, every, False)
+    bare_walls, bare_busy = drive(bare, brows, every)
+    bare_segments = bare.store.last_apply_stats["segments"]
+    del bare
+    torch.cuda.empty_cache()
+
+    # a CPU twin of 64 sampled docs: 32 interval docs (half of them
+    # heartbeated), 32 without
+    ivs = sorted(iv_set)
+    sample = sorted(set(ivs[0::64]) | set(ivs[1::64])
+                    | set(range(5, D, D // 32)))
+    twin, trows, tids = engine("cpu", sample, True)
+    drive(twin, trows, sample)
+
+    def canonical(e, rows_):
+        """Each row's [0, count) planes with handle_op ranked within the
+        row, the payload of each rank, and the digest of the ranked state:
+        what two engines that number payloads apart must agree on."""
+        st = e.store.state
+        idx = torch.as_tensor(np.asarray(rows_, np.int64),
+                              device=st.seq.device)
+        part = mt.StringState(**{k: getattr(st, k)[idx].clone()
+                                 for k in mt.FIELDS})
+        hop, cnt = part.handle_op.cpu().numpy(), part.count.cpu().numpy()
+        pays = []
+        for j, n in enumerate(cnt):
+            u, inv = np.unique(hop[j, :n], return_inverse=True)
+            hop[j, :n], hop[j, n:] = inv, 0
+            pays.append([e.store._payloads[h] for h in u])
+        part.handle_op = torch.as_tensor(hop, device=st.seq.device)
+        planes = {k: getattr(part, k).cpu().numpy() for k in
+                  mt.PLANES + ("prop_val",)}
+        return (mt.string_state_digest(part).cpu().numpy(), pays, cnt,
+                planes)
+
+    c_live, c_twin = canonical(live, sample), canonical(twin, trows)
+    for j, i in enumerate(sample):
+        n = c_live[2][j]
+        if live.read_text(docs[i]) != twin.read_text(docs[i]) or \
+                n != c_twin[2][j] or c_live[1][j] != c_twin[1][j] or \
+                c_live[0][j] != c_twin[0][j] or any(
+                    not np.array_equal(c_live[3][k][j, :n],
+                                       c_twin[3][k][j, :n])
+                    for k in c_live[3]):
+            raise AssertionError(f"{docs[i]}: differs from the CPU twin")
+        if i in iv_set:
+            a = live.store.intervals(i)
+            b = twin.store.intervals(j)
+            if [a[x] for x in ids[i]] != [b[x] for x in tids[j]]:
+                raise AssertionError(f"{docs[i]}: intervals differ from "
+                                     "the CPU twin")
+    del twin
+
+    # (c) on (a)'s engine: a full summary, per-op edits and interval
+    # changes, an incremental one; both load on the card
+    def summaries(e, edit_doc, cs, rows_):
+        """Full summary, 16 per-op removes from ``edit_doc`` on, one
+        interval of ``edit_doc``'s row swapped for a late one, incremental
+        summary; each loaded on the card and held against ``e``: the
+        intervals of ``rows_`` (the full summary's apart from the edited
+        row, which changed after it), texts and the next interval id.
+        Returns (summarize s, [load s])."""
+        t0 = time.perf_counter()
+        s_full = e.summarize()
+        start = e._doc_rows[edit_doc]
+        edited = []
+        for d, r in sorted(e._doc_rows.items(), key=lambda x: x[1]):
+            if r >= start and len(edited) < 16:
+                edited.append(d)
+                _, nack = e.submit(d, 1, cs, e.deli.doc_seq(d),
+                                   {"mt": "remove", "start": 3, "end": 8})
+                if nack is not None:
+                    raise AssertionError(f"{d}: edit nacked {nack}")
+        e.store.remove_interval(start, next(iter(e.store._intervals[start])))
+        e.store.add_interval(start, 1, 5, {"late": True})
+        s_inc = e.summarize(incremental=True)
+        summarize_s = time.perf_counter() - t0
+        load_s = []
+        for k, s in enumerate((s_full, s_inc)):
+            t0 = time.perf_counter()
+            loaded = StringServingEngine.load(s, e.log, device=dev,
+                                              sequencer="native")
+            torch.cuda.synchronize()
+            load_s.append(time.perf_counter() - t0)
+            for r in rows_:
+                if (k or r != start) and \
+                        e.store.intervals(r) != loaded.store.intervals(r):
+                    raise AssertionError(f"row {r}: loaded intervals "
+                                         "differ")
+            for d, st in e._graduated.items():
+                if loaded._graduated[d].intervals(0) != st.intervals(0):
+                    raise AssertionError(f"{d}: loaded graduated "
+                                         "intervals differ")
+            for d in edited:
+                if loaded.read_text(d) != e.read_text(d):
+                    raise AssertionError(f"{d}: loaded text differs")
+            # the full summary predates the late interval
+            want = e.store._interval_counter + k
+            nxt = loaded.store.add_interval(start, 0, 1)
+            if nxt != f"iv{want}":
+                raise AssertionError(f"the loaded id counter gave {nxt}, "
+                                     f"not iv{want}")
+            del loaded
+        return summarize_s, load_s
+
+    summarize_s, load_s = summaries(live, docs[0], 2 + (N_BATCHES + 1) * O,
+                                    sorted(iv_set))
+    del live
+    torch.cuda.empty_cache()
+
+    # (b) recovery: every doc of a 1,024-doc engine at capacity 128 holds
+    # intervals; every 16th takes inserts only (they graduate), the rest
+    # churn and are heartbeated past their tombstones before recovery
+    rec_idx = list(range(0, D, IV_EVERY))[:IV_REC_DOCS]
+    n = len(rec_idx)
+    grow = np.zeros(n, bool)
+    grow[::16] = True
+
+    def rec_engine(device):
+        e = StringServingEngine(n_docs=n, capacity=IV_REC_CAP,
+                                batch_window=10 ** 9, compact_every=1,
+                                sequencer="native", device=device)
+        e.auto_recover = False
+        rows_ = np.arange(n, dtype=np.int32)
+        for i in rec_idx:
+            e.connect(docs[i], 1)
+            e.doc_row(docs[i])
+        one = np.ones((n, 1), np.int32)
+        e.ingest_planes(rows_, one, one, 0 * one, 0 * one, 0 * one,
+                        0 * one, text=synthetic.IV_BASE_TEXT)
+        e.store.add_intervals_bulk({r: spans_of(i)
+                                    for r, i in enumerate(rec_idx)})
+        return e, rows_
+
+    (rc, rrows), (rt, _) = rec_engine(dev), rec_engine("cpu")
+    rrng = np.random.default_rng(13)
+    rlengths = np.full(n, len(synthetic.IV_BASE_TEXT), np.int64)
+    t0 = time.perf_counter()
+    sk.launches = 0   # the interval recovery path starts here
+    for w in range(8):
+        wave = synthetic.interval_wave(rrng, rlengths, O, w,
+                                       inserts_only=grow)
+        for e in (rc, rt):
+            if e.ingest_planes(rrows, **wave)["nacked"]:
+                raise AssertionError("intervals (b): nacked ops")
+        over = set(rc.overflowed_docs())
+        if {docs[rec_idx[r]] for r in np.flatnonzero(grow)} <= over and \
+                len(over) >= 2 * grow.sum():
+            break
+    n_waves = w + 1
+    for e in (rc, rt):
+        for r in np.flatnonzero(~grow):
+            e.heartbeat(docs[rec_idx[r]], 1, 2 + n_waves * O)
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = rc.recover_overflowed()
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    if rep != rt.recover_overflowed() or \
+            set(rep.values()) != {"reuploaded", "graduated"}:
+        raise AssertionError(f"intervals (b): reports {rep}")
+    grown = sorted(rc._graduated)[0]
+    cs = 2 + n_waves * O
+    while not rc._graduated[grown].overflowed().any():
+        for e in (rc, rt):
+            _, nack = e.submit(grown, 1, cs, e.deli.doc_seq(grown), {
+                "mt": "insert", "kind": 0, "pos": 1, "text": "Q"})
+            if nack is not None:
+                raise AssertionError(f"{grown}: nacked {nack}")
+            e.flush()
+        cs += 1
+    regrow = [e.recover_overflowed() for e in (rc, rt)]
+    if regrow != [{grown: "regrown"}] * 2:
+        raise AssertionError(f"intervals (b): regrow {regrow}")
+    rec_launches = sk.launches   # and ends here
+
+    def same_engine(a, b):
+        if a._doc_rows != b._doc_rows or \
+                sorted(a._graduated) != sorted(b._graduated):
+            raise AssertionError("intervals (b): rows or tiers differ")
+        for d in list(a._doc_rows) + list(a._graduated):
+            if a.read_text(d) != b.read_text(d):
+                raise AssertionError(f"{d}: text differs")
+        if not np.array_equal(a.store.digests(), b.store.digests()):
+            raise AssertionError("intervals (b): flat digests differ")
+        for d, st in a._graduated.items():
+            if st.digests()[0] != b._graduated[d].digests()[0]:
+                raise AssertionError(f"{d}: graduated digest differs")
+        pairs = [(a.store, b.store, range(n))] + [
+            (s, b._graduated[d], [0]) for d, s in a._graduated.items()]
+        for x, y, rows_ in pairs:
+            if x._intervals != y._intervals or \
+                    x._interval_counter != y._interval_counter:
+                raise AssertionError("intervals (b): anchors differ")
+            for r in rows_:
+                if x._intervals[r] and x.intervals(r) != y.intervals(r):
+                    raise AssertionError(f"row {r}: intervals differ")
+
+    same_engine(rc, rt)
+    del rt
+    edit = next(d for d, r in sorted(rc._doc_rows.items(),
+                                     key=lambda x: x[1])
+                if rc.store._intervals[r])
+    rsummarize_s, rload_s = summaries(rc, edit, 2 + n_waves * O, range(n))
+    del rc
+    torch.cuda.empty_cache()
+
+    line = {"phase": "intervals", "docs": D, "capacity": S_SERVE,
+            "interval_docs": len(iv_set), "intervals_a_doc": 4,
+            "heartbeat_docs": len(hb_set), "ops_per_wave": D * O,
+            "waves": [{"wall_s": wall, **pw} for wall, pw in
+                      zip([None] + walls, per_wave)],
+            "bare_wave_wall_s": bare_walls,
+            "stage_busy_ms": busy, "bare_stage_busy_ms": bare_busy,
+            "kept_wave_launch_ms": launch_ms,
+            "bare_last_wave_segments": bare_segments,
+            "heartbeat_slide_gathers": heartbeat_reads,
+            "compaction_device_ms": compact_device_ms,
+            "compaction_host_s": compact_host_s,
+            "kept_wave_launches_checked": n_kept, "max_abs_err": max_err,
+            "kernel_launches": iv_launches,
+            "sampled_docs_match_cpu": len(sample),
+            "summarize_s": summarize_s, "load_s": load_s,
+            "recovery": {"docs": n, "capacity": IV_REC_CAP,
+                         "waves": n_waves, "feed_s": feed_s,
+                         "recover_s": recover_s,
+                         "reuploaded": sum(v == "reuploaded"
+                                           for v in rep.values()),
+                         "graduated": sum(v == "graduated"
+                                          for v in rep.values()),
+                         "regrown": grown, "kernel_launches": rec_launches,
+                         "summarize_s": rsummarize_s, "load_s": rload_s},
+            "total_s": time.perf_counter() - t_phase, "card": smi}
+    emit(line)
+    return iv_launches, rec_launches, max_err
+
+
 def parent_timing(parent, tree_inputs=None, axis_inputs=None,
                   mega_inputs=None):
     """K1-K7 of ``parent`` (another checkout, e.g. an archive
@@ -3224,6 +3676,9 @@ def main(argv=None) -> int:
     keep_mega = os.path.join(tmp, "megadoc_inputs.pt") if tmp else None
     mega_entry = megadoc_phase(smi, dev, reports["megadoc_apply"], keep_mega)
     torch.cuda.empty_cache()
+    iv_launches, iv_rec_launches, iv_err = intervals_phase(smi, dev)
+    max_err = max(max_err, iv_err)
+    torch.cuda.empty_cache()
     timing_pc = parent_timing(args.parent, keep_tree, keep_axis,
                               keep_mega) if args.parent else None
     if tmp:
@@ -3251,6 +3706,8 @@ def main(argv=None) -> int:
         "shape": {"D": D, "S": S_SERVE, "O": O,
                   "spec": "no-props+compact (the serving path)"},
         "recovery_launches": phase_launches,
+        "interval_launches": iv_launches,
+        "interval_recovery_launches": iv_rec_launches,
         "specialisations": [
             {"spec": name, "S": S, "state": state, **t}
             for (name, S, state), t in timing.items()] + rebuild_rows,

@@ -17,10 +17,18 @@ splits a history longer than one launch can stage into op windows.
 Overflow recovery re-uploads a rebuilt doc with ``adopt_doc`` (or empties
 a graduated doc's row with ``clear_doc``); incremental summaries carry
 ``snapshot_rows`` deltas, folded back by ``apply_row_snapshot``.
+
+Intervals (anchored ranges over a doc's text, SlideOnRemove endpoints) are
+host-side ``(handle_op, handle_off)`` anchors, so an apply never touches
+them. They slide where a doc's window floor crosses a pending tombstone:
+both apply routes cut their batch at that op, apply the part before it (a
+kernel launch), re-anchor the crossing docs off one fused row gather and go
+on; ``compact`` re-anchors before zamboni drops the tombstones.
 """
 
 from __future__ import annotations
 
+import heapq
 import json
 from typing import Dict, List, Optional, Tuple
 
@@ -352,6 +360,24 @@ class TensorStringStore(StringOpInterner):
         self.last_rich_wire: Optional[str] = None
         #: op width of each launch of the last ``apply_messages``
         self.last_op_windows: List[int] = []
+        #: segments and their op widths of the last ``apply_planes``
+        self.last_apply_stats: dict = {}
+        #: fused device→host gathers served (reads, interval anchoring and
+        #: slides)
+        self.device_reads = 0
+        # interval id → (start anchor, end anchor, props) per doc; an
+        # anchor is a (handle_op, handle_off) point or None (detached)
+        self._intervals: List[Dict[str, tuple]] = [dict()
+                                                   for _ in range(n_docs)]
+        self._interval_counter = 0
+        # highest window floor seen per doc (slides trigger at advances)
+        self._iv_min_seq = np.zeros((n_docs,), np.int64)
+        # per interval-holding doc, a min-heap of its uncompacted
+        # tombstone seqs: tells host-side whether a floor advance dooms
+        # a tombstone (only then do anchors slide)
+        self._iv_tombs: List[list] = [[] for _ in range(n_docs)]
+        # rows holding intervals (an O(1) check on the columnar path)
+        self._iv_docs: set = set()
 
     # ----------------------------------------------------------------- apply
 
@@ -360,8 +386,35 @@ class TensorStringStore(StringOpInterner):
         merge-tree op contents. Each doc's records apply in order: in one
         launch, or in consecutive op windows when one launch cannot take
         them all (the apply is an in-order fold per doc and the overflow
-        flag is sticky, so the windows leave the same state)."""
-        for planes in self._message_planes(messages):
+        flag is sticky, so the windows leave the same state).
+
+        A doc holding intervals cuts the batch at the message whose window
+        floor dooms one of its pending tombstones, and only there: the
+        group up to and including that message applies, the doc's anchors
+        slide off the state at the crossing, then the rest goes on."""
+        self.last_op_windows = []
+        msgs = list(messages)
+        iv_docs = self._iv_docs
+        if not iv_docs:
+            self._apply_group(msgs)
+            return
+        group: list = []
+        for doc, msg in msgs:
+            group.append((doc, msg))
+            if doc in iv_docs:
+                if msg.min_seq > self._iv_min_seq[doc]:
+                    self._iv_min_seq[doc] = msg.min_seq
+                    if self._floor_dooms_tombstone(doc):
+                        self._apply_group(group)
+                        group = []
+                        self._slide_anchors_at_floor(doc)
+                if msg.contents["mt"] == "remove":
+                    heapq.heappush(self._iv_tombs[doc], msg.seq)
+        if group:
+            self._apply_group(group)
+
+    def _apply_group(self, msgs) -> None:
+        for planes in self._message_planes(msgs):
             self._dispatch_apply(tuple(torch.from_numpy(p).to(self.device)
                                        for p in planes))
 
@@ -370,13 +423,13 @@ class TensorStringStore(StringOpInterner):
         op planes: one (7, n_docs, O) int32 array per launch, O the power-
         of-two bucket of the widest doc's records (the JAX store's static
         shapes), capped at ``_op_window()``; NOOP pads. Records intern
-        here, so every returned window must be applied, in order."""
+        here, so every returned window must be applied, in order. Each
+        window's O is appended to ``last_op_windows``."""
         per_doc: Dict[int, list] = {}
         for doc, msg in messages:
             recs = self._records_for(doc, msg)
             if recs:
                 per_doc.setdefault(doc, []).extend(recs)
-        self.last_op_windows = []
         if not per_doc:
             return []
         widest = max(len(v) for v in per_doc.values())
@@ -432,19 +485,31 @@ class TensorStringStore(StringOpInterner):
                 pool.append((pp.tab_a2, pp.tab_len))
         pp.tab_a2 = pp.tab_len = None
 
-    def _pack_payload_tables(self, kind, a0, a1, text, texts, tidx,
+    def _touches_intervals(self, rows, ins) -> bool:
+        """Whether a batch inserts on a row that holds intervals."""
+        return bool(self._iv_docs) and bool(ins.any()) and \
+            not self._iv_docs.isdisjoint(np.asarray(rows).reshape(-1).tolist())
+
+    def _pack_payload_tables(self, rows, kind, a0, a1, text, texts, tidx,
                              props) -> PrepackedPlanes:
         """The payload/props side of a columnar apply's wire form: intern
         payloads, pack props, choose the rich wire mode, resolve insert
         lengths. Depends only on the raw op planes, never on sequencing;
-        mutates the interner, so call in submission order."""
+        mutates the interner, so call in submission order.
+
+        Anchors key by (payload handle, offset), so two same-text inserts
+        in one doc must not share a handle: a batch inserting on a row that
+        holds intervals mints one handle per insert and ships the resolved
+        a2 plane (as the per-message path does); interval-free batches keep
+        the deduplicated tables."""
         pp = PrepackedPlanes()
         R, O = kind.shape
         ins = kind == _INS
         ann = kind == _ANN
         if ann.any() and props is None:
             raise ValueError("annotate slots require the props table")
-        pp.rich = not (texts is None and props is None)
+        iv_handles = self._touches_intervals(rows, ins)
+        pp.rich = not (texts is None and props is None) or iv_handles
         if not pp.rich:
             # broadcast payload: a2 is one scalar handle
             pp.a2_np = np.array([self._payload(_TEXT, text)], np.int32)
@@ -471,6 +536,28 @@ class TensorStringStore(StringOpInterner):
                     except TypeError:
                         pass
                 packed_tab[j] = packed
+        if iv_handles:
+            # per-op handle mint (anchor identity), resolved a2 plane
+            pp.rich_mode = 1
+            base_h = len(self._payloads)
+            flat_ins = np.flatnonzero(ins.reshape(-1))
+            if texts is not None:
+                t_list = [texts[j] for j in
+                          map(int, tidx.reshape(-1)[flat_ins])]
+            else:
+                t_list = [text] * len(flat_ins)
+            self._payloads.extend((_TEXT, t) for t in t_list)
+            a2_np = np.zeros((R, O), np.int32)
+            a2_np.reshape(-1)[flat_ins] = np.arange(
+                base_h, base_h + len(flat_ins), dtype=np.int32)
+            lens = np.zeros((R, O), np.int32)
+            lens.reshape(-1)[flat_ins] = np.fromiter(
+                map(len, t_list), np.int32, count=len(t_list))
+            pp.a1 = np.where(ins, lens, a1)
+            if len(packed_tab):
+                a2_np[ann] = packed_tab[tidx[ann]]
+            pp.a2_np = a2_np
+            return pp
         # one interner pass per unique payload/props entry: handles resolve
         # into small per-batch tables (texts first, packed props after)
         if texts is not None:
@@ -518,18 +605,27 @@ class TensorStringStore(StringOpInterner):
             pp.a1 = a1_out
         return pp
 
-    def prepack_planes(self, kind, a0, a1, text: str = "", texts=None,
-                       tidx=None, props=None) -> PrepackedPlanes:
+    def prepack_planes(self, rows, kind, a0, a1, text: str = "",
+                       texts=None, tidx=None,
+                       props=None) -> Optional[PrepackedPlanes]:
         """Pipelined-ingest hook: the seq-independent pack work for a wave,
         run ahead of its sequencing; hand the result to
-        ``apply_planes(prepacked=...)``."""
+        ``apply_planes(prepacked=...)``.
+
+        Returns None when the wave inserts on a row holding intervals: that
+        pack mints a handle per acked op, which only sequencing knows, so
+        the caller packs inline at dispatch (and a pipeline holds the next
+        wave's pack until then, keeping handle order serial)."""
+        kind = np.asarray(kind, np.int32)
+        if self._touches_intervals(rows, kind == _INS):
+            return None
         return self._pack_payload_tables(
-            np.asarray(kind, np.int32), np.asarray(a0, np.int32),
+            np.asarray(rows), kind, np.asarray(a0, np.int32),
             np.asarray(a1, np.int32), text, texts, tidx, props)
 
     def apply_planes(self, rows, kind, a0, a1, seq_base, client_id, ref_seq,
                      text: str = "", min_seq=None, texts=None, tidx=None,
-                     props=None, prepacked=None) -> None:
+                     props=None, min_ops=None, prepacked=None) -> None:
         """Columnar apply: dense (R, O) already-sequenced op planes for the
         doc rows ``rows`` (R,). Ops per doc apply in column order; NOOP
         slots (nacked ops) consumed no seq, so per-op seqs are rebuilt on
@@ -543,7 +639,19 @@ class TensorStringStore(StringOpInterner):
         The whole batch crosses to the device as ONE int32 word buffer, in
         the tightest of three wire profiles: ``compact8`` (5 B/op when
         spans, lags and client indexes fit a byte), ``lag16`` (u16 lag
-        behind the op's own seq) or ``ref_wide`` (i32 ref)."""
+        behind the op's own seq) or ``ref_wide`` (i32 ref).
+
+        Rows holding intervals take this path too. ``min_ops`` is the
+        (R, O) per-op window floor the sequencer stamped: the batch is cut
+        after each column where a doc's floor crosses a pending tombstone,
+        each segment is packed and launched on its own (its seq base the
+        seq before its first column), and the crossing docs' anchors slide
+        off one fused row gather right after their segment. Without
+        ``min_ops`` the floor is taken not to move inside the batch (removes
+        still feed the tombstone heaps). While any row holds intervals
+        zamboni is not fused: ``compact`` runs after the segments, since it
+        re-anchors first. ``last_apply_stats`` holds the segment count and
+        widths."""
         rows = np.ascontiguousarray(rows, np.int32)
         R, O = kind.shape
         if len(np.unique(rows)) != R:
@@ -555,8 +663,8 @@ class TensorStringStore(StringOpInterner):
         a1 = np.asarray(a1, np.int32)
         pp = prepacked
         if pp is None:
-            pp = self._pack_payload_tables(kind, a0, a1, text, texts, tidx,
-                                           props)
+            pp = self._pack_payload_tables(rows, kind, a0, a1, text, texts,
+                                           tidx, props)
         rich, rich_mode, a1 = pp.rich, pp.rich_mode, pp.a1
 
         # client interning. Fast path: one writer per doc row (R dict hits,
@@ -609,7 +717,7 @@ class TensorStringStore(StringOpInterner):
         ref_wide = bool((lag > 65535).any())
         scatter_rows = not (R == self.n_docs
                             and np.array_equal(rows, np.arange(R)))
-        fuse = min_seq is not None
+        fuse = min_seq is not None and not self._iv_docs
         ms = np.asarray(min_seq, np.int32) if fuse \
             else np.zeros((1,), np.int32)
         span = np.where(ins, a1, a1 - a0) if rich_mode < 2 \
@@ -629,6 +737,21 @@ class TensorStringStore(StringOpInterner):
                                {1: "plane", 2: "tab8", 3: "tab16"}
                                [rich_mode])
 
+        # the crossing scan: a segment ends after every column where an
+        # interval doc's floor crosses a pending tombstone
+        segments = [(0, O, ())]
+        if self._iv_docs:
+            splits = self._interval_scan(
+                rows, kind, seq, None if min_ops is None
+                else np.asarray(min_ops))
+            if splits:
+                segments, prev = [], 0
+                for b in sorted(splits):
+                    segments.append((prev, b, splits[b]))
+                    prev = b
+                if prev < O:
+                    segments.append((prev, O, ()))
+
         def seg_u8(arr):
             b = np.ascontiguousarray(arr, np.uint8).reshape(-1)
             if len(b) % 4:
@@ -643,42 +766,64 @@ class TensorStringStore(StringOpInterner):
 
         seg_pos = seg_u16 if narrow else \
             (lambda a: np.ascontiguousarray(a, "<i4").reshape(-1))
-        if compact8:
-            kc = np.where(kind == _NOOP, 3, kind) | (cidx << 2)
-            head = [seg_u8(kc), seg_u16(a0), seg_u8(span), seg_u8(lag)]
-        elif ref_wide:
-            head = [seg_u8(kind), seg_u8(cidx), seg_pos(a0), seg_pos(a1),
-                    np.ascontiguousarray(ref_seq, "<i4").reshape(-1)]
-        else:  # ship the u16 lag; the device rebuilds ref = seq - lag
-            head = [seg_u8(kind), seg_u8(cidx), seg_pos(a0), seg_pos(a1),
-                    seg_u16(lag)]
-        if rich_mode >= 2:
-            tail = [(seg_u8 if rich_mode == 2 else seg_u16)(pp.tidx_eff),
-                    pp.tab_a2.astype("<i4", copy=False),
-                    pp.tab_len.astype("<i4", copy=False)]
-        else:
-            tail = [np.ascontiguousarray(pp.a2_np, "<i4").reshape(-1)]
-        buf = np.concatenate(head + tail + [
-            seq_base.astype("<i4", copy=False),
-            rows.astype("<i4", copy=False),
-            ms.astype("<i4", copy=False),
-        ])
+        for c0, c1, slides in segments:
+            cut = (slice(None), slice(c0, c1))
+            base = seq_base if c0 == 0 else seq[:, c0 - 1]
+            kind_s, a0_s, a1_s = kind[cut], a0[cut], a1[cut]
+            cidx_s, lag_s = cidx[cut], lag[cut]
+            if compact8:
+                kc = np.where(kind_s == _NOOP, 3, kind_s) | (cidx_s << 2)
+                head = [seg_u8(kc), seg_u16(a0_s), seg_u8(span[cut]),
+                        seg_u8(lag_s)]
+            elif ref_wide:
+                head = [seg_u8(kind_s), seg_u8(cidx_s), seg_pos(a0_s),
+                        seg_pos(a1_s), np.ascontiguousarray(
+                            np.asarray(ref_seq)[cut], "<i4").reshape(-1)]
+            else:  # ship the u16 lag; the device rebuilds ref = seq - lag
+                head = [seg_u8(kind_s), seg_u8(cidx_s), seg_pos(a0_s),
+                        seg_pos(a1_s), seg_u16(lag_s)]
+            if rich_mode >= 2:
+                tail = [(seg_u8 if rich_mode == 2 else seg_u16)(
+                            pp.tidx_eff[cut]),
+                        pp.tab_a2.astype("<i4", copy=False),
+                        pp.tab_len.astype("<i4", copy=False)]
+            elif rich_mode == 1:
+                tail = [np.ascontiguousarray(pp.a2_np[cut],
+                                             "<i4").reshape(-1)]
+            else:
+                tail = [pp.a2_np.astype("<i4", copy=False)]
+            buf = np.concatenate(head + tail + [
+                np.ascontiguousarray(base, "<i4"),
+                rows.astype("<i4", copy=False),
+                ms.astype("<i4", copy=False),
+            ])
+            planes, ms_dev = _columnar_unpack(
+                torch.from_numpy(buf).to(self.device), R=R, O=c1 - c0,
+                pos_wide=not narrow, ref_wide=ref_wide, rich=rich_mode,
+                n_docs=self.n_docs, fuse_compact=fuse,
+                scatter_rows=scatter_rows, compact8=compact8,
+                tab_n=pp.tab_n)
+            self._dispatch_apply(planes, ms_dev if fuse else None)
+            if slides:
+                self._slide_docs(slides)
         self._tab_release(pp)
-        planes, ms_dev = _columnar_unpack(
-            torch.from_numpy(buf).to(self.device), R=R, O=O,
-            pos_wide=not narrow, ref_wide=ref_wide, rich=rich_mode,
-            n_docs=self.n_docs, fuse_compact=fuse, scatter_rows=scatter_rows,
-            compact8=compact8, tab_n=pp.tab_n)
-        self._dispatch_apply(planes, ms_dev if fuse else None)
+        self.last_apply_stats = {"segments": len(segments),
+                                 "widths": [c1 - c0 for c0, c1, _ in
+                                            segments]}
+        if min_seq is not None and not fuse:
+            self.compact(np.asarray(min_seq))
 
     def compact(self, min_seq) -> None:
         """Zamboni: free tombstones below the collaboration window
         (``min_seq`` scalar or (n_docs,))."""
         ms = np.full((self.n_docs,), int(min_seq), np.int32) \
             if np.isscalar(min_seq) else np.asarray(min_seq, np.int32)
+        self._reanchor_for_compact(ms)
         self.state = compact_string_state(
             self.state, torch.from_numpy(ms).to(self.device),
             with_props=self._has_props)
+        for doc in self._iv_docs:
+            self._prune_tombs(doc, int(ms[doc]))
 
     # ----------------------------------------------------------------- reads
 
@@ -686,6 +831,7 @@ class TensorStringStore(StringOpInterner):
         """One fused device→host gather of a doc's read planes
         (removed_seq, handle_op, handle_off, length, seq), trimmed to its
         slot count."""
+        self.device_reads += 1
         st = self.state
         S = st.seq.shape[1]
         arr = torch.stack([
@@ -750,6 +896,292 @@ class TensorStringStore(StringOpInterner):
         return torch.where(live, st.length, 0).sum(
             dim=1, dtype=_I32).cpu().numpy()
 
+    # -------------------------------------------------------------- intervals
+    # Anchored ranges over the served text (reference: IntervalCollection /
+    # SequenceInterval with SlideOnRemove endpoints).
+
+    def _gather_rows(self, rows):
+        """(removed_seq, length, handle_op, handle_off, count) of doc rows
+        ``rows`` as numpy arrays, from ONE device→host copy."""
+        self.device_reads += 1
+        st = self.state
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        S = st.seq.shape[1]
+        g = torch.stack([st.removed_seq[idx], st.length[idx],
+                         st.handle_op[idx], st.handle_off[idx],
+                         st.count[idx, None].expand(-1, S)]).cpu().numpy()
+        return g[0], g[1], g[2], g[3], g[4][:, 0]
+
+    def _doc_slots(self, doc: int):
+        """(handle_op, handle_off, length, live) of active slots."""
+        rem, hop, hoff, length, _ = self._pull_doc(doc)
+        return hop, hoff, length, rem == NOT_REMOVED
+
+    @staticmethod
+    def _anchor_in(slots, pos: int):
+        """Anchor of the visible character at ``pos`` in pulled slots (at
+        or past the doc's end: its last visible char; empty doc: None,
+        detached), as the oracle's _anchor."""
+        hop, hoff, length, live = slots
+        at = 0
+        last = None
+        for i in range(len(hop)):
+            if not live[i]:
+                continue
+            if at <= pos < at + length[i]:
+                return (int(hop[i]), int(hoff[i]) + (pos - at))
+            at += int(length[i])
+            last = (int(hop[i]), int(hoff[i]) + int(length[i]) - 1)
+        return last
+
+    def _anchor_position(self, doc: int, anchor, slots=None) -> int:
+        """Resolve an anchor with slide semantics: a tombstoned anchor
+        resolves to the live prefix at its slot (the nearest following
+        live position), as the oracle's get_position. ``slots`` lets a
+        caller resolving many anchors pull the doc once."""
+        if anchor is None:
+            return 0  # detached parks at document start
+        h, off = anchor
+        hop, hoff, length, live = slots if slots is not None \
+            else self._doc_slots(doc)
+        at = 0
+        for i in range(len(hop)):
+            if hop[i] == h and hoff[i] <= off < hoff[i] + length[i]:
+                return at + (off - int(hoff[i])) if live[i] else at
+            if live[i]:
+                at += int(length[i])
+        return at  # the anchor's slot is gone
+
+    def _floor_dooms_tombstone(self, doc: int) -> bool:
+        """Does the doc's window floor reach a pending tombstone?"""
+        tombs = self._iv_tombs[doc]
+        return bool(tombs) and tombs[0] <= self._iv_min_seq[doc]
+
+    def _slide_anchors_at_floor(self, doc: int) -> None:
+        """Slide the doc's anchors off slots its floor dooms, then drop
+        those tombstones from its heap (a slid tombstone needs no other
+        slide)."""
+        self._reanchor_for_compact(self._iv_min_seq, only_doc=doc)
+        self._prune_tombs(doc, int(self._iv_min_seq[doc]))
+
+    def _prune_tombs(self, doc: int, floor: int) -> None:
+        tombs = self._iv_tombs[doc]
+        while tombs and tombs[0] <= floor:
+            heapq.heappop(tombs)
+
+    def _seed_from(self, doc: int, removed) -> None:
+        """The doc's tombstone heap from its pulled removed_seq plane:
+        every tombstone above its floor, which a later advance could
+        doom."""
+        floor = self._iv_min_seq[doc]
+        tombs = [int(s) for s in removed[removed != NOT_REMOVED]
+                 if s > floor]
+        heapq.heapify(tombs)
+        self._iv_tombs[doc] = tombs
+
+    def _seed_tombs(self, doc: int) -> None:
+        """Rebuild the doc's tombstone heap from the device planes (at its
+        first interval, after a restore or a re-upload)."""
+        st = self.state
+        n = int(st.count[doc])
+        self._seed_from(doc, st.removed_seq[doc, :n].cpu().numpy())
+
+    def add_intervals_bulk(self, spans: Dict[int, list]
+                           ) -> Dict[int, List[str]]:
+        """Anchor many intervals across many docs off ONE fused gather of
+        every target row: ``spans`` maps doc row → [(start, end, props)];
+        returns doc row → the new interval ids."""
+        rows = np.asarray(sorted(spans), np.int32)
+        if not len(rows):
+            return {}
+        removed_g, length_g, hop_g, hoff_g, count_g = self._gather_rows(rows)
+        out: Dict[int, List[str]] = {}
+        for j, row in enumerate(rows.tolist()):
+            cnt = int(count_g[j])
+            removed = removed_g[j, :cnt]
+            slots = (hop_g[j, :cnt], hoff_g[j, :cnt], length_g[j, :cnt],
+                     removed == NOT_REMOVED)
+            if not self._intervals[row]:
+                self._seed_from(row, removed)
+            ids = []
+            for start, end, props in spans[row]:
+                self._interval_counter += 1
+                iid = f"iv{self._interval_counter}"
+                self._intervals[row][iid] = (self._anchor_in(slots, start),
+                                             self._anchor_in(slots, end),
+                                             dict(props or {}))
+                ids.append(iid)
+            self._iv_docs.add(row)
+            out[row] = ids
+        return out
+
+    def add_interval(self, doc: int, start: int, end: int,
+                     props: Optional[dict] = None) -> str:
+        return self.add_intervals_bulk({doc: [(start, end, props)]})[doc][0]
+
+    def remove_interval(self, doc: int, iid: str) -> None:
+        del self._intervals[doc][iid]
+        if not self._intervals[doc]:
+            self._iv_docs.discard(doc)
+
+    def interval_endpoints(self, doc: int, iid: str):
+        a, b, _props = self._intervals[doc][iid]
+        slots = self._doc_slots(doc)
+        return (self._anchor_position(doc, a, slots),
+                self._anchor_position(doc, b, slots))
+
+    def intervals(self, doc: int) -> dict:
+        """Interval id → (start, end, props) of a doc's intervals."""
+        slots = self._doc_slots(doc)
+        return {iid: (self._anchor_position(doc, a, slots),
+                      self._anchor_position(doc, b, slots), dict(props))
+                for iid, (a, b, props) in self._intervals[doc].items()}
+
+    def advance_min_seq(self, doc: int, min_seq: int) -> None:
+        """A window-floor advance that arrived outside the op stream (a
+        heartbeat): slide the doc's anchors now, as an in-stream advance
+        would."""
+        if not self._intervals[doc] or min_seq <= self._iv_min_seq[doc]:
+            return
+        self._iv_min_seq[doc] = min_seq
+        if self._floor_dooms_tombstone(doc):
+            self._slide_anchors_at_floor(doc)
+
+    def _interval_scan(self, rows, kind, seq, min_ops):
+        """The columnar batch's crossing scan (``apply_messages``'s
+        bookkeeping over planes): walk each interval row's op columns,
+        advance the doc's floor from ``min_ops`` and, where the floor
+        crosses a pending tombstone, cut a segment AFTER that column (the
+        crossing op lands before the slide). A remove feeds the heap after
+        the check (its own seq is never at or below the floor it carries).
+
+        Returns {boundary column: ((doc, floor at the crossing), ...)};
+        updates the heaps and floors. With ``min_ops=None`` only the heaps
+        are fed."""
+        splits: Dict[int, list] = {}
+        rem_k = int(OpKind.STR_REMOVE)
+        iv = self._iv_docs
+        for i, d in enumerate(map(int, rows)):
+            if d not in iv:
+                continue
+            krow = kind[i]
+            rem_mask = krow == rem_k
+            if min_ops is None:
+                tombs = self._iv_tombs[d]
+                for j in map(int, np.flatnonzero(rem_mask)):
+                    heapq.heappush(tombs, int(seq[i, j]))
+                continue
+            mrow = min_ops[i]
+            floor = self._iv_min_seq[d]
+            cand = np.flatnonzero(rem_mask
+                                  | ((krow != _NOOP) & (mrow > floor)))
+            if not len(cand):
+                continue
+            tombs = self._iv_tombs[d]
+            for j in map(int, cand):
+                m = int(mrow[j])
+                if m > floor:
+                    floor = m
+                    if tombs and tombs[0] <= floor:
+                        splits.setdefault(j + 1, []).append((d, floor))
+                        while tombs and tombs[0] <= floor:
+                            heapq.heappop(tombs)
+                if rem_mask[j]:
+                    heapq.heappush(tombs, int(seq[i, j]))
+            self._iv_min_seq[d] = floor
+        return {b: tuple(v) for b, v in splits.items()}
+
+    def _slide_docs(self, pairs) -> None:
+        """Re-anchor (doc, floor) crossings off the current state with ONE
+        fused row gather for all of them."""
+        if not pairs:
+            return
+        removed_g, length_g, hop_g, hoff_g, count_g = self._gather_rows(
+            [d for d, _ in pairs])
+        for j, (d, floor) in enumerate(pairs):
+            cnt = int(count_g[j])
+            self._reanchor_arrays(d, floor, removed_g[j, :cnt],
+                                  hop_g[j, :cnt], hoff_g[j, :cnt],
+                                  length_g[j, :cnt])
+
+    def _reanchor_arrays(self, doc: int, floor: int, removed, hop, hoff,
+                         length) -> None:
+        """Slide the doc's anchors off slots doomed at ``floor`` (pulled
+        planes): to the first following live char, else the last
+        preceding one, else detach (the oracle's _slide_refs rules)."""
+        doomed = removed <= floor
+        if not doomed.any():
+            return
+        live_idx = np.flatnonzero(removed == NOT_REMOVED)
+        hi = hoff + length
+
+        def slide(i):
+            k = np.searchsorted(live_idx, i + 1)
+            if k < len(live_idx):           # first following live char
+                j = live_idx[k]
+                return (int(hop[j]), int(hoff[j]))
+            k = np.searchsorted(live_idx, i) - 1
+            if k >= 0:                      # last preceding live char
+                j = live_idx[k]
+                return (int(hop[j]), int(hi[j]) - 1)
+            return None                     # no live text: detach
+
+        for iid, (a, b, props) in list(self._intervals[doc].items()):
+            new = []
+            for anchor in (a, b):
+                if anchor is not None:
+                    h, off = anchor
+                    hit = np.flatnonzero((hop == h) & (hoff <= off)
+                                         & (off < hi))
+                    if len(hit) and doomed[hit[0]]:
+                        anchor = slide(int(hit[0]))
+                new.append(anchor)
+            self._intervals[doc][iid] = (new[0], new[1], props)
+
+    def _reanchor_for_compact(self, min_seq, only_doc: Optional[int] = None
+                              ) -> None:
+        """Before zamboni drops the tombstones at or below ``min_seq``
+        (per doc), move anchors off them. Only docs whose heap the floor
+        dooms are gathered, all in one gather."""
+        docs = self._iv_docs if only_doc is None else (only_doc,)
+        pairs = []
+        for doc in docs:
+            if not self._intervals[doc]:
+                continue
+            floor = int(min_seq[doc])
+            tombs = self._iv_tombs[doc]
+            if tombs and tombs[0] <= floor:
+                pairs.append((doc, floor))
+        self._slide_docs(pairs)
+
+    def _restore_intervals(self, snap: dict) -> None:
+        """Interval state from a snapshot (either package's), heaps
+        re-seeded from the planes."""
+        self._intervals = [
+            {iid: (tuple(a) if a else None, tuple(b) if b else None,
+                   dict(props))
+             for iid, (a, b, props) in per_doc.items()}
+            for per_doc in snap.get("intervals",
+                                    [{} for _ in range(self.n_docs)])]
+        self._interval_counter = snap.get("interval_counter", 0)
+        self._iv_min_seq = np.asarray(
+            snap.get("iv_min_seq", [0] * self.n_docs), np.int64)
+        self._iv_tombs = [[] for _ in range(self.n_docs)]
+        self._iv_docs = {d for d in range(self.n_docs)
+                         if self._intervals[d]}
+        for d in self._iv_docs:
+            self._seed_tombs(d)
+
+    def _interval_snapshot(self) -> dict:
+        return {
+            "intervals": [{iid: [list(a) if a else None,
+                                 list(b) if b else None, props]
+                           for iid, (a, b, props) in per_doc.items()}
+                          for per_doc in self._intervals],
+            "interval_counter": self._interval_counter,
+            "iv_min_seq": self._iv_min_seq.tolist(),
+        }
+
     # ----------------------------------------------------- overflow recovery
 
     def _write_rows(self, rows: torch.Tensor, planes: np.ndarray,
@@ -797,14 +1229,23 @@ class TensorStringStore(StringOpInterner):
                              .numpy(), prop[0])
         self._write_rows(torch.tensor([row], device=self.device), planes,
                          prop, [n], [0])
+        # interval bookkeeping restarts from the rebuilt planes
+        if self._intervals[row]:
+            self._seed_tombs(row)
 
     def clear_doc(self, row: int) -> None:
         """Empty a row (its doc graduated off this store): fill planes,
-        count 0, overflow flag cleared."""
+        count 0, overflow flag cleared, and its interval state reset, so
+        a doc that reuses the row starts with none of it (the JAX engine
+        keeps the row's floor, heap and membership: ROADMAP C8)."""
         planes, prop = self._empty_rows(1)
         self._write_rows(torch.tensor([row], device=self.device), planes,
                          prop, [0], [0])
         self._cidx_cache = None
+        self._intervals[row] = {}
+        self._iv_tombs[row] = []
+        self._iv_min_seq[row] = 0
+        self._iv_docs.discard(row)
 
     def overflowed(self) -> np.ndarray:
         return self.state.overflow.cpu().numpy()
@@ -836,6 +1277,7 @@ class TensorStringStore(StringOpInterner):
             "prop_planes": dict(self._prop_planes),
             "prop_values": self._prop_values.export(),
             "has_props": self._has_props,
+            **self._interval_snapshot(),
         }
 
     def snapshot_rows(self, rows, payloads_base: int,
@@ -843,8 +1285,9 @@ class TensorStringStore(StringOpInterner):
         """Incremental snapshot: only the given doc rows' planes (one
         gather per plane, trimmed to their widest slot count) plus the
         append-only interner deltas since the table lengths
-        ``payloads_base`` / ``prop_values_base`` of the last summary. The
-        JAX store's ``snapshot_rows`` layout, without interval state."""
+        ``payloads_base`` / ``prop_values_base`` of the last summary, and
+        the interval state in full (it changes outside the op stream). The
+        JAX store's ``snapshot_rows`` layout."""
         rows = np.ascontiguousarray(rows, np.int32)
         st = self.state
         if len(rows):
@@ -870,16 +1313,14 @@ class TensorStringStore(StringOpInterner):
             "prop_values_delta":
                 self._prop_values.export_from(prop_values_base),
             "has_props": self._has_props,
+            **self._interval_snapshot(),
         }
 
     def apply_row_snapshot(self, delta: dict) -> None:
         """Fold one ``snapshot_rows`` delta (this package's or the JAX
         store's) into this restored-base store: extend the append-only
-        interner tables and overwrite the dirty rows. A delta holding
-        interval segments is refused."""
-        if any(delta.get("intervals") or []):
-            raise ValueError("row snapshot holds interval segments, which "
-                             "the PyTorch store does not support yet")
+        interner tables, overwrite the dirty rows and replace the interval
+        state."""
         self._payloads.extend(tuple(p) for p in delta["payloads_delta"])
         self._prop_planes = dict(delta["prop_planes"])
         self._prop_values.extend_from(delta["prop_values_delta"])
@@ -888,33 +1329,30 @@ class TensorStringStore(StringOpInterner):
         self._props_pack_cache = {}
         self._cidx_cache = None
         rows = np.asarray(delta["rows"], np.int32)
-        if not len(rows):
-            return
-        for r, m in delta["client_idx"].items():
-            self._client_idx[int(r)] = dict(m)
-        n = len(rows)
-        planes, prop = self._empty_rows(n)
-        for i, k in enumerate(PLANES):
-            small = np.asarray(delta["planes"][k], np.int32)
-            planes[i, :, :small.shape[1]] = small
-        if "prop_val" in delta["planes"]:
-            pv = np.asarray(delta["planes"]["prop_val"], np.int32)
-            prop[:, :pv.shape[1]] = pv
-        self._write_rows(torch.from_numpy(rows).to(self.device).long(),
-                         planes, prop, np.asarray(delta["count"], np.int32),
-                         np.asarray(delta["overflow"], np.int32))
+        if len(rows):
+            for r, m in delta["client_idx"].items():
+                self._client_idx[int(r)] = dict(m)
+            n = len(rows)
+            planes, prop = self._empty_rows(n)
+            for i, k in enumerate(PLANES):
+                small = np.asarray(delta["planes"][k], np.int32)
+                planes[i, :, :small.shape[1]] = small
+            if "prop_val" in delta["planes"]:
+                pv = np.asarray(delta["planes"]["prop_val"], np.int32)
+                prop[:, :pv.shape[1]] = pv
+            self._write_rows(torch.from_numpy(rows).to(self.device).long(),
+                             planes, prop,
+                             np.asarray(delta["count"], np.int32),
+                             np.asarray(delta["overflow"], np.int32))
+        self._restore_intervals(delta)
 
     @classmethod
     def from_jax_snapshot(cls, snap: dict,
                           device="cuda") -> "TensorStringStore":
         """Rebuild a store from the plain dict that the JAX
         ``TensorStringStore.snapshot()`` returns (numpy planes plus the
-        interner tables) — or from this store's own ``snapshot()`` — so
-        both packages continue from the same state. Interval segments are
-        not ported: a snapshot holding intervals is refused."""
-        if any(snap.get("intervals") or []):
-            raise ValueError("snapshot holds interval segments, which the "
-                             "PyTorch store does not support yet")
+        interner tables and intervals) — or from this store's own
+        ``snapshot()`` — so both packages continue from the same state."""
         n_docs = len(snap["count"])
         store = cls(n_docs, snap["capacity"], snap["n_props"], device)
         fields = {}
@@ -938,4 +1376,5 @@ class TensorStringStore(StringOpInterner):
         store._prop_planes = dict(snap["prop_planes"])
         store._prop_values = ValueInterner.restore(snap["prop_values"])
         store._has_props = bool(snap["has_props"])
+        store._restore_intervals(snap)
         return store

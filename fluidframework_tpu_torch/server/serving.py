@@ -848,6 +848,17 @@ class StringServingEngine(ServingEngineBase):
             doc_id, client_id, 0, ref_seq, MessageType.NOOP, None)
         if msg is not None:
             self._min_seq[doc_id] = msg.min_seq
+            # the op stream will not carry this floor advance: slide the
+            # doc's interval anchors at the crossing now. Only a doc that
+            # holds a row can hold intervals (a lookup through _store_of
+            # would allocate a row and pin a heartbeat-only doc)
+            if doc_id in self._doc_rows or doc_id in self._mega_rows \
+                    or doc_id in self._graduated:
+                store, row = self._store_of(doc_id)
+                if getattr(store, "_intervals", None) \
+                        and store._intervals[row]:
+                    self.flush()
+                    store.advance_min_seq(row, msg.min_seq)
 
     # ------------------------------------------------------- columnar ingest
 
@@ -945,8 +956,10 @@ class StringServingEngine(ServingEngineBase):
         w.handles = np.repeat(self._row_handle[rows], O)
         if prepack:
             w.pipelined = True
+            # None for a wave inserting on interval rows: the executor
+            # holds the next pack and the dispatch stage packs inline
             w.prepacked = self.store.prepack_planes(
-                kind, w.a0, w.a1, text, texts, tidx, props)
+                rows, kind, w.a0, w.a1, text, texts, tidx, props)
         return w
 
     def _ingest_sequence(self, w: _IngestWave) -> None:
@@ -992,11 +1005,20 @@ class StringServingEngine(ServingEngineBase):
     def _ingest_dispatch(self, w: _IngestWave) -> None:
         """Stage 3 — the asynchronous device merge (zamboni fused into the
         same kernel launch on a compaction-due wave) on the calling
-        thread's current stream, plus the deferred overflow-flag read."""
+        thread's current stream, plus the deferred overflow-flag read.
+        Rows holding intervals get the per-op floors (``min_ops``), where
+        the store cuts the wave into segments."""
+        pp = w.prepacked
+        if pp is not None and self.store._iv_docs \
+                and not self.store._iv_docs.isdisjoint(w.rows.tolist()):
+            # intervals appeared on a targeted row between prepack and
+            # dispatch: pack inline, which mints the per-op anchor handles
+            self.store._tab_release(pp)
+            pp = w.prepacked = None
         self.store.apply_planes(
             w.rows, w.kind_eff, w.a0, w.a1, w.seq_base, w.client,
             w.ref_seq, w.text, min_seq=w.ms_arr, texts=w.texts,
-            tidx=w.tidx, props=w.props, prepacked=w.prepacked)
+            tidx=w.tidx, props=w.props, min_ops=w.min_rs, prepacked=pp)
         if w.compact_due:
             self._flushes_since_compact = 0
             if self.mega_store is not None and self._mega_rows:
@@ -1189,10 +1211,33 @@ class StringServingEngine(ServingEngineBase):
                 report[doc_id] = self._recover_mega(doc_id, grow_limit)
         for doc_id, store in list(self._graduated.items()):
             if store.overflowed().any():
-                self._graduated[doc_id] = self._rebuild_doc(
-                    doc_id, store, grow_limit)
+                ivs = store.intervals(0) if store._intervals[0] else {}
+                tmp = self._rebuild_doc(doc_id, store, grow_limit)
+                self._graduated[doc_id] = tmp
+                self._readd_intervals(tmp, 0, ivs)
                 report[doc_id] = "regrown"
         return report
+
+    @staticmethod
+    def _readd_intervals(store: TensorStringStore, row: int,
+                         ivs: dict) -> None:
+        """Anchor a rebuilt row's intervals again at the positions they
+        resolved to before the rebuild (``ivs``: id → (start, end,
+        props)), clamped to its visible length, under their old ids, and
+        register the row as an interval row, so that its anchors go on
+        sliding (the JAX engine leaves a graduated or regrown store's set
+        of interval rows empty: ROADMAP C8)."""
+        if not ivs:
+            return
+        store._iv_docs.add(row)
+        slots = store._doc_slots(row)
+        vis = int(slots[2][slots[3]].sum())
+        for iid, (start, end, props) in ivs.items():
+            clamp = lambda p: max(0, min(int(p), max(vis - 1, 0)))
+            store._intervals[row][iid] = (
+                store._anchor_in(slots, clamp(start)),
+                store._anchor_in(slots, clamp(end)), dict(props))
+        store._seed_tombs(row)
 
     def _check_rebuild_capacity(self, doc_id: str, cap: int,
                                 grow_limit: int, src) -> None:
@@ -1295,16 +1340,22 @@ class StringServingEngine(ServingEngineBase):
             for i, d in enumerate(pending):
                 if ov[i]:
                     nxt.append(d)  # even doubled it did not fit: grow again
-                elif int(counts[i]) <= self.store.capacity:
-                    self.store.adopt_doc(self._doc_rows[d], tmp, src_row=i)
+                    continue
+                row = self._doc_rows[d]
+                ivs = self.store.intervals(row) \
+                    if self.store._intervals[row] else {}
+                if int(counts[i]) <= self.store.capacity:
+                    self.store.adopt_doc(row, tmp, src_row=i)
+                    self._readd_intervals(self.store, row, ivs)
                     self._dirty_outside_ops.add(d)
                     report[d] = "reuploaded"
                 else:
                     single = TensorStringStore(1, cap, n_props,
                                                self.store.device)
                     single.adopt_doc(0, tmp, src_row=i)
-                    self.store.clear_doc(self._doc_rows[d])
+                    self.store.clear_doc(row)
                     self._graduated[d] = single
+                    self._readd_intervals(single, 0, ivs)
                     self._release_flat_row(d)
                     report[d] = "graduated"
             pending = nxt
@@ -1445,8 +1496,8 @@ class StringServingEngine(ServingEngineBase):
         stores, the sequencer and the dedup state, then replay the log
         tail through the same apply path (a ``markMega`` record in the
         tail routes its doc to the mega tier again). Every store is built
-        on ``device``. A summary holding intervals or attribution is
-        refused."""
+        on ``device``; the flat and graduated stores carry their intervals.
+        A summary holding attribution is refused."""
         full, deltas = cls.resolve_summary_chain(summary)
         for s in [full] + deltas:
             if s.get("attribution") is not None:

@@ -178,6 +178,55 @@ def edge_storm(n_docs: int, n_ops: int, seed: int = 0,
     return planes, nxt
 
 
+#: the interval docs' base text, insert payload table and annotate props
+#: (``tests/test_interval_columnar.py``'s)
+IV_BASE_TEXT = "the quick brown fox jumps over the dazed dog"
+IV_TEXTS = ["XY"]
+IV_PROPS = [{"bold": True}, {"bold": False}]
+
+
+def interval_wave(rng: np.random.Generator, lengths: np.ndarray, n_ops: int,
+                  w: int, inserts_only=None) -> dict:
+    """Wave ``w`` of ``tests/test_interval_columnar.py``'s rich-text mix for
+    one writer a doc, vectorised over docs: each op an annotate of 2 chars
+    (50 %, when the doc has 6+ chars), an insert of ``IV_TEXTS[0]`` (30 %,
+    or when shorter than 16) or a remove of 2 (20 %). ``lengths`` (D,)
+    holds each doc's visible length and is updated. Rows in
+    ``inserts_only`` (a (D,) mask) take inserts only. ClientSeqs run
+    2 + w·O .. 1 + (w+1)·O and every ref is pinned at the wave's first, so
+    the window floor crosses the previous wave's tombstones at the wave's
+    first op. Returns ``ingest_planes`` keywords (client 1)."""
+    D, O = len(lengths), n_ops
+    kind = np.zeros((D, O), np.int32)
+    a0 = np.zeros((D, O), np.int32)
+    a1 = np.zeros((D, O), np.int32)
+    tidx = np.zeros((D, O), np.int32)
+    for c in range(O):
+        roll = rng.random(D)
+        ann = (roll < 0.5) & (lengths >= 6)
+        ins = ~ann & ((roll < 0.8) | (lengths < 16))
+        if inserts_only is not None:
+            ann &= ~inserts_only
+            ins |= inserts_only
+        rem = ~ann & ~ins
+        pick = rng.random(D)
+        kind[:, c] = np.where(ann, int(OpKind.STR_ANNOTATE),
+                              np.where(ins, int(OpKind.STR_INSERT),
+                                       int(OpKind.STR_REMOVE)))
+        start = np.where(ann, pick * (lengths - 4),
+                         np.where(ins, pick * (lengths + 1),
+                                  pick * (lengths - 3))).astype(np.int32)
+        a0[:, c] = start
+        a1[:, c] = np.where(ins, 2, start + 2)
+        tidx[:, c] = np.where(ann, rng.integers(0, 2, D), 0)
+        lengths += np.where(ins, 2, np.where(rem, -2, 0))
+    cseq = np.broadcast_to(np.arange(2 + w * O, 2 + (w + 1) * O,
+                                     dtype=np.int32), (D, O))
+    return dict(client=np.ones((D, O), np.int32), client_seq=cseq,
+                ref_seq=np.full((D, O), 2 + w * O, np.int32), kind=kind,
+                a0=a0, a1=a1, texts=IV_TEXTS, tidx=tidx, props=IV_PROPS)
+
+
 # ------------------------------------------------------------ SharedMap
 
 #: config #2's op mix, set : delete : clear = 8 : 2 : 1

@@ -2450,3 +2450,146 @@ def test_mega_recovery_through_k7_on_card(cuda):
     for k in mt.FIELDS:
         assert torch.equal(getattr(card.mega_store.state, k).cpu(),
                            getattr(cpu.mega_store.state, k)), k
+
+
+# -------------------------------------------------------------- intervals
+
+def _interval_engines(dev, D, capacity, iv_every, **kw):
+    """A card engine and its CPU twin, each doc holding the interval base
+    text and every ``iv_every``-th row 4 intervals with props."""
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    from fluidframework_tpu_torch.testing import synthetic
+    engines = [StringServingEngine(n_docs=D, capacity=capacity,
+                                   batch_window=10 ** 9, sequencer="native",
+                                   device=d, **kw) for d in (dev, "cpu")]
+    rows = np.arange(D, dtype=np.int32)
+    spans = {int(r): [(2 + k, 6 + 3 * k, {"note": k}) for k in range(4)]
+             for r in rows[::iv_every]}
+    one = np.ones((D, 1), np.int32)
+    for eng in engines:
+        for i in range(D):
+            eng.connect(f"d{i}", 1)
+            assert eng.doc_row(f"d{i}") == i
+        eng.ingest_planes(rows, one, one, 0 * one, 0 * one, 0 * one,
+                          0 * one, text=synthetic.IV_BASE_TEXT)
+        eng.store.add_intervals_bulk(spans)
+    return engines, rows
+
+
+def _same_intervals(a, b):
+    """Two engines' stores (flat and graduated) hold the same anchors,
+    ids, props, floors and endpoints."""
+    stores = [(a.store, b.store)] + [(s, b._graduated[d])
+                                     for d, s in a._graduated.items()]
+    for x, y in stores:
+        assert x._interval_counter == y._interval_counter
+        assert x._intervals == y._intervals
+        assert np.array_equal(x._iv_min_seq, y._iv_min_seq)
+        for r in range(x.n_docs):
+            if x._intervals[r]:
+                assert x.intervals(r) == y.intervals(r), r
+
+
+def test_segmented_interval_wave_launches_match_plain(cuda):
+    """Waves whose floors cross tombstones on interval rows are cut into
+    segments, one string_apply launch each; every launch equals the plain
+    version on its own input (all planes), and the engine equals its CPU
+    twin (texts, digests, anchors)."""
+    from fluidframework_tpu_torch.ops import string_store
+    from fluidframework_tpu_torch.testing import synthetic
+    D, O = 64, 32
+    (card, cpu), rows = _interval_engines(cuda, D, 256, 4, compact_every=1)
+    kept = []
+    fused = string_store.apply_string_batch_fused
+
+    def keep(state, *ops, min_seq=None, with_props=False):
+        if state.seq.device.type == "cuda":
+            kept.append((_clone(state), ops, with_props))
+        return fused(state, *ops, min_seq=min_seq, with_props=with_props)
+
+    rng = np.random.default_rng(5)
+    lengths = np.full(D, len(synthetic.IV_BASE_TEXT), np.int64)
+    segments = []
+    string_store.apply_string_batch_fused = keep
+    try:
+        for w in range(4):
+            wave = synthetic.interval_wave(rng, lengths, O, w)
+            before = sk.launches
+            kept.clear()
+            for eng in (card, cpu):
+                assert eng.ingest_planes(rows, **wave)["nacked"] == 0
+            stats = card.store.last_apply_stats
+            assert stats == cpu.store.last_apply_stats
+            assert sk.launches - before == stats["segments"] == len(kept)
+            segments.append(stats["segments"])
+            for st0, ops, props in kept:
+                work = _clone(st0)
+                sk.apply_string_batch_fused(work, *ops, with_props=props)
+                ref = mt.apply_string_batch(st0, *ops, with_props=props)
+                torch.cuda.synchronize()
+                _assert_same(work, ref, props, False, w)
+    finally:
+        string_store.apply_string_batch_fused = fused
+    assert segments[0] == 1 and max(segments) > 1, segments
+    for i in range(D):
+        assert card.read_text(f"d{i}") == cpu.read_text(f"d{i}")
+    assert np.array_equal(card.store.digests(), cpu.store.digests())
+    _same_intervals(card, cpu)
+
+
+def test_interval_recovery_and_load_on_card_match_cpu(cuda):
+    """Interval docs that overflow a small flat tier re-upload or graduate
+    on the card as on the CPU, a graduated one regrows, and a full and an
+    incremental summary load on the card like on the CPU: the same
+    reports, texts, digests and intervals, and the id counter goes on."""
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    from fluidframework_tpu_torch.testing import synthetic
+    D, O = 16, 32
+    engines, rows = _interval_engines(cuda, D, 64, 1, compact_every=1)
+    grow = np.zeros(D, bool)
+    grow[::4] = True   # inserts only: these outgrow the tier for good
+    rng = np.random.default_rng(9)
+    lengths = np.full(D, len(synthetic.IV_BASE_TEXT), np.int64)
+    for eng in engines:
+        eng.auto_recover = False
+    for w in range(3):
+        wave = synthetic.interval_wave(rng, lengths, O, w, inserts_only=grow)
+        for eng in engines:
+            assert eng.ingest_planes(rows, **wave)["nacked"] == 0
+    for eng in engines:   # the churned docs' tombstones become reclaimable
+        for i in np.flatnonzero(~grow):
+            eng.heartbeat(f"d{i}", 1, 2 + 3 * O)
+    reports = [eng.recover_overflowed() for eng in engines]
+    assert reports[0] == reports[1]
+    assert set(reports[0].values()) == {"reuploaded", "graduated"}, reports
+    _same_engines(*engines)
+    _same_intervals(*engines)
+    doc = sorted(engines[0]._graduated)[0]
+    cs = 2 + 3 * O
+    while not engines[0]._graduated[doc].overflowed().any():
+        for eng in engines:
+            _, nack = eng.submit(doc, 1, cs, eng.deli.doc_seq(doc), {
+                "mt": "insert", "kind": 0, "pos": 1, "text": "Q"})
+            assert nack is None
+            eng.flush()
+        cs += 1
+    assert [eng.recover_overflowed() for eng in engines] == \
+        [{doc: "regrown"}] * 2
+    _same_intervals(*engines)
+    summaries = [[eng.summarize()] for eng in engines]
+    for eng in engines:
+        eng.store.add_interval(1, 0, 3, {"late": True})
+        eng.submit("d1", 1, 2 + 3 * O, eng.deli.doc_seq("d1"),
+                   {"mt": "remove", "start": 0, "end": 2})
+    for eng, s in zip(engines, summaries):
+        s.append(eng.summarize(incremental=True))
+    for k in range(2):
+        loaded = [StringServingEngine.load(s[k], eng.log, device=dev,
+                                           sequencer="native")
+                  for eng, s, dev in zip(engines, summaries, (cuda, "cpu"))]
+        _same_engines(*loaded)
+        _same_intervals(*loaded)
+        # the full summary predates the late interval, the delta holds it
+        n = engines[0].store._interval_counter - 1 + k
+        assert loaded[0].store.add_interval(0, 0, 1) == \
+            loaded[1].store.add_interval(0, 0, 1) == f"iv{n + 1}"

@@ -267,16 +267,41 @@ def test_load_refuses_what_is_not_ported():
     Feed((t,)).op("d0", _ins(0, "a"))
     base = t.summarize()
     bad = [dict(base, mega_rows={"m": 0}),
-           dict(base, attribution={"d0": {}}),
-           dict(base, store=dict(base["store"],
-                                 intervals=[{"i": [None, None, {}]}]
-                                 + [{}] * 5))]
+           dict(base, attribution={"d0": {}})]
     for summary in bad:
         with pytest.raises(ValueError):
             TEngine.load(summary, t.log, device="cpu", sequencer="native")
     with pytest.raises(OplogCorruptionError):
         TEngine.load(base, PartitionedLog(t.log.n_partitions), device="cpu",
                      sequencer="native")
+
+
+def test_load_takes_a_summary_with_intervals():
+    """The summary that the refusal test above once refused for its
+    intervals now loads, anchors and counter included; so does a JAX
+    engine's summary with intervals."""
+    t = TEngine(**KW, device="cpu")
+    t.connect("d0", 1)
+    Feed((t,)).op("d0", _ins(0, "a"))
+    base = t.summarize()
+    summary = dict(base, store=dict(base["store"],
+                                    intervals=[{"i": [None, None, {}]}]
+                                    + [{}] * 5, interval_counter=1))
+    lt = TEngine.load(summary, t.log, device="cpu", sequencer="native")
+    assert lt.store.intervals(0) == {"i": (0, 0, {})}
+    assert lt.store.add_interval(0, 0, 0) == "iv2"
+    j = JEngine(**KW)
+    j.connect("d0", 1)
+    Feed((j,)).op("d0", _ins(0, "abc"))
+    j.flush()
+    iid = j.store.add_interval(j.doc_row("d0"), 1, 2, {"c": 3})
+    summary = j.summarize()
+    log = PartitionedLog(j.log.n_partitions)
+    for p in range(j.log.n_partitions):
+        for rec in j.log.read(p):
+            log.append(p, _port_record(rec))
+    lt = TEngine.load(summary, log, device="cpu", sequencer="native")
+    assert lt.store.intervals(lt.doc_row("d0")) == {iid: (1, 2, {"c": 3})}
 
 
 # ------------------------------------------------------------- sequencers
