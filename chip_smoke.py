@@ -154,7 +154,24 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    on. The line reports each wave's wall, segments and their widths,
    slide gathers and launches by width beside the bare engine's walls,
    the unfused compactions' device ms and host s, and (b)'s and (c)'s
-   seconds.
+   seconds;
+12. mesh — doc-sharded and replicated state (``parallel/``) on a mesh of
+   4 doc shards all on the card (the card named 4 times) and on the mesh
+   of every card present: (a) config #4 (10,240 docs, S=512, 64 ops a
+   doc, compact_every=1) served sharded, a warm-up and 3 waves, every
+   doc's digest equal to the unsharded engine's on the card and
+   ``string_apply`` launched once a shard each wave; a 512-doc sharded
+   card engine equal to its twin on 4 CPU shards; the summary loaded
+   sharded and unsharded, digest-equal; (b) the replicated step (2
+   replicas × 2 doc shards, 10,240 docs, S=384): ``agree`` 1 and digests
+   equal to one B1 apply, ``agree`` 0 with ``inject_divergence``; (c) the
+   map (config #2's batches), tree (profile_tree.py's waves at 8,192 docs)
+   and matrix (64 docs of 32 × 32, 2 storms of 4,096 setCells) engines
+   sharded against unsharded, with K1-K5 launched on every shard; (d) the
+   collective-free check (no tensor moves between devices in a sharded
+   apply). The line reports the wall a wave sharded and unsharded, B1's
+   launches a wave, the load seconds and the launches a shard of each
+   kernel; the kernels line carries them as ``mesh_launches_per_shard``.
 
 With ``--parent DIR`` (another checkout, e.g. an archive of the parent
 commit) a last phase, parent_timing, times K1-K7 of DIR and of this
@@ -3287,6 +3304,385 @@ def intervals_phase(smi, dev):
     return iv_launches, rec_launches, max_err
 
 
+MESH_SHARDS = 4                 # doc shards of the one-card mesh
+MESH_WAVES = 3                  # config #4 waves after a warm-up
+MESH_TWIN_D = 512               # the CPU twin's doc count
+MESH_REP_S = 384                # the replicated step's slot capacity
+MESH_TREE_WAVES = 3             # profile_tree.py waves
+MESH_MX_STORMS = 2              # setCell storms of 4,096
+
+
+def mesh_phase(smi, dev, D=D, O=O, S=S_SERVE, twin_d=MESH_TWIN_D,
+               rep_s=MESH_REP_S, map_d=MAP_D, tree_d=TREE_D,
+               mx_docs=MX_DOCS):
+    """Phase 12: doc-sharded and replicated state (``parallel/``). On a
+    mesh of ``MESH_SHARDS`` doc shards all on ``dev`` (a card named
+    several times) and on the mesh of every card present: (a) config #4
+    served sharded (warm-up + ``MESH_WAVES`` waves), per-doc digests equal
+    the unsharded engine's on the card, string_apply launched once a shard
+    a wave; a sharded card engine at ``twin_d`` docs equal to a CPU twin
+    on CPU shards; the summary loaded sharded and unsharded, digest-equal;
+    (b) the replicated step, 2 replicas × 2 doc shards at D docs, S =
+    ``rep_s``: ``agree`` 1 and digests equal one B1 apply, and 0 with
+    ``inject_divergence``; (c) the map, tree and matrix engines sharded
+    against unsharded at their phases' shapes (fewer waves), K1-K5 each
+    launched on every shard; (d) the collective-free check. Returns
+    {path: {kernel: {shard: launches}}} of (a)-(c)."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import string_kernel as sk
+    from fluidframework_tpu_torch.ops import merge_tree as mt
+    from fluidframework_tpu_torch.parallel import (
+        make_doc_mesh, make_mesh, make_replicated_step, shard_ops,
+        shard_state,
+    )
+    from fluidframework_tpu_torch.parallel import sharded
+    from fluidframework_tpu_torch.server.serving import (
+        MapServingEngine, MatrixServingEngine, StringServingEngine,
+        TreeServingEngine,
+    )
+    from fluidframework_tpu_torch.testing.synthetic import (
+        map_serving_batch, profile_tree_waves, typing_storm,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    card = make_doc_mesh(devices=[dev] * MESH_SHARDS)
+    meshes = {"4_on_one": card}
+    if on_card:
+        meshes["every_card"] = make_doc_mesh()
+    launches: dict = {}
+
+    def sync():
+        if on_card:
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(d)
+
+    def begin():
+        sync()
+        sharded.reset_shard_launches()
+
+    def end(label, mesh):
+        """Launches a shard of the path just driven; every kernel that ran
+        must have run on every shard."""
+        sync()
+        got = sharded.shard_launches()
+        path = launches.setdefault(label, {})
+        for name, per in got.items():
+            if on_card and sorted(per) != list(range(mesh.size)):
+                raise AssertionError(f"mesh {label}: {name} launched on "
+                                     f"shards {sorted(per)} only")
+            tot = path.setdefault(name, {})
+            for s, n in per.items():
+                tot[s] = tot.get(s, 0) + n
+        return got
+
+    def need(got, names, label):
+        if on_card:
+            for n in names:
+                if n not in got:
+                    raise AssertionError(f"mesh {label}: {n} never ran")
+
+    # each entry point's calls on a path, bracketed by CUDA events on the
+    # called tensors' device: the device ms of every call (one a shard on
+    # a sharded path)
+    call_ms: dict = {}
+    watching = [None]
+
+    def watch(module, attr, kernel):
+        fn = getattr(module, attr)
+
+        def timed(*a, **k):
+            label = watching[0]
+            t = next((x for x in a if isinstance(x, torch.Tensor)), None)
+            if label is None or not on_card or t is None:
+                return fn(*a, **k)
+            in_shard = getattr(sharded._TLS, "device", None) is not None
+            label += ", a shard" if in_shard else ", the whole state"
+            stream = torch.cuda.current_stream(t.device)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record(stream)
+            out = fn(*a, **k)
+            ev[1].record(stream)
+            call_ms.setdefault((kernel, label), []).append(ev)
+            return out
+        setattr(module, attr, timed)
+        return module, attr, fn
+
+    from fluidframework_tpu_torch.ops import (
+        axis_kernel, map_kernel, matrix_kernel, string_kernel, string_store,
+        tree_kernel, tree_store,
+    )
+    watched = [watch(string_kernel, "apply_string_batch_fused",
+                     "string_apply"),
+               watch(string_store, "apply_string_batch_fused",
+                     "string_apply"),
+               watch(map_kernel, "map_columnar_apply_fused", "map_apply"),
+               watch(map_kernel, "apply_map_batch_fused", "map_apply"),
+               watch(matrix_kernel, "merge_cells_fused", "cell_merge"),
+               watch(axis_kernel, "apply_axis_batch_fused", "axis_apply"),
+               watch(axis_kernel, "resolve_axis_fused", "axis_resolve"),
+               watch(tree_store, "apply_tree_planes_fused", "tree_apply"),
+               watch(tree_kernel, "apply_tree_planes_fused", "tree_apply")]
+
+    # ------------------------------------------- (a) config #4, sharded
+    def wave(b, n):
+        planes, _ = typing_storm(n, O, seed=b)
+        cseq = np.broadcast_to(np.arange(b * O + 1, (b + 1) * O + 1,
+                                         dtype=np.int32), (n, O))
+        return dict(client=np.ones((n, O), np.int32), client_seq=cseq,
+                    ref_seq=cseq, kind=planes["kind"], a0=planes["a0"],
+                    a1=planes["a1"], text=TEXT)
+
+    def string_engine(n, device, mesh=None):
+        e = StringServingEngine(n_docs=n, capacity=S, batch_window=10 ** 9,
+                                compact_every=1, sequencer="native",
+                                device=device, mesh=mesh)
+        docs = [f"doc-{i}" for i in range(n)]
+        for d in docs:
+            e.connect(d, 1)
+        return e, np.array([e.doc_row(d) for d in docs], np.int32)
+
+    waves = [wave(b, D) for b in range(MESH_WAVES + 1)]
+    walls, per_wave = {}, {}
+    engines = {}
+    for label, mesh in [("unsharded", None)] + list(meshes.items()):
+        e, rows = string_engine(D, dev, mesh)
+        walls[label] = []
+        for i, w in enumerate(waves):
+            begin()
+            watching[0] = f"config #4 wave, {label}" if i == len(waves) - 1 \
+                else None
+            before = sk.launches
+            t0 = time.perf_counter()
+            if e.ingest_planes(rows, **w)["nacked"]:
+                raise AssertionError(f"mesh {label}: nacks")
+            sync()
+            walls[label].append(time.perf_counter() - t0)
+            watching[0] = None
+            n_launch = sk.launches - before
+            if mesh is not None:
+                got = end(f"string {label}", mesh)
+                need(got, ["string_apply"], f"string {label}")
+                if on_card and (n_launch != mesh.size or any(
+                        v != 1 for v in got["string_apply"].values())):
+                    raise AssertionError(
+                        f"mesh {label}: {n_launch} string_apply launches "
+                        f"in wave {i}, want one a shard ({mesh.size})")
+            per_wave.setdefault(label, []).append(n_launch)
+        engines[label] = e
+    want = engines["unsharded"].store.digests()
+    for label, e in engines.items():
+        if not np.array_equal(e.store.digests(), want):
+            raise AssertionError(f"mesh {label}: digests differ from the "
+                                 "unsharded engine")
+    summary = engines["4_on_one"].summarize()
+    loads = {}
+    for label, mesh in (("sharded", card), ("unsharded", None)):
+        t0 = time.perf_counter()
+        le = StringServingEngine.load(summary, engines["4_on_one"].log,
+                                      device=dev, mesh=mesh,
+                                      sequencer="native")
+        loads[label] = time.perf_counter() - t0
+        if not np.array_equal(le.store.digests(),
+                              engines["4_on_one"].store.digests()):
+            raise AssertionError(f"mesh: {label} load digests differ")
+        del le
+    del engines, summary
+    # the CPU twin: CPU shards, the same waves at twin_d docs
+    twins = [string_engine(twin_d, dev, card),
+             string_engine(twin_d, "cpu", make_doc_mesh(MESH_SHARDS,
+                                                        device="cpu"))]
+    for b in range(MESH_WAVES + 1):
+        w = wave(b, twin_d)
+        for e, rows in twins:
+            e.ingest_planes(rows, **w)
+    if not np.array_equal(twins[0][0].store.digests(),
+                          twins[1][0].store.digests()):
+        raise AssertionError("mesh: card shards differ from CPU shards")
+    del twins
+
+    # ------------------------------------------- (b) the replicated step
+    rep = make_mesh(devices=[dev] * 4, replicas=2)
+    planes, _ = typing_storm(D, O, seed=7)
+    ops = tuple(np.asarray(planes[k], np.int32) for k in mt.OP_FIELDS)
+    single = mt.StringState.create(D, rep_s, device=dev)
+    sk.apply_string_batch_fused(single, *(torch.from_numpy(p).to(dev)
+                                          for p in ops), with_props=True)
+    ref_digest = mt.string_state_digest(single).cpu().numpy()
+    del single
+    agree = {}
+    rep_wall = {}
+    for chaos in (False, True):
+        state = shard_state(mt.StringState.create(D, rep_s, device="cpu"),
+                            rep)
+        sharded_ops = shard_ops(rep, *ops)
+        begin()
+        t0 = time.perf_counter()
+        state, digests, ok = make_replicated_step(
+            rep, inject_divergence=chaos)(state, *sharded_ops)
+        agree[chaos] = int(ok)
+        rep_wall[chaos] = time.perf_counter() - t0
+        got = end("replicated", make_doc_mesh(devices=[dev] * 2))
+        need(got, ["string_apply"], "replicated")
+        if not chaos and not np.array_equal(digests.cpu().numpy(),
+                                            ref_digest):
+            raise AssertionError("replicated step: digests differ from "
+                                 "one B1 apply")
+        del state, sharded_ops
+    if agree != {False: 1, True: 0}:
+        raise AssertionError(f"replicated step: agree {agree}")
+
+    # -------------------------------- (c) map, tree, matrix, sharded
+    def pair(make):
+        return make(None), make(card)
+
+    # map: config #2's serving batches
+    mdocs = [f"map-{i}" for i in range(map_d)]
+
+    def map_engine(mesh):
+        e = MapServingEngine(n_docs=map_d, n_keys=MAP_K,
+                             batch_window=10 ** 9, sequencer="native",
+                             device=dev, mesh=mesh)
+        for d in mdocs:
+            e.connect(d, 1)
+        return e, np.array([e.doc_row(d) for d in mdocs], np.int32)
+    maps = pair(map_engine)
+    begin()
+    watching[0] = "engines"
+    for b in range(3):
+        kind, kidx, keys, vidx, values = map_serving_batch(map_d, MAP_O, b,
+                                                           n_keys=MAP_K)
+        cs = np.broadcast_to(np.arange(b * MAP_O + 1, (b + 1) * MAP_O + 1,
+                                       dtype=np.int32), (map_d, MAP_O))
+        for e, rows in maps:
+            if e.ingest_planes(rows, np.ones((map_d, MAP_O), np.int32), cs,
+                               np.zeros((map_d, MAP_O), np.int32), kind,
+                               kidx, keys, values, vidx)["nacked"]:
+                raise AssertionError("mesh map: nacks")
+    for i, d in enumerate(mdocs[:16]):   # the per-op route: dense planes
+        for e, _ in maps:
+            if e.submit(d, 1, 3 * MAP_O + 1, 0, {
+                    "op": "set", "key": keys[i % len(keys)],
+                    "value": i})[1] is not None:
+                raise AssertionError("mesh map: per-op nack")
+            e.flush()
+    need(end("map", card), ["map_apply"], "map")
+    if not np.array_equal(maps[0][0].store.digests(),
+                          maps[1][0].store.digests()):
+        raise AssertionError("mesh map: sharded digests differ")
+    del maps
+
+    # tree: profile_tree.py's waves (the sharded store takes the dense
+    # records; the unsharded one the compact wire)
+    tdocs = [f"tree-{i}" for i in range(tree_d)]
+
+    def tree_engine(mesh):
+        e = TreeServingEngine(n_docs=tree_d, capacity=TREE_N,
+                              batch_window=10 ** 9, sequencer="native",
+                              device=dev, mesh=mesh)
+        for d in tdocs:
+            e.connect(d, 1)
+            e.doc_row(d)
+        return e
+    trees = pair(tree_engine)
+    begin()
+    for w in range(MESH_TREE_WAVES):
+        ids, tops = profile_tree_waves(tdocs, w)
+        for e in trees:
+            if e.ingest_batch(ids, [1] * tree_d, [w + 1] * tree_d,
+                              [0] * tree_d, tops)["nacked"]:
+                raise AssertionError("mesh tree: nacks")
+    need(end("tree", card), ["tree_apply"], "tree")
+    if not np.array_equal(trees[0].store.digests(),
+                          trees[1].store.digests()):
+        raise AssertionError("mesh tree: sharded digests differ")
+    for d in tdocs[::max(1, tree_d // 8)]:
+        if trees[0].to_dict(d) != trees[1].to_dict(d):
+            raise AssertionError(f"mesh tree: {d} differs")
+    del trees
+
+    # matrix: config #3's serving shape (64 docs of 32 × 32)
+    xdocs = [f"mx-{i}" for i in range(mx_docs)]
+    G = MX_DOC_GRID
+
+    def mx_engine(mesh):
+        e = MatrixServingEngine(n_docs=mx_docs, cell_capacity=MX_CELL_CAP_A,
+                                axis_capacity=MX_AXIS_CAP_A,
+                                batch_window=10 ** 9, sequencer="native",
+                                device=dev, mesh=mesh)
+        for d in xdocs:
+            e.connect(d, 1)
+        return e
+    mxs = pair(mx_engine)
+    begin()
+    for e in mxs:
+        for d in xdocs:
+            for cs, op in ((1, {"mx": "insRow", "pos": 0, "count": G,
+                                "opKey": [1, 0]}),
+                           (2, {"mx": "insCol", "pos": 0, "count": G,
+                                "opKey": [2, 0]})):
+                if e.submit(d, 1, cs, 0, op)[1] is not None:
+                    raise AssertionError("mesh matrix: nack")
+        e.flush()
+    rng = np.random.default_rng(11)
+    per_doc = 4096 // mx_docs
+    for storm in range(MESH_MX_STORMS):
+        r = rng.integers(0, G, size=(mx_docs, per_doc))
+        c = rng.integers(0, G, size=(mx_docs, per_doc))
+        batch = ([d for d in xdocs for _ in range(per_doc)],
+                 [1] * (mx_docs * per_doc),
+                 [3 + storm * per_doc + k for _ in xdocs
+                  for k in range(per_doc)],
+                 [0] * (mx_docs * per_doc), r.reshape(-1).tolist(),
+                 c.reshape(-1).tolist(),
+                 [int(v) for v in rng.integers(0, 1 << 20,
+                                               size=mx_docs * per_doc)])
+        for e in mxs:
+            if e.ingest_cells(*batch)["nacked"]:
+                raise AssertionError("mesh matrix: nacks")
+    for e in mxs:
+        e.flush()
+    need(end("matrix", card), ["cell_merge", "axis_apply", "axis_resolve"],
+         "matrix")
+    for d in xdocs[::8]:
+        if mxs[0].to_lists(d) != mxs[1].to_lists(d):
+            raise AssertionError(f"mesh matrix: {d} differs")
+    if mxs[0].store.digest() != mxs[1].store.digest():
+        raise AssertionError("mesh matrix: cell digests differ")
+    del mxs
+
+    watching[0] = None
+    for module, attr, fn in watched:
+        setattr(module, attr, fn)
+    sync()
+    per_call = {}
+    for (kernel, label), evs in call_ms.items():
+        ms = [a.elapsed_time(b) for a, b in evs]
+        per_call.setdefault(kernel, {})[label] = {
+            "calls": len(ms), "mean_ms": sum(ms) / len(ms), "max_ms": max(ms)}
+
+    # ---------------------------------------- (d) the collective-free check
+    cf = sharded.assert_collective_free(card, D, S, O)
+    emit({"phase": "mesh", "docs": D, "capacity": S, "ops_per_doc": O,
+          "meshes": {k: [str(x) for x in m.devices.tolist()]
+                     for k, m in meshes.items()},
+          "wave_wall_s": walls,
+          "string_apply_launches_per_wave": per_wave,
+          "load_s": loads, "twin_docs": twin_d,
+          "replicated": {"replicas": 2, "doc_shards": 2, "capacity": rep_s,
+                         "agree": int(agree[False]),
+                         "agree_with_divergence": int(agree[True]),
+                         "step_wall_s": rep_wall[False]},
+          "launches_per_shard": launches, "call_ms": per_call,
+          "collective_free": cf,
+          "total_s": time.perf_counter() - t_phase, "card": smi})
+    return launches
+
+
 def parent_timing(parent, tree_inputs=None, axis_inputs=None,
                   mega_inputs=None):
     """K1-K7 of ``parent`` (another checkout, e.g. an archive
@@ -3679,6 +4075,8 @@ def main(argv=None) -> int:
     iv_launches, iv_rec_launches, iv_err = intervals_phase(smi, dev)
     max_err = max(max_err, iv_err)
     torch.cuda.empty_cache()
+    mesh_launches = mesh_phase(smi, dev)
+    torch.cuda.empty_cache()
     timing_pc = parent_timing(args.parent, keep_tree, keep_axis,
                               keep_mega) if args.parent else None
     if tmp:
@@ -3692,8 +4090,7 @@ def main(argv=None) -> int:
     add_parent_ms(mega_entry, "megadoc_apply", timing_pc)
 
     main_t = timing[("no-props+compact", S_SERVE, "chained")]
-    print(smi, flush=True)
-    emit({"kernels": [{
+    entries = [{
         "name": "string_apply",
         "route": "cuda",
         "source": "fluidframework_tpu_torch/csrc/string_apply.cu",
@@ -3712,7 +4109,13 @@ def main(argv=None) -> int:
             {"spec": name, "S": S, "state": state, **t}
             for (name, S, state), t in timing.items()] + rebuild_rows,
         "total_s": time.perf_counter() - t_start,
-    }, map_entry, cell_entry, *axis_entries, *tree_entries, mega_entry]})
+    }, map_entry, cell_entry, *axis_entries, *tree_entries, mega_entry]
+    for entry in entries:   # the mesh phase's launches, shard by shard
+        entry["mesh_launches_per_shard"] = {
+            path: per[entry["name"]] for path, per in mesh_launches.items()
+            if entry["name"] in per}
+    print(smi, flush=True)
+    emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

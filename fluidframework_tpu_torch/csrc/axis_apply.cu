@@ -1000,6 +1000,29 @@ size_t resolve_smem(int S) {
   return (walk > search ? walk : search) * sizeof(int);
 }
 
+constexpr int kMaxDevices = 64;
+
+// SMs of the current device (the caller makes the tensors' device
+// current), read once per device
+int sm_count() {
+  static int sms_on[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
+    cudaGetLastError();
+    return 0;
+  }
+  if (sms_on[dev] == 0) {
+    int sms = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    sms_on[dev] = sms;
+  }
+  return sms_on[dev];
+}
+
 // Opt in to the dynamic shared memory a launch needs (above 48 KB).
 template <class K>
 cudaError_t allow_smem(K kernel, size_t smem) {
@@ -1055,15 +1078,8 @@ int axis_apply_launch(const int* kind, const int* a0, const int* a1,
                             p_length, p_hop, p_hoff};
   const Args a = make_args(op, plane, count, overflow, out_run, out_off, D,
                            S, O);
-  int sms = 0, dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess) {
-    cudaGetLastError();
-    sms = 0;
-  }
   int shape[3];
-  apply_shape(D, S, sms, shape);
+  apply_shape(D, S, sm_count(), shape);
   const size_t smem = static_cast<size_t>(shape[2]);
   const cudaError_t e = allow_smem(axis_apply_kernel, smem);
   if (e != cudaSuccess) return kErrSmem;

@@ -636,6 +636,8 @@ __global__ void __launch_bounds__(kMergeThreads)
 
 long long blocks_of(long long n, long long per) { return (n + per - 1) / per; }
 
+constexpr int kMaxDevices = 64;
+
 cudaError_t set_smem(const void* fn, int bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
@@ -667,13 +669,18 @@ int cell_merge_launch(int* tk, int* ts, int* tv, int* count, int* overflow,
                       long long scratch_words, void* stream_) {
   if (T < 1 || Lt < 1 || Lt > T || O < 0) return kErrShape;
   if (scratch_words < cell_merge_scratch_words(Lt, O)) return kErrScratch;
-  static bool smem_set = false;
-  if (!smem_set) {
+  // the shared-memory opt-in is per device (the caller makes the
+  // tensors' device current): set once on each
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return (int)cudaGetLastError();
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
     cudaError_t e = set_smem((const void*)sort_tiles, kSortSmem);
     if (e == cudaSuccess) e = set_smem((const void*)merge_pass, kPassSmem);
     if (e == cudaSuccess) e = set_smem((const void*)merge_table, kMergeSmem);
     if (e != cudaSuccess) return (int)e;
-    smem_set = true;
+    smem_set[dev] = true;
   }
   cudaStream_t stream = (cudaStream_t)stream_;
   const long long tiles = cell_merge_tiles(Lt, O);

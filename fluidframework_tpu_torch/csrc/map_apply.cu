@@ -319,16 +319,34 @@ int row_warps(int R, int sms) {
   return w < 1 ? 1 : w;
 }
 
+constexpr int kMaxDevices = 64;
+
+// SMs of the current device (the caller makes the tensors' device
+// current), read once per device
+int sm_count() {
+  static int sms_on[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
+    cudaGetLastError();
+    return 0;
+  }
+  if (sms_on[dev] == 0) {
+    int sms = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    sms_on[dev] = sms;
+  }
+  return sms_on[dev];
+}
+
 template <bool kPacked>
 cudaError_t launch(const Ops& ops, int n_rows, int* present, int* value,
                    int* last_seq, int D, int O, int K, cudaStream_t stream) {
   if (K <= kWarpKeys) {
-    int sms = 0, dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 0;
-    const int warps = row_warps(n_rows, sms);
+    const int warps = row_warps(n_rows, sm_count());
     const size_t smem = (size_t)warps * 3 * K * sizeof(int);  // <= 24 KB
     map_apply_warp_kernel<kPacked>
         <<<(n_rows + warps - 1) / warps, warps * 32, smem, stream>>>(

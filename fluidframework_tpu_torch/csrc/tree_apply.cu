@@ -138,6 +138,27 @@ constexpr unsigned kSparseInserts = 4;   // most inserts a sparse-path doc has
 constexpr int kExpandThreads = 256;
 constexpr int kZeroPerThread = 4;  // most 16-byte zero stores a K6 thread
 constexpr int kMaxDevices = 64;
+
+// SMs of the current device (the caller makes the tensors' device
+// current), read once per device
+int sm_count() {
+  static int sms_on[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
+    cudaGetLastError();
+    return 0;
+  }
+  if (sms_on[dev] == 0) {
+    int sms = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    sms_on[dev] = sms;
+  }
+  return sms_on[dev];
+}
 constexpr int kErrBadShape = -1;
 constexpr int kErrSmem = -2;
 
@@ -794,13 +815,8 @@ int tree_apply_launch(int* node_id, int* parent, int* field, int* value,
   a.D = D;
   a.N = N;
   a.O = O;
-  int sms = 0, dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    sms = 0;
   int shape[3];
-  apply_shape(N, D, sms, shape);
+  apply_shape(N, D, sm_count(), shape);
   const size_t smem = static_cast<size_t>(shape[2]);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;

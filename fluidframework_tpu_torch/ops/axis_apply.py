@@ -118,11 +118,12 @@ def launch_apply(state, ops, out_run, out_off) -> None:
     D, S = state.seq.shape
     if D == 0 or O == 0:
         return
-    _raise_on(_load().axis_apply_launch(
-        *(_ptr(t) for t in ops),
-        *(_ptr(getattr(state, k)) for k in _STATE_PLANES),
-        _ptr(state.count), _ptr(state.overflow), _ptr(out_run),
-        _ptr(out_off), D, S, O, _stream(out_run)), "axis_apply")
+    with torch.cuda.device(out_run.device):   # the library's device
+        _raise_on(_load().axis_apply_launch(
+            *(_ptr(t) for t in ops),
+            *(_ptr(getattr(state, k)) for k in _STATE_PLANES),
+            _ptr(state.count), _ptr(state.overflow), _ptr(out_run),
+            _ptr(out_off), D, S, O, _stream(out_run)), "axis_apply")
     apply_launches += 1
 
 
@@ -138,9 +139,10 @@ def launch_resolve(state, kind, pos, client, ref_seq, out_run,
     D, S = state.seq.shape
     if D == 0 or O == 0:
         return
-    _raise_on(_load().axis_resolve_launch(
-        _ptr(kind), _ptr(pos), _ptr(client), _ptr(ref_seq),
-        *(_ptr(getattr(state, k)) for k in _STATE_PLANES),
-        _ptr(state.count), _ptr(out_run), _ptr(out_off), D, S, O,
-        _stream(out_run)), "axis_resolve")
+    with torch.cuda.device(out_run.device):   # the library's device
+        _raise_on(_load().axis_resolve_launch(
+            _ptr(kind), _ptr(pos), _ptr(client), _ptr(ref_seq),
+            *(_ptr(getattr(state, k)) for k in _STATE_PLANES),
+            _ptr(state.count), _ptr(out_run), _ptr(out_off), D, S, O,
+            _stream(out_run)), "axis_resolve")
     resolve_launches += 1

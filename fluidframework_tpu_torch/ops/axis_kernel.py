@@ -31,13 +31,16 @@ import torch
 
 from . import axis_apply
 from ..core.constants import NOT_REMOVED
-from .map_kernel import refuse_mesh
 from .merge_tree import (
     MAX_CLIENTS, OP_FIELDS, StringState, _insert_one, _pick, _prefix,
     _range_one, _visible, compact_string_state,
 )
 from .schema import OpKind
 from .string_store import resolve_device
+from ..parallel.sharded import (
+    RowShardedStore, ShardedRows, shard_axis_store_state, shard_planes,
+    shard_vector, sharded_axis_apply, store_shards,
+)
 
 _PLANES = ("seq", "client", "removed_seq", "removers", "length",
            "handle_op", "handle_off")
@@ -203,7 +206,7 @@ class PendingResolve:
             host[0].copy_(run, non_blocking=True)
             host[1].copy_(off, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(torch.cuda.current_stream(run.device))
             self._device = (run, off)   # alive until the copy has landed
         else:
             host = torch.stack([run, off])
@@ -217,30 +220,63 @@ class PendingResolve:
         return a[0], a[1]
 
 
-class TensorAxisStore:
+class PendingResolves:
+    """The (run, off) planes of every shard of a sharded window, joined in
+    row order when ``result`` is read."""
+
+    def __init__(self, parts: List[PendingResolve]):
+        self._parts = parts
+
+    def result(self) -> Tuple[np.ndarray, np.ndarray]:
+        outs = [p.result() for p in self._parts]
+        return (np.concatenate([o[0] for o in outs]),
+                np.concatenate([o[1] for o in outs]))
+
+
+class TensorAxisStore(RowShardedStore):
     """Host facade: 2 permutation axes per matrix doc (rows at ``2·doc``,
     cols at ``2·doc + 1``), resident as one ``StringState`` with one zero
     property plane on ``device`` (default the card; ``device="cpu"`` runs
     the plain versions). Run identities intern (mixed opKey, key_offset) →
     int32 handles; per-axis-row client interning feeds the remover
-    bitmask. ``mesh`` is refused (ROADMAP B9), and on the card so is a
-    capacity the kernels do not take, before any op is admitted."""
+    bitmask. On the card a capacity the kernels do not take is refused
+    before any op is admitted.
+
+    ``mesh`` (a 1-D ``docs`` mesh) splits the axis rows by doc block (a
+    doc's two axes stay on one device) and launches each window once a
+    shard; ``state`` is then a copy of the whole state on the first
+    shard's device, and assigning it re-shards."""
 
     def __init__(self, n_docs: int, capacity: int = 256, device="cuda",
                  mesh=None):
-        refuse_mesh(mesh)
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        self.mesh = mesh
+        self.sharded = None
+        if mesh is None:
+            self.device = resolve_device(device)
+            devices = [self.device]
+        else:
+            devices, docs_per = store_shards(mesh, n_docs)
+            self.device = devices[0]
+        if any(d.type == "cuda" for d in devices):
             axis_apply.check_capacity(capacity)
         self.n_docs = n_docs
         self.capacity = capacity
-        self.state = StringState.create(2 * n_docs, capacity, n_props=1,
-                                        device=self.device)
+        if mesh is None:
+            self._state = StringState.create(2 * n_docs, capacity,
+                                             n_props=1, device=self.device)
+        else:
+            self.sharded = ShardedRows(
+                [StringState.create(2 * docs_per, capacity, n_props=1,
+                                    device=d) for d in devices],
+                2 * docs_per)
         self._runs: List[Tuple[int, int]] = [(0, 0)]  # run 0 reserved
         self._run_ids: Dict[Tuple[int, int], int] = {}
         self._runs_np = None  # cached columnar view of _runs
         self._client_idx: List[Dict[int, int]] = [
             dict() for _ in range(2 * n_docs)]
+
+    def _shard_state(self, st) -> list:
+        return shard_axis_store_state(st, self.mesh)
 
     def run_handle(self, mixed: int, key_offset: int) -> int:
         k = (int(mixed), int(key_offset))
@@ -279,47 +315,65 @@ class TensorAxisStore:
         dev = torch.from_numpy(stack).to(self.device, copy=True)
         return [dev[i] for i in range(len(names))]
 
-    def apply(self, planes: dict) -> Tuple[np.ndarray, np.ndarray]:
-        """One device dispatch; returns host (D2, O) resolve outputs (the
-        flush's single device→host read). A window of only resolves and
-        NOOPs skips the serial scan (K4, as the JAX store's resolve-only
-        branch); any mutation takes the scan (K3)."""
-        kind = np.asarray(planes["kind"])
-        if np.isin(kind, (_RES, _NOOP)).all():
-            k, a0, cl, rs = self._ops(planes, ("kind", "a0", "client",
-                                               "ref_seq"))
-            run, off = resolve_axis_fused(self.state, k, a0, cl, rs)
-        else:
-            run, off = apply_axis_batch_fused(self.state, *self._ops(planes))
-        return PendingResolve(run, off).result()
+    def _launch(self, planes: dict, resolve_only: bool):
+        """One window on the state, or once on each shard (its own block
+        of the planes, on its device): a ``PendingResolve`` of its
+        outputs."""
+        names = ("kind", "a0", "client", "ref_seq") if resolve_only \
+            else OP_FIELDS
+        if self.sharded is None:
+            fn = resolve_axis_fused if resolve_only \
+                else apply_axis_batch_fused
+            return PendingResolve(*fn(self._state,
+                                      *self._ops(planes, names)))
+        stack = np.stack([np.asarray(planes[k], np.int32) for k in names])
+        outs = sharded_axis_apply(self.mesh, resolve_only)(
+            self.sharded.shards,
+            [tuple(p) for p in shard_planes(stack, self.mesh,
+                                            self.sharded.rows_per)])
+        return PendingResolves([PendingResolve(*o) for o in outs])
 
-    def resolve_async(self, planes: dict) -> PendingResolve:
+    def apply(self, planes: dict) -> Tuple[np.ndarray, np.ndarray]:
+        """One device dispatch (one a shard); returns host (D2, O) resolve
+        outputs (the flush's single device→host read). A window of only
+        resolves and NOOPs skips the serial scan (K4, as the JAX store's
+        resolve-only branch); any mutation takes the scan (K3)."""
+        kind = np.asarray(planes["kind"])
+        return self._launch(planes,
+                            bool(np.isin(kind, (_RES, _NOOP)).all())).result()
+
+    def resolve_async(self, planes: dict):
         """Mutation-free position resolves whose host copy is started
         behind the launch: the caller harvests them later with
         ``result()``, so the ingest path never blocks on a device round
         trip (the matrix engine's resolve pipelining)."""
-        k, a0, cl, rs = self._ops(planes, ("kind", "a0", "client",
-                                           "ref_seq"))
-        return PendingResolve(*resolve_axis_fused(self.state, k, a0, cl, rs))
+        return self._launch(planes, True)
 
     def visible_lengths(self) -> np.ndarray:
-        return axis_visible_lengths(self.state).cpu().numpy()
+        return self._per_shard(axis_visible_lengths)
 
     def compact(self, min_seq: np.ndarray) -> None:
         """Zamboni at each axis row's floor: plain torch on either device
         (as the string slice keeps it)."""
-        self.state = compact_string_state(
-            self.state, torch.as_tensor(np.asarray(min_seq, np.int32)),
-            with_props=False)
+        ms = np.asarray(min_seq, np.int32)
+        if self.sharded is None:
+            self._state = compact_string_state(
+                self._state, torch.as_tensor(ms), with_props=False)
+            return
+        self.sharded.shards = [
+            compact_string_state(st, m, with_props=False)
+            for st, m in zip(self.sharded.shards, shard_vector(
+                ms, self.mesh, self.sharded.rows_per))]
 
     def overflowed(self) -> np.ndarray:
-        return self.state.overflow.cpu().numpy()
+        return self._per_shard(lambda st: st.overflow)
 
     # ----------------------------------------------------- snapshot/resume
     # The JAX store's formats: planes trimmed to the widest row's count.
 
     def snapshot(self) -> dict:
-        st = self.state
+        st = self._state if self.sharded is None \
+            else self.sharded.full("cpu")
         counts = st.count.cpu().numpy()
         n = max(int(counts.max()), 1)
         return {
@@ -336,8 +390,15 @@ class TensorAxisStore:
         """Incremental snapshot of the given axis rows (2 per dirty doc),
         plus the append-only run-table delta since ``runs_base``."""
         rows = np.ascontiguousarray(axis_rows, np.int32)
-        st = self.state
-        if len(rows):
+        if len(rows) and self.sharded is not None:
+            g = self.sharded.gather(rows, _PLANES + ("count", "overflow"),
+                                    "cpu")
+            counts = g["count"].numpy()
+            w = max(int(counts.max()), 1)
+            planes = {k: g[k][:, :w].numpy() for k in _PLANES}
+            overflow = g["overflow"].numpy()
+        elif len(rows):
+            st = self._state
             idx = torch.from_numpy(rows).to(self.device).long()
             counts = st.count[idx].cpu().numpy()
             w = max(int(counts.max()), 1)
@@ -359,14 +420,25 @@ class TensorAxisStore:
                     overflow) -> None:
         """Overwrite whole axis rows: each plane padded to the capacity
         with its fill, the property plane zeroed."""
-        idx = torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)
-        st = self.state
+        vals = {}
         for k in _PLANES:
             small = np.asarray(planes[k], np.int32)
             fill = NOT_REMOVED if k == "removed_seq" else 0
             full = np.full((len(rows), self.capacity), fill, np.int32)
             full[:, :small.shape[1]] = small
-            getattr(st, k)[idx] = torch.from_numpy(full).to(self.device)
+            vals[k] = torch.from_numpy(full)
+        if self.sharded is not None:
+            vals["prop_val"] = torch.zeros((len(rows), self.capacity, 1),
+                                           dtype=torch.int32)
+            vals["count"] = torch.as_tensor(np.asarray(count, np.int32))
+            vals["overflow"] = torch.as_tensor(np.asarray(overflow,
+                                                          np.int32))
+            self.sharded.scatter(rows, vals)
+            return
+        idx = torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)
+        st = self._state
+        for k in _PLANES:
+            getattr(st, k)[idx] = vals[k].to(self.device)
         st.prop_val[idx] = 0
         st.count[idx] = torch.as_tensor(np.asarray(count, np.int32)).to(
             self.device)

@@ -121,10 +121,12 @@ def launch(state, key, seq, value, L: Optional[int], fww: bool) -> None:
     words = scratch_words(Lt, O)
     scratch = _scratch_buffer(dev, stream, words)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    err = lib.cell_merge_launch(
-        *(ptr(t) for t in state.fields().values()), T, Lt, ptr(key),
-        ptr(seq), ptr(value), O, int(L is None), int(bool(fww)),
-        ptr(scratch), scratch.numel(), ctypes.c_void_p(stream))
+    # the library acts on the current device: make it the state's
+    with torch.cuda.device(dev):
+        err = lib.cell_merge_launch(
+            *(ptr(t) for t in state.fields().values()), T, Lt, ptr(key),
+            ptr(seq), ptr(value), O, int(L is None), int(bool(fww)),
+            ptr(scratch), scratch.numel(), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError("cell_merge launch failed: "
                            + lib.cell_merge_error_string(err).decode())

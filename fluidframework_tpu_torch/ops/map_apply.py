@@ -97,10 +97,11 @@ def launch_dense(state, kind, a0, a1, seq) -> None:
     if D == 0 or O == 0:
         return
     lib = _load()
-    _raise_on(lib.map_apply_dense(
-        *(_ptr(t) for t in planes.values()),
-        *(_ptr(t) for t in state.fields().values()), D, O, K,
-        _stream(kind)))
+    with torch.cuda.device(kind.device):   # the library's device
+        _raise_on(lib.map_apply_dense(
+            *(_ptr(t) for t in planes.values()),
+            *(_ptr(t) for t in state.fields().values()), D, O, K,
+            _stream(kind)))
     launches += 1
 
 
@@ -124,7 +125,9 @@ def launch_packed(state, buf, R: int, O: int, wide_vals: bool) -> None:
         return
     D, K = state.present.shape
     lib = _load()
-    _raise_on(lib.map_apply_packed(
-        _ptr(buf), R, O, int(wide_vals),
-        *(_ptr(t) for t in state.fields().values()), D, K, _stream(buf)))
+    with torch.cuda.device(buf.device):   # the library's device
+        _raise_on(lib.map_apply_packed(
+            _ptr(buf), R, O, int(wide_vals),
+            *(_ptr(t) for t in state.fields().values()), D, K,
+            _stream(buf)))
     launches += 1

@@ -37,6 +37,10 @@ from . import map_apply
 from .merge_tree import _wrap_i32
 from .schema import OpKind, ValueInterner, bucket_rows, pad_rows_pow2
 from .string_store import resolve_device
+from ..parallel.sharded import (
+    RowShardedStore, ShardedRows, shard_planes, sharded_map_merge,
+    store_shards,
+)
 
 _I32 = torch.int32
 _SET = int(OpKind.MAP_SET)
@@ -45,13 +49,6 @@ _CLEAR = int(OpKind.MAP_CLEAR)
 _NOOP = int(OpKind.NOOP)
 
 PLANES = ("present", "value", "last_seq")
-
-
-def refuse_mesh(mesh) -> None:
-    """The port runs one card: a mesh (doc-sharded planes) is ROADMAP B9."""
-    if mesh is not None:
-        raise ValueError("mesh= (doc-sharded state across cards) is not "
-                         "ported yet: ROADMAP B9")
 
 
 @dataclasses.dataclass
@@ -227,21 +224,31 @@ def map_columnar_apply_fused(state: MapState, buf, R: int, O: int,
     return state
 
 
-class TensorMapStore:
+class TensorMapStore(RowShardedStore):
     """Many SharedMap documents resident on one device (default the card;
-    ``device="cpu"`` runs the plain versions).
+    ``device="cpu"`` runs the plain versions), or split by doc-row block
+    over the devices of a 1-D ``docs`` ``mesh`` (one launch a shard).
 
     Interns string keys to per-doc slots and JSON values to int32 handles,
     packs sequenced ops into dense (D, O) batches, applies them in one
-    launch, and reads back per-doc dicts."""
+    launch, and reads back per-doc dicts. On a mesh ``state`` is a copy of
+    the whole state on the first shard's device; assigning it re-shards."""
 
     def __init__(self, n_docs: int, n_keys: int = 64, device="cuda",
                  mesh=None):
-        refuse_mesh(mesh)
-        self.device = resolve_device(device)
         self.n_docs = n_docs
         self.n_keys = n_keys
-        self.state = MapState.create(n_docs, n_keys, self.device)
+        self.mesh = mesh
+        self.sharded = None
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._state = MapState.create(n_docs, n_keys, self.device)
+        else:
+            devices, rows_per = store_shards(mesh, n_docs)
+            self.device = devices[0]
+            self.sharded = ShardedRows(
+                [MapState.create(rows_per, n_keys, d) for d in devices],
+                rows_per)
         self._key_ids: List[Dict[str, int]] = [dict() for _ in range(n_docs)]
         self._interner = ValueInterner()
 
@@ -294,32 +301,62 @@ class TensorMapStore:
                 a0[doc, j] = s_
                 a1[doc, j] = h_
                 seq[doc, j] = q_
-        apply_map_batch_fused(self.state, *(self._dev(p)
-                                            for p in (kind, a0, a1, seq)))
+        if self.sharded is None:
+            apply_map_batch_fused(self._state, *(
+                self._dev(p) for p in (kind, a0, a1, seq)))
+            return
+        per = shard_planes(np.stack([kind, a0, a1, seq]), self.mesh,
+                           self.sharded.rows_per)
+        sharded_map_merge(self.mesh, packed=False)(
+            self.sharded.shards, [tuple(p) for p in per])
 
     def apply_columnar(self, buf: np.ndarray, R: int, O: int,
                        wide_vals: bool) -> None:
         """One packed batch: one host→device copy, one launch."""
-        map_columnar_apply_fused(self.state, self._dev(buf), R, O, wide_vals)
+        map_columnar_apply_fused(self._state, self._dev(buf), R, O,
+                                 wide_vals)
+
+    def apply_rows(self, kind, a0, a1, seq_base, rows) -> None:
+        """Sequenced (R, O) kind / key-slot / value-handle planes of doc
+        rows ``rows`` with their (R,) seq bases: packed into one buffer
+        and applied in one launch, or on a mesh one buffer and one launch
+        a shard (its own rows, renumbered to its block)."""
+        if self.sharded is None:
+            buf, wide_vals = pack_map_batch(kind, a0, a1, seq_base, rows)
+            self.apply_columnar(buf, len(rows), kind.shape[1], wide_vals)
+            return
+        rows = np.asarray(rows, np.int64)
+        rp = self.sharded.rows_per
+        args = []
+        for s, dev in enumerate(self.mesh.doc_devices()):
+            mine = np.flatnonzero(rows // rp == s)
+            buf, wide_vals = pack_map_batch(
+                kind[mine], a0[mine], a1[mine], np.asarray(seq_base)[mine],
+                rows[mine] - s * rp)
+            args.append((torch.from_numpy(buf).to(dev, copy=True), len(mine),
+                         kind.shape[1], wide_vals))
+        sharded_map_merge(self.mesh, packed=True)(self.sharded.shards, args)
 
     # ----------------------------------------------------------------- reads
 
     def read_doc(self, doc: int) -> dict:
+        st, r = self._at(doc)
         present, value = torch.stack(
-            [self.state.present[doc], self.state.value[doc]]).cpu().numpy()
+            [st.present[r], st.value[r]]).cpu().numpy()
         return {key: self._interner.value(value[slot])
                 for key, slot in self._key_ids[doc].items() if present[slot]}
 
     def digests(self) -> np.ndarray:
-        return map_state_digest(self.state).cpu().numpy()
+        return self._per_shard(map_state_digest)
 
     # ----------------------------------------------------- snapshot / resume
 
     def snapshot(self) -> dict:
         """Device→host copy of the planes plus the host tables, in the JAX
         store's snapshot format."""
-        out = {k: v.cpu().numpy().copy()
-               for k, v in self.state.fields().items()}
+        st = self._state if self.sharded is None \
+            else self.sharded.full("cpu")
+        out = {k: v.cpu().numpy().copy() for k, v in st.fields().items()}
         out.update(n_keys=self.n_keys,
                    key_ids=[dict(m) for m in self._key_ids],
                    values=self._interner.export())
@@ -329,10 +366,13 @@ class TensorMapStore:
         """Incremental snapshot: the given doc rows' planes (one gather)
         plus the value table's entries since ``values_base``."""
         rows = np.ascontiguousarray(rows, np.int32)
-        if len(rows):
+        if len(rows) and self.sharded is not None:
+            planes = {k: v.numpy() for k, v in
+                      self.sharded.gather(rows, PLANES, "cpu").items()}
+        elif len(rows):
             idx = torch.from_numpy(rows).to(self.device).long()
             planes = {k: v[idx].cpu().numpy()
-                      for k, v in self.state.fields().items()}
+                      for k, v in self._state.fields().items()}
         else:
             planes = {k: np.zeros((0, self.n_keys), np.int32)
                       for k in PLANES}
@@ -352,20 +392,28 @@ class TensorMapStore:
             return
         for r, m in delta["key_ids"].items():
             self._key_ids[int(r)] = dict(m)
+        if self.sharded is not None:
+            self.sharded.scatter(rows, {
+                k: torch.from_numpy(np.asarray(delta[k], np.int32))
+                for k in PLANES})
+            return
         rows_p, p2, n = pad_rows_pow2(rows)
         idx = self._dev(rows_p).long()
-        for k, v in self.state.fields().items():
+        for k, v in self._state.fields().items():
             v[idx] = self._dev(bucket_rows(delta[k], p2, n))
 
     @classmethod
     def restore(cls, snap: dict, device="cuda", mesh=None
                 ) -> "TensorMapStore":
         """Rebuild a store from a ``snapshot()`` — this package's or the
-        JAX store's (numpy planes, key maps, value table) — on ``device``."""
+        JAX store's (numpy planes, key maps, value table) — on ``device``,
+        or sharded over ``mesh``."""
         present = np.asarray(snap["present"], np.int32)
         store = cls(present.shape[0], snap["n_keys"], device, mesh)
         store.state = MapState(**{
-            k: store._dev(snap[k]) for k in PLANES})
+            k: torch.from_numpy(np.array(snap[k], np.int32)).to(
+                store.device if mesh is None else "cpu")
+            for k in PLANES})
         store._key_ids = [dict(m) for m in snap["key_ids"]]
         store._interner = ValueInterner.restore(snap["values"])
         return store

@@ -172,12 +172,14 @@ def launch(state, kind, a0, a1, a2, seq, client, ref_seq) -> None:
     if D == 0 or O == 0:
         return
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    stream = torch.cuda.current_stream(state.seq.device).cuda_stream
-    err = _load().megadoc_apply_launch(
-        *(ptr(t) for t in ops),
-        *(ptr(getattr(state, k)) for k in merge_tree.PLANES),
-        ptr(state.prop_val), ptr(state.count), ptr(state.overflow),
-        D, n, S, O, K, ctypes.c_void_p(stream))
+    # the library acts on the current device: make it the state's
+    with torch.cuda.device(state.seq.device):
+        stream = torch.cuda.current_stream(state.seq.device).cuda_stream
+        err = _load().megadoc_apply_launch(
+            *(ptr(t) for t in ops),
+            *(ptr(getattr(state, k)) for k in merge_tree.PLANES),
+            ptr(state.prop_val), ptr(state.count), ptr(state.overflow),
+            D, n, S, O, K, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError("megadoc_apply launch failed: " + _error(err))
     launches += 1

@@ -30,7 +30,6 @@ import torch
 
 from ..core.constants import NOT_REMOVED
 from . import merge_tree
-from .map_kernel import refuse_mesh
 from .merge_tree import (
     FIELDS, PLANES, StringState, _insert_one, _range_one, _visible,
     _wrap_i32,
@@ -44,6 +43,16 @@ _REM = int(OpKind.STR_REMOVE)
 _ANN = int(OpKind.STR_ANNOTATE)
 #: planes moved by the host rebalance and the snapshot
 KEYS = PLANES + ("prop_val",)
+
+
+def refuse_mesh(mesh) -> None:
+    """K7 holds a mega doc inside one card's thread-block cluster: the
+    mega tier across cards (a doc's shards on several cards) is ROADMAP
+    B9."""
+    if mesh is not None:
+        raise ValueError("the mega tier does not shard over a mesh (K7 "
+                         "holds a doc inside one card's cluster): ROADMAP "
+                         "B9, the mega tier across cards")
 
 
 class MegaCapacityError(ValueError):

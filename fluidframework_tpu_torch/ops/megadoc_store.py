@@ -23,10 +23,9 @@ import numpy as np
 import torch
 
 from ..core.constants import NOT_REMOVED
-from .map_kernel import refuse_mesh
 from .megadoc_kernel import (
     apply_megadoc_batch, compact_megadoc, create_megadoc_state,
-    megadoc_digest, rebalance_megadoc, visible_runs,
+    megadoc_digest, rebalance_megadoc, refuse_mesh, visible_runs,
 )
 from .merge_tree import PLANES, StringState
 from .schema import OpKind, ValueInterner

@@ -190,13 +190,16 @@ def apply_string_batch_fused(state: StringState, kind, a0, a1, a2, seq,
                          f" O={O}, K={K}; the limit is {MAX_SMEM} B")
     if D == 0:
         return state
-    stream = torch.cuda.current_stream(state.seq.device).cuda_stream
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    err = lib.string_apply_launch(
-        *(ptr(t) for t in ops), *(ptr(getattr(state, k)) for k in PLANES),
-        ptr(state.prop_val), ptr(state.count), ptr(state.overflow),
-        ptr(min_seq) if min_seq is not None else None,
-        D, S, O, K, ctypes.c_void_p(stream))
+    # the library acts on the current device: make it the state's
+    with torch.cuda.device(state.seq.device):
+        stream = torch.cuda.current_stream(state.seq.device).cuda_stream
+        err = lib.string_apply_launch(
+            *(ptr(t) for t in ops),
+            *(ptr(getattr(state, k)) for k in PLANES),
+            ptr(state.prop_val), ptr(state.count), ptr(state.overflow),
+            ptr(min_seq) if min_seq is not None else None,
+            D, S, O, K, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError("string_apply launch failed: "
                            + lib.string_apply_error_string(err).decode())

@@ -18,6 +18,12 @@ Overflow recovery re-uploads a rebuilt doc with ``adopt_doc`` (or empties
 a graduated doc's row with ``clear_doc``); incremental summaries carry
 ``snapshot_rows`` deltas, folded back by ``apply_row_snapshot``.
 
+``mesh=`` (a 1-D ``docs`` mesh, ``parallel/sharded.py``) splits every plane
+into contiguous doc-row blocks, one on each shard's device: an apply or a
+compaction runs the single-device entry point once per shard, and reads,
+row writes, snapshots and digests route each row to its shard, so every
+result is the unsharded store's, bit for bit.
+
 Intervals (anchored ranges over a doc's text, SlideOnRemove endpoints) are
 host-side ``(handle_op, handle_off)`` anchors, so an apply never touches
 them. They slide where a doc's window floor crosses a pending tombstone:
@@ -43,6 +49,10 @@ from .merge_tree import (
 from . import string_kernel
 from .schema import OpKind, ValueInterner
 from .string_kernel import apply_string_batch_fused
+from ..parallel.sharded import (
+    RowShardedStore, ShardedRows, shard_planes, shard_vector,
+    sharded_compact, sharded_merge, store_shards,
+)
 
 _TEXT = 0
 _MARKER = 1
@@ -65,9 +75,13 @@ def resolve_device(device) -> torch.device:
 def _columnar_unpack(buf: torch.Tensor, R: int, O: int, pos_wide: bool,
                      ref_wide: bool, rich: int, n_docs: int,
                      fuse_compact: bool, scatter_rows: bool,
-                     compact8: bool = False, tab_n: int = 0):
+                     compact8: bool = False, tab_n: int = 0,
+                     row_lo: int = 0, n_rows: Optional[int] = None):
     """Device-side unpack of ONE columnar batch (an int32 word buffer) into
-    dense (n_docs or R, O) op planes plus the fused min_seq.
+    dense (n_docs or R, O) op planes plus the fused min_seq. A doc shard
+    unpacks its own block: rows [row_lo, row_lo + n_rows) of the store
+    (scattered; the batch's other rows land on a spare row that is cut
+    off) and that block of min_seq.
 
     Lanes: kind u8, client-idx u8, a0/a1 (u16, or i32 when ``pos_wide``),
     ref (u16 lag behind the op's own seq, or i32 when ``ref_wide``), a2
@@ -151,13 +165,22 @@ def _columnar_unpack(buf: torch.Tensor, R: int, O: int, pos_wide: bool,
         a2 = a2.expand(R, O)
     a2 = torch.where((kind == _INS) | (kind == _ANN), a2, 0)
     planes = (kind, a0, a1, a2, seq, client, ref)
+    n_rows = n_docs if n_rows is None else n_rows
     if scatter_rows:
+        local = rows.long() - row_lo
+        if row_lo or n_rows != n_docs:
+            local = torch.where((local >= 0) & (local < n_rows), local,
+                                n_rows)
+
         def full(p, fill):
-            out = torch.full((n_docs, O), fill, dtype=_I32, device=buf.device)
-            out[rows.long()] = p
-            return out
+            out = torch.full((n_rows + 1, O), fill, dtype=_I32,
+                             device=buf.device)
+            out[local] = p
+            return out[:n_rows]
         planes = (full(planes[0], _NOOP),) + \
             tuple(full(p, 0) for p in planes[1:])
+    if fuse_compact:
+        min_seq = min_seq[row_lo:row_lo + n_rows]
     return tuple(p.to(_I32).contiguous() for p in planes), min_seq
 
 
@@ -338,21 +361,33 @@ class StringOpInterner:
         raise ValueError(f"unknown op {op['mt']!r}")
 
 
-class TensorStringStore(StringOpInterner):
-    """D documents × S segment slots of merge-tree state on ``device``.
+class TensorStringStore(RowShardedStore, StringOpInterner):
+    """D documents × S segment slots of merge-tree state on ``device``, or
+    split by doc-row block over the devices of ``mesh``.
 
     The state's tensors are updated in place by every apply (the JAX store
-    donated them); compaction replaces them."""
+    donated them); compaction replaces them. On a mesh ``state`` is a copy
+    of the whole state on the first shard's device (``self.device``);
+    assigning it re-shards."""
 
     def __init__(self, n_docs: int, capacity: int = 256, n_props: int = 4,
-                 device="cuda"):
-        self.device = resolve_device(device)
+                 device="cuda", mesh=None):
         self.n_docs = n_docs
         self.capacity = capacity
+        self.mesh = mesh
+        self.sharded: Optional[ShardedRows] = None
         # until the first annotate the kernel runs its no-props mode
         # (all-zero planes are permutation-invariant)
-        self.state = StringState.create(n_docs, capacity, n_props,
-                                        device=self.device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._state = StringState.create(n_docs, capacity, n_props,
+                                             device=self.device)
+        else:
+            devices, rows_per = store_shards(mesh, n_docs)
+            self.device = devices[0]
+            self.sharded = ShardedRows(
+                [StringState.create(rows_per, capacity, n_props, device=d)
+                 for d in devices], rows_per)
         self._init_interner(n_docs, n_props)
         #: wire profile of the last columnar batch (None before the first)
         self.last_profile: Optional[tuple] = None
@@ -415,8 +450,12 @@ class TensorStringStore(StringOpInterner):
 
     def _apply_group(self, msgs) -> None:
         for planes in self._message_planes(msgs):
-            self._dispatch_apply(tuple(torch.from_numpy(p).to(self.device)
-                                       for p in planes))
+            if self.sharded is None:
+                self._dispatch_apply(tuple(
+                    torch.from_numpy(p).to(self.device) for p in planes))
+            else:
+                per = shard_planes(planes, self.mesh, self.sharded.rows_per)
+                self._merge_shards([tuple(p) for p in per], None)
 
     def _message_planes(self, messages) -> List[np.ndarray]:
         """Intern ``messages`` and lay their device records out as dense
@@ -462,8 +501,14 @@ class TensorStringStore(StringOpInterner):
 
     def _dispatch_apply(self, op_planes: tuple, min_seq=None) -> None:
         """One device merge of dense (D, O) op planes (+ fused zamboni)."""
-        apply_string_batch_fused(self.state, *op_planes, min_seq=min_seq,
+        apply_string_batch_fused(self._state, *op_planes, min_seq=min_seq,
                                  with_props=self._has_props)
+
+    def _merge_shards(self, planes: list, ms: Optional[list]) -> None:
+        """One merge on every shard: shard s's 7 op planes ``planes[s]``
+        (+ fused zamboni through ``ms[s]``), all on its device."""
+        sharded_merge(self.mesh, self._has_props, ms is not None)(
+            self.sharded.shards, planes, ms)
 
     def _tab_buffers(self, tab_n: int, T: int, P: int):
         """A (tab_a2, tab_len) pair of ``tab_n`` int32 buffers, reused from
@@ -797,13 +842,30 @@ class TensorStringStore(StringOpInterner):
                 rows.astype("<i4", copy=False),
                 ms.astype("<i4", copy=False),
             ])
-            planes, ms_dev = _columnar_unpack(
-                torch.from_numpy(buf).to(self.device), R=R, O=c1 - c0,
-                pos_wide=not narrow, ref_wide=ref_wide, rich=rich_mode,
-                n_docs=self.n_docs, fuse_compact=fuse,
-                scatter_rows=scatter_rows, compact8=compact8,
-                tab_n=pp.tab_n)
-            self._dispatch_apply(planes, ms_dev if fuse else None)
+            unpack = dict(R=R, O=c1 - c0, pos_wide=not narrow,
+                          ref_wide=ref_wide, rich=rich_mode,
+                          n_docs=self.n_docs, fuse_compact=fuse,
+                          compact8=compact8, tab_n=pp.tab_n)
+            if self.sharded is None:
+                planes, ms_dev = _columnar_unpack(
+                    torch.from_numpy(buf).to(self.device),
+                    scatter_rows=scatter_rows, **unpack)
+                self._dispatch_apply(planes, ms_dev if fuse else None)
+            else:
+                # the word buffer goes to each shard's device once; every
+                # shard unpacks its own row block there
+                on_dev: dict = {}
+                per, per_ms = [], []
+                rp = self.sharded.rows_per
+                for s, dev in enumerate(self.mesh.doc_devices()):
+                    if dev not in on_dev:
+                        on_dev[dev] = torch.from_numpy(buf).to(dev)
+                    planes, ms_dev = _columnar_unpack(
+                        on_dev[dev], scatter_rows=True, row_lo=s * rp,
+                        n_rows=rp, **unpack)
+                    per.append(planes)
+                    per_ms.append(ms_dev)
+                self._merge_shards(per, per_ms if fuse else None)
             if slides:
                 self._slide_docs(slides)
         self._tab_release(pp)
@@ -819,9 +881,15 @@ class TensorStringStore(StringOpInterner):
         ms = np.full((self.n_docs,), int(min_seq), np.int32) \
             if np.isscalar(min_seq) else np.asarray(min_seq, np.int32)
         self._reanchor_for_compact(ms)
-        self.state = compact_string_state(
-            self.state, torch.from_numpy(ms).to(self.device),
-            with_props=self._has_props)
+        if self.sharded is None:
+            self._state = compact_string_state(
+                self._state, torch.from_numpy(ms).to(self.device),
+                with_props=self._has_props)
+        else:
+            self.sharded.shards = sharded_compact(
+                self.mesh, self._has_props)(
+                    self.sharded.shards,
+                    shard_vector(ms, self.mesh, self.sharded.rows_per))
         for doc in self._iv_docs:
             self._prune_tombs(doc, int(ms[doc]))
 
@@ -832,11 +900,11 @@ class TensorStringStore(StringOpInterner):
         (removed_seq, handle_op, handle_off, length, seq), trimmed to its
         slot count."""
         self.device_reads += 1
-        st = self.state
+        st, r = self._at(doc)
         S = st.seq.shape[1]
         arr = torch.stack([
-            st.removed_seq[doc], st.handle_op[doc], st.handle_off[doc],
-            st.length[doc], st.seq[doc], st.count[doc].expand(S),
+            st.removed_seq[r], st.handle_op[r], st.handle_off[r],
+            st.length[r], st.seq[r], st.count[r].expand(S),
         ]).cpu().numpy()
         n = int(arr[5, 0])
         return tuple(arr[i, :n] for i in range(5))
@@ -881,20 +949,22 @@ class TensorStringStore(StringOpInterner):
     def get_properties(self, doc: int, pos: int) -> dict:
         """Properties of the character at visible position ``pos``."""
         i = self._slot_at(doc, pos)
-        pv = self.state.prop_val[doc, i].cpu().numpy()
+        st, r = self._at(doc)
+        pv = st.prop_val[r, i].cpu().numpy()
         return {key: self._prop_values.value(int(pv[plane]))
                 for key, plane in self._prop_planes.items()
                 if pv[plane] != 0}
 
     def visible_lengths(self) -> np.ndarray:
-        """(D,) visible lengths of every doc in one device round trip."""
-        st = self.state
-        S = st.seq.shape[1]
-        active = torch.arange(S, device=self.device)[None, :] < \
-            st.count[:, None]
-        live = active & (st.removed_seq == NOT_REMOVED)
-        return torch.where(live, st.length, 0).sum(
-            dim=1, dtype=_I32).cpu().numpy()
+        """(D,) visible lengths of every doc in one device round trip (one
+        a shard)."""
+        def lengths(st):
+            S = st.seq.shape[1]
+            active = torch.arange(S, device=st.seq.device)[None, :] < \
+                st.count[:, None]
+            live = active & (st.removed_seq == NOT_REMOVED)
+            return torch.where(live, st.length, 0).sum(dim=1, dtype=_I32)
+        return self._per_shard(lengths)
 
     # -------------------------------------------------------------- intervals
     # Anchored ranges over the served text (reference: IntervalCollection /
@@ -904,7 +974,12 @@ class TensorStringStore(StringOpInterner):
         """(removed_seq, length, handle_op, handle_off, count) of doc rows
         ``rows`` as numpy arrays, from ONE device→host copy."""
         self.device_reads += 1
-        st = self.state
+        if self.sharded is not None:
+            g = self.sharded.gather(rows, ("removed_seq", "length",
+                                           "handle_op", "handle_off",
+                                           "count"), "cpu")
+            return tuple(v.numpy() for v in g.values())
+        st = self._state
         idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
         S = st.seq.shape[1]
         g = torch.stack([st.removed_seq[idx], st.length[idx],
@@ -982,9 +1057,9 @@ class TensorStringStore(StringOpInterner):
     def _seed_tombs(self, doc: int) -> None:
         """Rebuild the doc's tombstone heap from the device planes (at its
         first interval, after a restore or a re-upload)."""
-        st = self.state
-        n = int(st.count[doc])
-        self._seed_from(doc, st.removed_seq[doc, :n].cpu().numpy())
+        st, r = self._at(doc)
+        n = int(st.count[r])
+        self._seed_from(doc, st.removed_seq[r, :n].cpu().numpy())
 
     def add_intervals_bulk(self, spans: Dict[int, list]
                            ) -> Dict[int, List[str]]:
@@ -1184,11 +1259,22 @@ class TensorStringStore(StringOpInterner):
 
     # ----------------------------------------------------- overflow recovery
 
-    def _write_rows(self, rows: torch.Tensor, planes: np.ndarray,
-                    prop: np.ndarray, count, overflow) -> None:
-        """Overwrite whole doc rows: ``planes`` (7, n, S) in PLANES order,
-        ``prop`` (n, S, K), ``count`` and ``overflow`` (n,)."""
-        st, dev = self.state, self.device
+    def _write_rows(self, rows, planes: np.ndarray, prop: np.ndarray,
+                    count, overflow) -> None:
+        """Overwrite whole doc rows ``rows``: ``planes`` (7, n, S) in PLANES
+        order, ``prop`` (n, S, K), ``count`` and ``overflow`` (n,)."""
+        rows = np.asarray(rows, np.int64)
+        if self.sharded is not None:
+            vals = {k: torch.from_numpy(np.ascontiguousarray(planes[i]))
+                    for i, k in enumerate(PLANES)}
+            vals["prop_val"] = torch.from_numpy(np.ascontiguousarray(prop))
+            vals["count"] = torch.as_tensor(np.asarray(count, np.int32))
+            vals["overflow"] = torch.as_tensor(np.asarray(overflow,
+                                                          np.int32))
+            self.sharded.scatter(rows, vals)
+            return
+        st, dev = self._state, self.device
+        rows = torch.from_numpy(rows).to(dev)
         planes = torch.from_numpy(np.ascontiguousarray(planes)).to(dev)
         for i, k in enumerate(PLANES):
             getattr(st, k)[rows] = planes[i]
@@ -1227,8 +1313,7 @@ class TensorStringStore(StringOpInterner):
             self._has_props = True
             self.remap_props(tmp, tmp.state.prop_val[src_row, :n].cpu()
                              .numpy(), prop[0])
-        self._write_rows(torch.tensor([row], device=self.device), planes,
-                         prop, [n], [0])
+        self._write_rows([row], planes, prop, [n], [0])
         # interval bookkeeping restarts from the rebuilt planes
         if self._intervals[row]:
             self._seed_tombs(row)
@@ -1239,8 +1324,7 @@ class TensorStringStore(StringOpInterner):
         a doc that reuses the row starts with none of it (the JAX engine
         keeps the row's floor, heap and membership: ROADMAP C8)."""
         planes, prop = self._empty_rows(1)
-        self._write_rows(torch.tensor([row], device=self.device), planes,
-                         prop, [0], [0])
+        self._write_rows([row], planes, prop, [0], [0])
         self._cidx_cache = None
         self._intervals[row] = {}
         self._iv_tombs[row] = []
@@ -1248,21 +1332,31 @@ class TensorStringStore(StringOpInterner):
         self._iv_docs.discard(row)
 
     def overflowed(self) -> np.ndarray:
-        return self.state.overflow.cpu().numpy()
+        return self._per_shard(lambda st: st.overflow)
+
+    def overflow_flags(self) -> torch.Tensor:
+        """A copy of the (D,) overflow flags on ``self.device``, taken in
+        stream order (no host sync)."""
+        if self.sharded is None:
+            return self._state.overflow.clone()
+        return torch.cat([st.overflow.to(self.device)
+                          for st in self.sharded.shards])
 
     def slot_usage(self) -> np.ndarray:
-        return self.state.count.cpu().numpy()
+        return self._per_shard(lambda st: st.count)
 
     def digests(self) -> np.ndarray:
-        return string_state_digest(self.state).cpu().numpy()
+        return self._per_shard(string_state_digest)
 
     # ----------------------------------------------------- snapshot / resume
 
     def snapshot(self) -> dict:
         """Device→host gather of the merged state plus the host interning
         tables, in the JAX store's snapshot format (planes trimmed to the
-        widest doc's slot count)."""
-        st = self.state
+        widest doc's slot count). A sharded store's shards concatenate in
+        row order: the snapshot does not depend on the mesh."""
+        st = self._state if self.sharded is None \
+            else self.sharded.full("cpu")
         counts = st.count.cpu().numpy()
         n = max(int(counts.max()), 1)
         return {
@@ -1289,8 +1383,15 @@ class TensorStringStore(StringOpInterner):
         the interval state in full (it changes outside the op stream). The
         JAX store's ``snapshot_rows`` layout."""
         rows = np.ascontiguousarray(rows, np.int32)
-        st = self.state
-        if len(rows):
+        if len(rows) and self.sharded is not None:
+            g = self.sharded.gather(
+                rows, self.SNAP_PLANES + ("count", "overflow"), "cpu")
+            counts = g["count"].numpy()
+            w = max(int(counts.max()), 1)
+            planes = {k: g[k][:, :w].numpy() for k in self.SNAP_PLANES}
+            overflow = g["overflow"].numpy()
+        elif len(rows):
+            st = self._state
             idx = torch.from_numpy(rows).to(self.device).long()
             counts = st.count[idx].cpu().numpy()
             w = max(int(counts.max()), 1)
@@ -1340,21 +1441,22 @@ class TensorStringStore(StringOpInterner):
             if "prop_val" in delta["planes"]:
                 pv = np.asarray(delta["planes"]["prop_val"], np.int32)
                 prop[:, :pv.shape[1]] = pv
-            self._write_rows(torch.from_numpy(rows).to(self.device).long(),
-                             planes, prop,
+            self._write_rows(rows, planes, prop,
                              np.asarray(delta["count"], np.int32),
                              np.asarray(delta["overflow"], np.int32))
         self._restore_intervals(delta)
 
     @classmethod
-    def from_jax_snapshot(cls, snap: dict,
-                          device="cuda") -> "TensorStringStore":
+    def from_jax_snapshot(cls, snap: dict, device="cuda",
+                          mesh=None) -> "TensorStringStore":
         """Rebuild a store from the plain dict that the JAX
         ``TensorStringStore.snapshot()`` returns (numpy planes plus the
         interner tables and intervals) — or from this store's own
-        ``snapshot()`` — so both packages continue from the same state."""
+        ``snapshot()`` — so both packages continue from the same state.
+        ``mesh`` shards the restored planes (either package's snapshot, of
+        a sharded store or not)."""
         n_docs = len(snap["count"])
-        store = cls(n_docs, snap["capacity"], snap["n_props"], device)
+        store = cls(n_docs, snap["capacity"], snap["n_props"], device, mesh)
         fields = {}
         for k in cls.SNAP_PLANES:
             small = np.asarray(snap["planes"][k], np.int32)
@@ -1366,11 +1468,11 @@ class TensorStringStore(StringOpInterner):
         fields["count"] = snap["count"]
         fields["overflow"] = snap["overflow"]
         # copies: the state is updated in place and must not write
-        # through to the snapshot's arrays
-        store.state = StringState(**{
-            k: torch.as_tensor(np.asarray(v, np.int32)).to(store.device,
-                                                            copy=True)
-            for k, v in fields.items()})
+        # through to the snapshot's arrays (on a mesh the split copies)
+        fields = {k: torch.as_tensor(np.asarray(v, np.int32))
+                  for k, v in fields.items()}
+        store.state = StringState(**fields if mesh is not None else {
+            k: v.to(store.device, copy=True) for k, v in fields.items()})
         store._payloads = [tuple(p) for p in snap["payloads"]]
         store._client_idx = [dict(m) for m in snap["client_idx"]]
         store._prop_planes = dict(snap["prop_planes"])

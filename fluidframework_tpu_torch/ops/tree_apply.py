@@ -149,10 +149,11 @@ def launch_apply(state, planes: torch.Tensor, base=None) -> None:
         _check_tensor("base", base, dev, (torch.int32,), (D,))
     if D == 0 or O == 0:
         return
-    _raise_on(_load().tree_apply_launch(
-        *(_ptr(getattr(state, k)) for k in _STATE_PLANES),
-        _ptr(state.overflow), _ptr(planes), _ptr(base), D, N, O,
-        _stream(planes)), "tree_apply")
+    with torch.cuda.device(dev):   # the library acts on the current device
+        _raise_on(_load().tree_apply_launch(
+            *(_ptr(getattr(state, k)) for k in _STATE_PLANES),
+            _ptr(state.overflow), _ptr(planes), _ptr(base), D, N, O,
+            _stream(planes)), "tree_apply")
     apply_launches += 1
 
 
@@ -182,10 +183,11 @@ def launch_expand(cols, ids, vals, row, pos, id_map, f_map, t_map, v_map,
         _check_tensor(name, m, dev, (torch.int32,), (max(m.shape[0], 1),))
     if D == 0 or o == 0:
         return
-    _raise_on(_load().tree_expand_launch(
-        _ptr(cols), _ptr(ids), _ptr(vals), _ptr(row), _ptr(pos),
-        _ptr(id_map), id_map.shape[0], _ptr(f_map), f_map.shape[0],
-        _ptr(t_map), t_map.shape[0], _ptr(v_map), v_map.shape[0], _ptr(out),
-        R, D, o, ids.element_size(), vals.element_size(), pos.element_size(),
-        _stream(out)), "tree_expand")
+    with torch.cuda.device(dev):   # the library acts on the current device
+        _raise_on(_load().tree_expand_launch(
+            _ptr(cols), _ptr(ids), _ptr(vals), _ptr(row), _ptr(pos),
+            _ptr(id_map), id_map.shape[0], _ptr(f_map), f_map.shape[0],
+            _ptr(t_map), t_map.shape[0], _ptr(v_map), v_map.shape[0],
+            _ptr(out), R, D, o, ids.element_size(), vals.element_size(),
+            pos.element_size(), _stream(out)), "tree_expand")
     expand_launches += 1

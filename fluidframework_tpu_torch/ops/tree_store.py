@@ -26,7 +26,10 @@ import numpy as np
 import torch
 
 from . import tree_apply
-from .map_kernel import refuse_mesh
+from ..parallel.sharded import (
+    RowShardedStore, ShardedRows, shard_planes, sharded_tree_apply,
+    store_shards,
+)
 from .schema import ValueInterner, positions_in_doc
 from .string_store import resolve_device
 from .tree_kernel import (
@@ -399,21 +402,35 @@ class PrepackedWire:
         return (self.id_map, self.f_map, self.t_map, self.v_map)
 
 
-class TensorTreeStore:
+class TensorTreeStore(RowShardedStore):
     """Many SharedTree documents resident on ``device`` (default the card;
-    ``device="cpu"`` runs the plain versions). ``mesh`` is refused (ROADMAP
-    B9), and on the card so is a capacity the apply kernel does not take,
-    before any op is admitted."""
+    ``device="cpu"`` runs the plain versions), or split by doc-row block
+    over the devices of a 1-D ``docs`` ``mesh`` (the dense apply launched
+    once a shard; the compact wire is single-device). On the card a
+    capacity the apply kernel does not take is refused before any op is
+    admitted. On a mesh ``state`` is a copy of the whole state on the
+    first shard's device; assigning it re-shards."""
 
     def __init__(self, n_docs: int, capacity: int = 256, device="cuda",
                  mesh=None):
-        refuse_mesh(mesh)
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        self.mesh = mesh
+        self.sharded = None
+        if mesh is None:
+            self.device = resolve_device(device)
+            devices = [self.device]
+        else:
+            devices, rows_per = store_shards(mesh, n_docs)
+            self.device = devices[0]
+        if any(d.type == "cuda" for d in devices):
             tree_apply.check_capacity(capacity)
         self.n_docs = n_docs
         self.capacity = capacity
-        self.state = TreeState.create(n_docs, capacity, self.device)
+        if mesh is None:
+            self._state = TreeState.create(n_docs, capacity, self.device)
+        else:
+            self.sharded = ShardedRows(
+                [TreeState.create(rows_per, capacity, d) for d in devices],
+                rows_per)
         self._ids = _Interner(reserved=(ROOT,))      # handle 1 == ROOT
         assert self._ids.handle(ROOT) == ROOT_HANDLE
         self._fields = _Interner()
@@ -448,9 +465,14 @@ class TensorTreeStore:
         """Dispatch a packed (9, D, O) record batch (plane order: kind,
         node, parent, after, field, value, type_, meta, seq) as one copy
         and one apply."""
+        if self.sharded is not None:
+            sharded_tree_apply(self.mesh)(self.sharded.shards, shard_planes(
+                np.asarray(planes, np.int32), self.mesh,
+                self.sharded.rows_per))
+            return
         dev = torch.from_numpy(np.ascontiguousarray(planes, np.int32)).to(
             self.device, copy=True)
-        apply_tree_planes_fused(self.state, dev)
+        apply_tree_planes_fused(self._state, dev)
 
     def pack_records(self, rows: np.ndarray, recs: np.ndarray,
                      seqs: np.ndarray) -> np.ndarray:
@@ -550,6 +572,9 @@ class TensorTreeStore:
                              base: np.ndarray) -> None:
         """Upload a prepacked wave (``base`` arrives after sequencing),
         dispatch it, and release its buffers behind the upload's event."""
+        if self.sharded is not None:
+            raise ValueError("the compact wire is single-device; a sharded "
+                             "store takes the dense records")
         cuda = self.device.type == "cuda"
         wire_dev = pp.wire.host.to(self.device, non_blocking=cuda)
         maps = [m.to(self.device, non_blocking=cuda) for m in pp.maps]
@@ -557,7 +582,7 @@ class TensorTreeStore:
             pp.event = torch.cuda.Event()
             pp.event.record()
         apply_tree_wire_fused(
-            self.state, *pp.wire.device_views(wire_dev),
+            self._state, *pp.wire.device_views(wire_dev),
             self._to_dev(np.asarray(base, np.int32)), *maps, o=pp.o)
         self.release_wire(pp)
 
@@ -598,8 +623,8 @@ class TensorTreeStore:
     # ----------------------------------------------------------------- reads
 
     def _pull(self, doc: int) -> dict:
-        st = self.state
-        rows = torch.stack([getattr(st, k)[doc] for k in TREE_PLANES])
+        st, r = self._at(doc)
+        rows = torch.stack([getattr(st, k)[r] for k in TREE_PLANES])
         host = rows.cpu().numpy()
         return {k: host[i] for i, k in enumerate(TREE_PLANES)}
 
@@ -662,13 +687,15 @@ class TensorTreeStore:
         nh = self._ids.peek(node_id)
         if nh is None:
             return False
-        return bool((self.state.node_id[doc] == nh).any())
+        st, r = self._at(doc)
+        return bool((st.node_id[r] == nh).any())
 
     def node_count(self, doc: int) -> int:
-        return int((self.state.node_id[doc] != 0).sum())
+        st, r = self._at(doc)
+        return int((st.node_id[r] != 0).sum())
 
     def overflowed(self) -> np.ndarray:
-        return self.state.overflow.cpu().numpy()
+        return self._per_shard(lambda st: st.overflow)
 
     # -------------------------------------------------- overflow recovery ops
 
@@ -683,26 +710,29 @@ class TensorTreeStore:
 
     def clear_doc(self, row: int) -> None:
         """Reset one row to the empty tree (root only, overflow cleared)."""
+        st, r = self._at(row)
         for k in TREE_PLANES:
-            getattr(self.state, k)[row] = 0
-        self.state.node_id[row, 0] = ROOT_HANDLE
-        self.state.overflow[row] = 0
+            getattr(st, k)[r] = 0
+        st.node_id[r, 0] = ROOT_HANDLE
+        st.overflow[r] = 0
 
     def high_water(self, doc: int = 0) -> int:
         """1 + the highest live slot index (root counts), for fit checks."""
-        live = torch.nonzero(self.state.node_id[doc] != 0)
+        st, r = self._at(doc)
+        live = torch.nonzero(st.node_id[r] != 0)
         return int(live.max()) + 1 if live.numel() else 0
 
     def repack(self, doc: int = 0) -> None:
         """Compact a doc's live slots to the lowest indices: a pure
         permutation (slot position carries no meaning), so a rebuilt doc
         whose history churned through many slots fits a small tier."""
-        live = torch.nonzero(self.state.node_id[doc] != 0)[:, 0]
+        st, r = self._at(doc)
+        live = torch.nonzero(st.node_id[r] != 0)[:, 0]
         for k in TREE_PLANES:
-            plane = getattr(self.state, k)
-            row = torch.zeros(self.capacity, dtype=_I32, device=self.device)
-            row[:len(live)] = plane[doc, live]
-            plane[doc] = row
+            plane = getattr(st, k)
+            row = torch.zeros(self.capacity, dtype=_I32, device=plane.device)
+            row[:len(live)] = plane[r, live]
+            plane[r] = row
 
     def adopt_doc(self, row: int, tmp: "TensorTreeStore") -> None:
         """Copy single-doc store ``tmp`` (which shares this store's
@@ -710,20 +740,23 @@ class TensorTreeStore:
         ``tmp.high_water() <= self.capacity`` first."""
         hw = tmp.high_water()
         assert hw <= self.capacity, "doc does not fit this tier"
+        st, r = self._at(row)
+        src = tmp._state
         for k in TREE_PLANES:
-            plane = getattr(self.state, k)
-            plane[row] = 0
-            plane[row, :hw] = getattr(tmp.state, k)[0, :hw].to(self.device)
-        self.state.overflow[row] = 0
+            plane = getattr(st, k)
+            plane[r] = 0
+            plane[r, :hw] = getattr(src, k)[0, :hw].to(plane.device)
+        st.overflow[r] = 0
 
     def digests(self) -> np.ndarray:
-        return tree_state_digest(self.state).cpu().numpy()
+        return self._per_shard(tree_state_digest)
 
     # ----------------------------------------------------- snapshot / resume
     # The JAX store's formats: numpy planes plus the interner exports.
 
     def snapshot(self) -> dict:
-        st = self.state
+        st = self._state if self.sharded is None \
+            else self.sharded.full("cpu")
         return {
             "planes": {k: getattr(st, k).cpu().numpy().copy()
                        for k in TREE_PLANES},
@@ -745,7 +778,9 @@ class TensorTreeStore:
         plus the interner entries appended since ``bases``."""
         rows = np.ascontiguousarray(rows, np.int32)
         if len(rows):
-            g = gather_tree_rows(self.state, torch.from_numpy(rows))
+            g = gather_tree_rows(self._state, torch.from_numpy(rows)) \
+                if self.sharded is None else tuple(self.sharded.gather(
+                    rows, TREE_PLANES + ("overflow",), "cpu").values())
             planes = {k: g[i].cpu().numpy() for i, k in
                       enumerate(TREE_PLANES)}
             overflow = g[-1].cpu().numpy()
@@ -775,8 +810,16 @@ class TensorTreeStore:
         rows = np.asarray(delta["rows"], np.int64)
         if not len(rows):
             return
+        if self.sharded is not None:
+            vals = {k: torch.from_numpy(np.asarray(delta["planes"][k],
+                                                   np.int32))
+                    for k in TREE_PLANES}
+            vals["overflow"] = torch.from_numpy(
+                np.asarray(delta["overflow"], np.int32))
+            self.sharded.scatter(rows, vals)
+            return
         write_tree_rows(
-            self.state, torch.from_numpy(rows),
+            self._state, torch.from_numpy(rows),
             *(torch.from_numpy(np.asarray(delta["planes"][k], np.int32))
               for k in TREE_PLANES),
             torch.from_numpy(np.asarray(delta["overflow"], np.int32)))
@@ -785,15 +828,17 @@ class TensorTreeStore:
     def restore(cls, snap: dict, device="cuda",
                 mesh=None) -> "TensorTreeStore":
         """Rebuild a store from a ``snapshot()`` (this package's or the JAX
-        store's numpy planes and interner exports) on ``device``: both
-        packages compute the same thing from there on. On the card a
-        capacity the kernel does not take is refused."""
+        store's numpy planes and interner exports) on ``device``, or
+        sharded over ``mesh``: both packages compute the same thing from
+        there on. On the card a capacity the kernel does not take is
+        refused."""
         overflow = np.asarray(snap["overflow"], np.int32)
         store = cls(overflow.shape[0], int(snap["capacity"]), device, mesh)
+        home = store.device if mesh is None else "cpu"
         store.state = TreeState(
-            **{k: store._to_dev(np.asarray(snap["planes"][k], np.int32))
-               for k in TREE_PLANES},
-            overflow=store._to_dev(overflow))
+            **{k: torch.from_numpy(np.array(snap["planes"][k], np.int32)).to(
+                home) for k in TREE_PLANES},
+            overflow=torch.from_numpy(overflow.copy()).to(home))
         store._ids = _Interner.restore(snap["ids"])
         store._fields = _Interner.restore(snap["fields"])
         store._types = _Interner.restore(snap["types"])

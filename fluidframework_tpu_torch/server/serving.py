@@ -48,10 +48,12 @@ import torch
 from ..core.protocol import MessageType, SequencedDocumentMessage
 from ..ops import string_kernel
 from ..ops.axis_kernel import TensorAxisStore
-from ..ops.map_kernel import TensorMapStore, pack_map_batch, refuse_mesh
+from ..ops.map_kernel import TensorMapStore
 from ..ops.megadoc_kernel import MegaCapacityError
 from ..ops.megadoc_store import MegaDocStringStore
-from ..ops.matrix_kernel import TensorMatrixStore, tuple_key
+from ..ops.matrix_kernel import (
+    ShardedMatrixStore, TensorMatrixStore, tuple_key,
+)
 from ..ops.schema import OpKind, positions_in_doc
 from ..ops.string_store import TensorStringStore
 from ..ops import tree_apply
@@ -684,6 +686,16 @@ def mega_rebuild_layouts(doc_id: str, n: int, S: int, grow_limit: int,
         yield n, S
 
 
+def check_store_mesh(store, mesh) -> None:
+    """An engine given both a store and a mesh needs the store sharded
+    over that mesh (build it with ``mesh=`` or restore it with one)."""
+    if store is not None and mesh is not None \
+            and getattr(store, "mesh", None) is not mesh:
+        raise ValueError("mesh given with a store that is not sharded over "
+                         "it; build the store with mesh= or restore it with "
+                         "mesh=")
+
+
 class StringServingEngine(ServingEngineBase):
     """Sequencer + log + batched device merge for many documents, on
     ``device`` (default the card; ``device="cpu"`` runs the plain
@@ -693,7 +705,12 @@ class StringServingEngine(ServingEngineBase):
     ``MegaDocStringStore`` of that many documents, 8 shards of
     ``mega_capacity_per_shard`` slots each (or the caller's own
     ``mega_store``), on the flat store's device. ``mark_mega`` routes a
-    document there before its first op."""
+    document there before its first op.
+
+    ``mesh`` (a 1-D ``docs`` mesh, ``parallel.sharded.make_doc_mesh``)
+    shards the flat store's planes by doc row over its devices; each wave
+    launches the apply once a shard. The mega tier refuses a mesh (K7
+    holds a doc inside one card's cluster: ROADMAP B9)."""
 
     def __init__(self, n_docs: int, capacity: int = 256, n_props: int = 4,
                  batch_window: int = 64, n_partitions: int = 8,
@@ -702,9 +719,16 @@ class StringServingEngine(ServingEngineBase):
                  sequencer: str = "python", device="cuda",
                  store: Optional[TensorStringStore] = None,
                  mega_docs: int = 0, mega_capacity_per_shard: int = 256,
-                 mega_store: Optional[MegaDocStringStore] = None):
+                 mega_store: Optional[MegaDocStringStore] = None,
+                 mesh=None):
+        check_store_mesh(store, mesh)
+        if mesh is not None and (mega_docs > 0 or mega_store is not None):
+            raise ValueError("the mega tier does not shard over a mesh "
+                             "(K7 holds a doc inside one card's cluster): "
+                             "ROADMAP B9")
         self.store = store if store is not None \
-            else TensorStringStore(n_docs, capacity, n_props, device)
+            else TensorStringStore(n_docs, capacity, n_props, device, mesh)
+        self.mesh = self.store.mesh
         self.mega_store = mega_store
         if mega_store is None and mega_docs > 0:
             self.mega_store = MegaDocStringStore(
@@ -1041,13 +1065,13 @@ class StringServingEngine(ServingEngineBase):
         """(host tensor, event): a clone of the overflow flags — the live
         buffer is overwritten by the next merge — copied non-blocking into
         pinned host memory; the event marks the copy's completion."""
-        flags = self.store.state.overflow.clone()
+        flags = self.store.overflow_flags()
         if flags.device.type != "cuda":
             return flags, None
         host = torch.empty(flags.shape, dtype=flags.dtype, pin_memory=True)
         host.copy_(flags, non_blocking=True)
         event = torch.cuda.Event()
-        event.record()
+        event.record(torch.cuda.current_stream(flags.device))
         return host, event
 
     def _ingest_log(self, w: _IngestWave) -> dict:
@@ -1480,6 +1504,9 @@ class StringServingEngine(ServingEngineBase):
         summary["mega_store"] = self.mega_store.snapshot() \
             if self.mega_store is not None else None
         summary["mega_rows"] = dict(self._mega_rows)
+        # the free list in its order, so a load hands out the rows this
+        # engine would (ROADMAP C6); the JAX load does not read it
+        summary["free_mega_rows"] = list(self._free_mega_rows)
         summary["graduated"] = {d: s.snapshot()
                                 for d, s in self._graduated.items()}
         self._note_summary(summary, cur_seqs,
@@ -1489,21 +1516,24 @@ class StringServingEngine(ServingEngineBase):
 
     @classmethod
     def load(cls, summary: dict, log: PartitionedLog, device="cuda",
-             **kwargs) -> "StringServingEngine":
+             mesh=None, **kwargs) -> "StringServingEngine":
         """Resume from a summary (this package's or the JAX engine's, full
-        or incremental) and the log: restore the flat store (the newest
-        full summary, then each delta's rows), the mega and graduated
-        stores, the sequencer and the dedup state, then replay the log
-        tail through the same apply path (a ``markMega`` record in the
-        tail routes its doc to the mega tier again). Every store is built
-        on ``device``; the flat and graduated stores carry their intervals.
-        A summary holding attribution is refused."""
+        or incremental, of a sharded engine or not) and the log: restore
+        the flat store (the newest full summary, then each delta's rows),
+        the mega and graduated stores, the sequencer and the dedup state,
+        then replay the log tail through the same apply path (a
+        ``markMega`` record in the tail routes its doc to the mega tier
+        again). Every store is built on ``device``, the flat store sharded
+        over ``mesh`` when one is given; the flat and graduated stores
+        carry their intervals. A summary holding attribution is
+        refused."""
         full, deltas = cls.resolve_summary_chain(summary)
         for s in [full] + deltas:
             if s.get("attribution") is not None:
                 raise ValueError("summary holds attribution, which is not "
                                  "ported")
-        store = TensorStringStore.from_jax_snapshot(full["store"], device)
+        store = TensorStringStore.from_jax_snapshot(full["store"], device,
+                                                    mesh)
         for delta in deltas:
             store.apply_row_snapshot(delta["store_delta"])
         mega = None
@@ -1513,12 +1543,15 @@ class StringServingEngine(ServingEngineBase):
             raise ValueError("summary routes docs to a mega tier but holds "
                              "no mega store")
         engine = cls(store.n_docs, store.capacity, store.n_props, log=log,
-                     store=store, mega_store=mega, **kwargs)
+                     store=store, mega_store=mega, mesh=mesh, **kwargs)
         engine._restore_base(summary)
         engine._mega_rows = dict(summary.get("mega_rows") or {})
-        used = set(engine._mega_rows.values())
-        engine._free_mega_rows = [r for r in range(max(used, default=-1))
-                                  if r not in used]
+        if "free_mega_rows" in summary:
+            engine._free_mega_rows = list(summary["free_mega_rows"])
+        else:   # a JAX summary: the rows below the highest used one
+            used = set(engine._mega_rows.values())
+            engine._free_mega_rows = [r for r in range(max(used, default=-1))
+                                      if r not in used]
         engine._graduated = {
             d: TensorStringStore.from_jax_snapshot(s, device)
             for d, s in summary.get("graduated", {}).items()}
@@ -1544,8 +1577,9 @@ class MapServingEngine(ServingEngineBase):
     ``device`` (default the card; ``device="cpu"`` runs the plain
     versions). Ops are the SharedMap wire dicts {"op": "set" | "delete" |
     "clear", "key", "value"}; every apply is one launch of the map kernel
-    (``ops/map_kernel.py``). ``store`` adopts an existing store (``load``);
-    ``mesh`` is refused (ROADMAP B9)."""
+    (``ops/map_kernel.py``), one a shard when ``mesh`` (a 1-D ``docs``
+    mesh) shards the planes by doc row. ``store`` adopts an existing store
+    (``load``)."""
 
     _KINDS = {"set": OpKind.MAP_SET, "delete": OpKind.MAP_DELETE,
               "clear": OpKind.MAP_CLEAR}
@@ -1555,9 +1589,10 @@ class MapServingEngine(ServingEngineBase):
                  log: Optional[PartitionedLog] = None,
                  store: Optional[TensorMapStore] = None,
                  sequencer: str = "python", device="cuda", mesh=None):
-        refuse_mesh(mesh)
+        check_store_mesh(store, mesh)
         self.store = store if store is not None \
-            else TensorMapStore(n_docs, n_keys, device)
+            else TensorMapStore(n_docs, n_keys, device, mesh)
+        self.mesh = self.store.mesh
         super().__init__(n_docs, batch_window, n_partitions, log=log,
                          sequencer=sequencer)
         # per-(rows, key vocabulary) key-slot table: steady-state ingest
@@ -1646,8 +1681,7 @@ class MapServingEngine(ServingEngineBase):
         seq_base = (np.max(np.where(valid_rs, seq_rs, 0), axis=1)
                     - valid_rs.sum(axis=1)).astype(np.int32)
 
-        buf, wide_vals = pack_map_batch(kind_eff, a0, a1, seq_base, rows)
-        self.store.apply_columnar(buf, R, O, wide_vals)
+        self.store.apply_rows(kind_eff, a0, a1, seq_base, rows)
 
         ok = ~nacked
         self._append_columnar(ColumnarOps(
@@ -1738,18 +1772,18 @@ class MapServingEngine(ServingEngineBase):
 
     @classmethod
     def load(cls, summary: dict, log: PartitionedLog, device="cuda",
-             **kwargs) -> "MapServingEngine":
+             mesh=None, **kwargs) -> "MapServingEngine":
         """Resume from a summary (this package's or the JAX engine's, full
-        or incremental) and the log: the newest full summary's store, each
-        delta's rows over it, the sequencer and dedup state, then the log
-        tail replayed through the same apply path. The store is built on
-        ``device``."""
+        or incremental, sharded or not) and the log: the newest full
+        summary's store, each delta's rows over it, the sequencer and
+        dedup state, then the log tail replayed through the same apply
+        path. The store is built on ``device``, or sharded over ``mesh``."""
         full, deltas = cls.resolve_summary_chain(summary)
-        store = TensorMapStore.from_jax_snapshot(full["store"], device)
+        store = TensorMapStore.from_jax_snapshot(full["store"], device, mesh)
         for delta in deltas:
             store.apply_row_snapshot(delta["store_delta"])
         engine = cls(store.n_docs, store.n_keys, log=log, store=store,
-                     **kwargs)
+                     mesh=mesh, **kwargs)
         engine._restore_base(summary)
         engine._replay_tail(summary)
         engine.flush()
@@ -1775,8 +1809,13 @@ class MatrixServingEngine(ServingEngineBase):
     engine tracks per-cell (seq, writer) host-side and filters FWW losers
     on the resolved key stream before the cell apply; the device always
     merges LWW, and the surviving stream's latest write is the DDS's
-    answer. ``store`` / ``axis_store`` adopt existing stores (``load``);
-    ``mesh`` is refused (ROADMAP B9)."""
+    answer. ``store`` / ``axis_store`` adopt existing stores (``load``).
+
+    ``mesh`` (a 1-D ``docs`` mesh) shards BOTH stores by doc block: the
+    axis rows (a doc's two adjacent) and the cell pool
+    (``ShardedMatrixStore``: cells are doc-scoped, so each shard
+    sort-merges its own docs' cells); every apply launches once a
+    shard."""
 
     _MX = {"insRow", "insCol", "rmRow", "rmCol", "setCell", "policy"}
 
@@ -1794,11 +1833,17 @@ class MatrixServingEngine(ServingEngineBase):
                  axis_capacity: int = 256,
                  axis_store: Optional[TensorAxisStore] = None,
                  sequencer: str = "python", device="cuda", mesh=None):
-        refuse_mesh(mesh)
-        self.store = store if store is not None \
-            else TensorMatrixStore(cell_capacity, device=device)
+        check_store_mesh(store, mesh)
+        check_store_mesh(axis_store, mesh)
+        if store is not None:
+            self.store = store
+        elif mesh is not None:
+            self.store = ShardedMatrixStore(cell_capacity, mesh, n_docs)
+        else:
+            self.store = TensorMatrixStore(cell_capacity, device=device)
         self.axis_store = axis_store if axis_store is not None \
-            else TensorAxisStore(n_docs, axis_capacity, device)
+            else TensorAxisStore(n_docs, axis_capacity, device, mesh)
+        self.mesh = mesh
         super().__init__(n_docs, batch_window, n_partitions, log=log,
                          sequencer=sequencer)
         self._fww: Dict[int, bool] = {}
@@ -2341,18 +2386,22 @@ class MatrixServingEngine(ServingEngineBase):
 
     @classmethod
     def load(cls, summary: dict, log: PartitionedLog, device="cuda",
-             **kwargs) -> "MatrixServingEngine":
+             mesh=None, **kwargs) -> "MatrixServingEngine":
         """Resume from a summary (this package's or the JAX engine's, full
         or incremental) and the log: the newest full summary's stores, each
         delta over them, the host metadata, the sequencer and dedup state,
         then the log tail replayed through the same apply path. The stores
-        are built on ``device``."""
+        are built on ``device``, or sharded over ``mesh``. A doc-sharded
+        cell pool's summary (``"sharded_docs"``) loads with or without a
+        mesh, and so does one pool's: the live cells are dealt to their
+        docs' shards, or merged into one pool."""
         full, deltas = cls.resolve_summary_chain(summary)
-        if "sharded_docs" in full["store"]:
-            raise ValueError("sharded matrix summary: mesh= is not ported "
-                             "yet (ROADMAP B9)")
-        store = TensorMatrixStore.restore(full["store"], device)
-        axis = TensorAxisStore.restore(full["axis_store"], device)
+        if mesh is not None:
+            store = ShardedMatrixStore.restore(full["store"], mesh,
+                                               summary["n_docs"])
+        else:
+            store = TensorMatrixStore.restore(full["store"], device)
+        axis = TensorAxisStore.restore(full["axis_store"], device, mesh)
         fww = dict(full["fww"])
         cell_meta = {
             row: {tuple_key(cell): tuple(sw) for cell, sw in items}
@@ -2373,7 +2422,7 @@ class MatrixServingEngine(ServingEngineBase):
                     cell_meta[int(r)] = {tuple_key(cell): tuple(sw)
                                          for cell, sw in items}
         engine = cls(summary["n_docs"], log=log, store=store,
-                     axis_store=axis, device=device, **kwargs)
+                     axis_store=axis, device=device, mesh=mesh, **kwargs)
         engine._restore_base(summary)
         engine._fww = fww
         engine._cell_meta = cell_meta
@@ -2468,7 +2517,8 @@ class TreeServingEngine(ServingEngineBase):
     batches (``ingest_records`` / ``ingest_batch`` / ``ingest_leaves``);
     every apply is one launch of the tree record scan (plus the wire
     expansion on the compact-wire route). ``store`` adopts an existing
-    store (``load``); ``mesh`` is refused (ROADMAP B9).
+    store (``load``). ``mesh`` (a 1-D ``docs`` mesh) shards the store by
+    doc row; each wave then takes the dense records, one launch a shard.
 
     Capacity: node slots are per doc row; an insert that finds no free
     slot sets the doc's sticky overflow flag and drops on the device.
@@ -2483,11 +2533,12 @@ class TreeServingEngine(ServingEngineBase):
                  log: Optional[PartitionedLog] = None,
                  store: Optional[TensorTreeStore] = None,
                  sequencer: str = "python", mesh=None, device="cuda"):
-        refuse_mesh(mesh)
+        check_store_mesh(store, mesh)
         super().__init__(n_docs, batch_window, n_partitions, log=log,
                          sequencer=sequencer)
         self.store = store if store is not None \
-            else TensorTreeStore(n_docs, capacity, device)
+            else TensorTreeStore(n_docs, capacity, device, mesh)
+        self.mesh = self.store.mesh
         self.device = self.store.device
         self.capacity = self.store.capacity
         # terminal tier: docs too big for the batched store, each in a
@@ -2693,8 +2744,10 @@ class TreeServingEngine(ServingEngineBase):
     def _wire_eligible(self, batch: dict) -> bool:
         """Can this batch ride the compact wire? The id / value lanes widen
         to u32, so only the u8 field / type lanes and the u16 row lane
-        bound it."""
-        return (len(batch["ids"]) < 0x7FFFFFFF
+        bound it; a sharded store, whose dense planes split by row, takes
+        the dense path (as the JAX engine's mesh stores do)."""
+        return (self.mesh is None
+                and len(batch["ids"]) < 0x7FFFFFFF
                 and len(batch["fields"]) < 0xFF
                 and len(batch["types"]) < 0xFF
                 and len(batch["values"]) < 0x7FFFFFFF
@@ -3230,14 +3283,14 @@ class TreeServingEngine(ServingEngineBase):
         or incremental) and the log: the newest full summary's store, each
         delta's rows over it, the graduated stores (re-aliased to the
         restored interners), the sequencer and dedup state, then the log
-        tail re-applied. Every store is built on ``device``."""
-        refuse_mesh(mesh)
+        tail re-applied. Every store is built on ``device``, the batched
+        one sharded over ``mesh`` when one is given."""
         full, deltas = cls.resolve_summary_chain(summary)
-        store = TensorTreeStore.restore(full["store"], device)
+        store = TensorTreeStore.restore(full["store"], device, mesh)
         for delta in deltas:
             store.apply_row_snapshot(delta["store_delta"])
         engine = cls(store.n_docs, store.capacity, log=log, store=store,
-                     **kwargs)
+                     mesh=mesh, **kwargs)
         engine._restore_base(summary)
         for doc_id, snap in summary["graduated"].items():
             grad = TensorTreeStore.restore(snap, device)

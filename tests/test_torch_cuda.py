@@ -2593,3 +2593,62 @@ def test_interval_recovery_and_load_on_card_match_cpu(cuda):
         n = engines[0].store._interval_counter - 1 + k
         assert loaded[0].store.add_interval(0, 0, 1) == \
             loaded[1].store.add_interval(0, 0, 1) == f"iv{n + 1}"
+
+
+# ------------------------------------------------------- doc-sharded state
+
+def _sharded_string_pair(devices, D=64, O=16, S=256, waves=3):
+    """A string engine sharded over ``devices`` and an unsharded one on
+    the first, fed the same typing waves (compaction fused each wave)."""
+    from fluidframework_tpu_torch.parallel import make_doc_mesh
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    out = []
+    for mesh in (make_doc_mesh(devices=devices), None):
+        e = StringServingEngine(n_docs=D, capacity=S, batch_window=10 ** 9,
+                                compact_every=1, sequencer="native",
+                                device=devices[0], mesh=mesh)
+        docs = [f"d{i}" for i in range(D)]
+        for d in docs:
+            e.connect(d, 1)
+        out.append((e, np.array([e.doc_row(d) for d in docs], np.int32)))
+    launches = []
+    for b in range(waves):
+        planes, _ = typing_storm(D, O, seed=b)
+        cs = np.broadcast_to(np.arange(b * O + 1, (b + 1) * O + 1,
+                                       dtype=np.int32), (D, O))
+        for i, (e, rows) in enumerate(out):
+            before = sk.launches
+            assert e.ingest_planes(rows, np.ones((D, O), np.int32), cs, cs,
+                                   planes["kind"], planes["a0"],
+                                   planes["a1"], "abcd")["nacked"] == 0
+            if i == 0:
+                launches.append(sk.launches - before)
+    return out[0][0], out[1][0], launches
+
+
+def test_four_shards_on_one_card_equal_unsharded(cuda):
+    """4 doc shards on cuda:0: digests and texts equal the unsharded
+    engine's, B1 launches once a shard a wave, and the sharded merge moves
+    no tensor between devices."""
+    from fluidframework_tpu_torch.parallel import sharded
+    sharded.reset_shard_launches()
+    e, u, launches = _sharded_string_pair([cuda] * 4)
+    assert launches == [4, 4, 4]
+    assert sharded.shard_launches()["string_apply"] == {s: 3
+                                                        for s in range(4)}
+    assert np.array_equal(e.store.digests(), u.store.digests())
+    for d in ("d0", "d17", "d63"):
+        assert e.read_text(d) == u.read_text(d)
+    assert sharded.assert_collective_free(e.store.mesh, 64, 256, 16) == \
+        "collective-free"
+
+
+def test_two_cards_equal_unsharded(cuda):
+    """Doc shards on two cards: each shard launches on its own card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    devs = [torch.device("cuda", i) for i in (0, 1)]
+    e, u, launches = _sharded_string_pair(devs)
+    assert launches == [2, 2, 2]
+    assert [st.seq.device for st in e.store.sharded.shards] == devs
+    assert np.array_equal(e.store.digests(), u.store.digests())

@@ -315,6 +315,47 @@ def test_freed_mega_row_is_reused_after_a_load():
     assert loaded.read_text("m") == e.read_text("m")
 
 
+def test_loaded_engine_hands_out_the_live_engines_mega_row():
+    """ROADMAP C6: rows freed by graduations in the order 1, 0 leave the
+    live engine's free list [1, 0] (it hands out row 0 next). A load of
+    its summary restores that list and hands out the same row, with equal
+    per-row digests after the same write (rebuilt ascending, as from a
+    JAX summary, the list would give row 1)."""
+    e = TEngine(n_docs=1, capacity=64, batch_window=8,
+                compact_every=10 ** 9, mega_docs=4,
+                mega_capacity_per_shard=16, device="cpu")
+    e.auto_recover = False
+    for i, d in enumerate(("a", "b", "c", "d")):
+        e.mark_mega(d)
+        e.connect(d, i + 1)
+        e.submit(d, i + 1, 1, e.deli.doc_seq(d),
+                 {"mt": "insert", "kind": 0, "pos": 0, "text": d})
+    for d in ("b", "a"):
+        c = "ab".index(d) + 1
+        for i in range(200):
+            e.submit(d, c, i + 2, e.deli.doc_seq(d),
+                     {"mt": "insert", "kind": 0, "pos": 0, "text": f"k{i}"})
+        e.flush()
+        assert e.recover_overflowed() == {d: "graduated"}
+    assert e._free_mega_rows == [1, 0]
+    summary = e.summarize()
+    loaded = TEngine.load(summary, e.log, device="cpu")
+    assert loaded._free_mega_rows == [1, 0]
+    for eng in (e, loaded):
+        eng.mark_mega("new")
+        eng.connect("new", 9)
+        eng.submit("new", 9, 1, eng.deli.doc_seq("new"),
+                   {"mt": "insert", "kind": 0, "pos": 0, "text": "fresh"})
+        eng.flush()
+    assert e._mega_rows["new"] == loaded._mega_rows["new"] == 0
+    assert np.array_equal(e.mega_store.digests(), loaded.mega_store.digests())
+    assert loaded.read_text("new") == "fresh"
+    old = dict(summary)
+    del old["free_mega_rows"]   # a summary without the list (a JAX one):
+    # rebuilt ascending, the tail's markMega takes the highest free row
+    assert TEngine.load(old, e.log, device="cpu")._mega_rows["new"] == 1
+
+
 # ------------------------------------------- recovery through the mega tier
 # The port rebuilds an overflowed mega doc through a one-doc mega store
 # (the tier's own apply: K7 on the card, the plain version here), the JAX

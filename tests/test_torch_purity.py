@@ -145,3 +145,48 @@ def test_tree_kernel_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="shape"):
         tk.apply_tree_wire_fused(st, *bad_pos, torch.zeros(
             4, dtype=torch.int32), m, m, m, m, o=8)
+
+
+#: every ctypes entry point that launches a hand kernel, by wrapper module
+LAUNCHES = {
+    "string_kernel.py": {"string_apply_launch"},
+    "map_apply.py": {"map_apply_dense", "map_apply_packed"},
+    "cell_merge.py": {"cell_merge_launch"},
+    "axis_apply.py": {"axis_apply_launch", "axis_resolve_launch"},
+    "tree_apply.py": {"tree_apply_launch", "tree_expand_launch"},
+    "megadoc_apply.py": {"megadoc_apply_launch"},
+}
+
+
+def _under_device_guard(parents, node) -> bool:
+    """Is ``node`` inside a ``with torch.cuda.device(...)`` block?"""
+    while node in parents:
+        node = parents[node]
+        if isinstance(node, ast.With) and any(
+                ast.unparse(item.context_expr.func) == "torch.cuda.device"
+                for item in node.items
+                if isinstance(item.context_expr, ast.Call)):
+            return True
+    return False
+
+
+@pytest.mark.parametrize("module", sorted(LAUNCHES))
+def test_every_launch_enters_the_tensors_device(module):
+    """The libraries act on the CURRENT device (shared-memory opt-ins,
+    SM counts, the launch itself): each wrapper makes its tensors' device
+    current around the ctypes call, so a shard on another card launches
+    there."""
+    path = ROOT / "fluidframework_tpu_torch" / "ops" / module
+    tree = ast.parse(path.read_text(), filename=str(path))
+    parents = {child: node for node in ast.walk(tree)
+               for child in ast.iter_child_nodes(node)}
+    seen, bare = set(), []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and \
+                isinstance(node.func, ast.Attribute) and \
+                node.func.attr in LAUNCHES[module]:
+            seen.add(node.func.attr)
+            if not _under_device_guard(parents, node):
+                bare.append(node.lineno)
+    assert seen == LAUNCHES[module], f"launch calls not found: {seen}"
+    assert not bare, f"{module}: launches outside a device guard at {bare}"
