@@ -10,9 +10,10 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
 
 1. device — card name, count, ``nvidia-smi`` name and power limit, build
    seconds and the ``-Xptxas -v`` report: registers, stack-frame and
-   spill-store bytes of every instantiation (the four sources are built
-   with one nvcc each and the native sequencer with g++, all in parallel,
-   into the package's git-ignored build directory);
+   spill-store bytes of every instantiation (the kernel sources are built
+   with one nvcc each and the native sequencer and durable log with one
+   g++ each, all in parallel, into the package's git-ignored build
+   directory);
 2. parity — D=10,240 docs, S=384 slots, O=64 ops, 4 chained typing_storm
    batches: apply (full planes bit-identical) and fused apply+compact
    (``[0, count)`` plus digest identical), and the props specialisation on
@@ -171,7 +172,30 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    collective-free check (no tensor moves between devices in a sharded
    apply). The line reports the wall a wave sharded and unsharded, B1's
    launches a wave, the load seconds and the launches a shard of each
-   kernel; the kernels line carries them as ``mesh_launches_per_shard``.
+   kernel; the kernels line carries them as ``mesh_launches_per_shard``;
+13. durable — config #4 on the durable op log (``server/oplog.py``,
+   ``server/native_oplog.py`` + ``native/oplog.cpp``, built with g++
+   beside the kernels): (a) 10,240 docs, S=512, O=64 served by an engine
+   on ``NativePartitionedLog(tmpdir, 8)`` with ``sync()`` after every
+   batch and by one on the in-memory log, fed the same batches in turns
+   (2 rounds of a warm-up and 5 timed batches): ops/s of both and their
+   ratio, the bytes and the sync of every batch, and the filesystem the
+   directory lies on (an fsync on tmpfs is no durability figure); (b) a
+   child process (``testing/durable_drill.py``) serves the same config on
+   the card, summarizes after batch 2 and is SIGKILLed inside the log
+   append of batch 4, as soon as the partition file grows (the frame is
+   left torn, or whole if the write won the race: one of the two must
+   show); the directory is reopened (a torn tail truncated) and the
+   summary loaded on the card, the tail replayed through string_apply:
+   every doc equals an engine on the card that applied exactly the
+   batches on disk (every acked batch; the killed one only whole) by a
+   digest with payloads ranked by text, doc seqs and sampled texts, and
+   512 docs equal a ``device="cpu"`` twin; (c) the JSONL spill at 512
+   docs: recovery verifies the chain, the load on the card equals the
+   live engine, one flipped bit (``faultpoints.corrupt_bitflip``) is
+   refused at the record that holds it, and the summary anchor refuses a
+   truncation at a record boundary. string_apply's launches on these
+   paths are ``durable_launches`` in the kernels line.
 
 With ``--parent DIR`` (another checkout, e.g. an archive of the parent
 commit) a last phase, parent_timing, times K1-K7 of DIR and of this
@@ -196,7 +220,8 @@ the tree phase's kernel loop, serving, flat serving, per-op, recovery and
 load paths; the megadoc phase's kernel loop and engine, and its summary /
 recovery path beside them; the interval phase's serving and recovery paths
 as ``string_apply``'s ``interval_launches`` and
-``interval_recovery_launches``), and as the last
+``interval_recovery_launches``; the durable phase's as its
+``durable_launches``), and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase raises, so
 the exit code is non-zero. Without a card it exits 2 and prints no result.
 
@@ -3683,6 +3708,302 @@ def mesh_phase(smi, dev, D=D, O=O, S=S_SERVE, twin_d=MESH_TWIN_D,
     return launches
 
 
+DURABLE_ROUNDS = 2          # (a): fresh engines and log a round
+DURABLE_TIMED = 5           # (a): timed batches a round after a warm-up
+DURABLE_SUMMARY_AFTER = 2   # (b): the child summarizes after this batch
+DURABLE_KILL_BATCH = 4      # (b): the child is killed in this batch
+DURABLE_SUBSET = 512        # (b): the CPU twin's docs; (c): the spill's docs
+DURABLE_SPILL_WAVES = 3     # (c): waves on the JSONL spill
+
+
+def filesystem_of(path):
+    """(mount point, type) of the filesystem that holds ``path``."""
+    path = os.path.realpath(path)
+    best = ("", "unknown")
+    with open("/proc/mounts") as f:
+        for line in f:
+            mnt, typ = line.split()[1:3]
+            inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best[0]):
+                best = (mnt, typ)
+    return best
+
+
+def durable_phase(smi, dev, D=D, O=O, S=S_SERVE):
+    """Phase 13: config #4 on the durable op log (``server/oplog.py``,
+    ``server/native_oplog.py`` + ``native/oplog.cpp``). (a) Durable
+    serving: ``DURABLE_ROUNDS`` rounds, each a fresh pair of engines (one
+    on ``NativePartitionedLog(tmpdir, 8)`` with ``sync()`` after every
+    batch, one on the in-memory log), a warm-up batch and
+    ``DURABLE_TIMED`` timed batches fed to both in turns; ops/s of each,
+    their ratio, the bytes and the sync of every batch. (b) Kill and
+    recover: a child process (``testing/durable_drill.py``) serves the
+    same config on the card, summarizes after batch
+    ``DURABLE_SUMMARY_AFTER`` and is SIGKILLed inside the log append of
+    batch ``DURABLE_KILL_BATCH``, as soon as its partition file grows
+    (the frame is left torn, or whole if the write won the race); the
+    directory is reopened (a torn frame is cut) and the summary
+    loaded on the card (the tail replays through string_apply); every
+    doc's payload-ranked digest, text of a sample and doc seq equal an
+    engine on the card that applied exactly the batches on disk (every
+    acked one, the killed one only whole), and ``DURABLE_SUBSET`` docs
+    equal a ``device="cpu"`` twin. (c) The JSONL spill at
+    ``DURABLE_SUBSET`` docs: recovery verifies the chain, the load on the
+    card equals the live engine, one flipped bit is refused at the record
+    that holds it, and the summary anchor refuses a truncation at a record
+    boundary. Returns {path: string_apply launches}."""
+    from fluidframework_tpu_torch.ops import cuda_build
+    from fluidframework_tpu_torch.ops import string_kernel as sk
+    from fluidframework_tpu_torch.server.native_oplog import (
+        NativePartitionedLog, encode_columnar,
+    )
+    from fluidframework_tpu_torch.server.oplog import (
+        OplogCorruptionError, PartitionedLog, chain_step,
+    )
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    from fluidframework_tpu_torch.testing import durable_drill as dd
+    from fluidframework_tpu_torch.utils.faultpoints import corrupt_bitflip
+    import numpy as np
+    import random
+    import torch
+
+    def settle():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    dev = torch.device(dev)
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="durable-")
+    mount, fstype = filesystem_of(root)
+    docs = dd.doc_ids(D)
+    waves = [dd.config4_wave(D, O, b) for b in range(DURABLE_TIMED + 1)]
+    launches = {"durable_serving": 0, "memory_serving": 0,
+                "kill_replay": 0, "spill_replay": 0}
+
+    def disk_bytes(d):
+        return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+    # (a) durable serving beside the in-memory log, batch by batch
+    walls = {"durable": [], "memory": []}
+    sync_s, batch_bytes = [], []
+    for r in range(DURABLE_ROUNDS):
+        ddir = os.path.join(root, f"a{r}")
+        dlog = NativePartitionedLog(ddir, dd.N_PARTITIONS)
+        engines = {"durable": dd.make_engine(docs, S, dlog, dev),
+                   "memory": dd.make_engine(docs, S, PartitionedLog(
+                       dd.N_PARTITIONS), dev)}
+        dlog.sync()
+        for b, w in enumerate(waves):
+            order = ("durable", "memory") if b % 2 else ("memory", "durable")
+            for name in order:
+                eng, rows = engines[name]
+                before = disk_bytes(ddir)
+                sk.launches = 0
+                t0 = time.perf_counter()
+                res = eng.ingest_planes(rows, **w)
+                if name == "durable":
+                    t1 = time.perf_counter()
+                    dlog.sync()   # group commit: the ack is durable
+                    t_sync = time.perf_counter() - t1
+                settle()
+                wall = time.perf_counter() - t0
+                launches[f"{name}_serving"] += sk.launches
+                if res["nacked"]:
+                    raise AssertionError(f"durable phase (a): {name} batch "
+                                         f"{b} nacked {res['nacked']}")
+                if b == 0:
+                    continue   # the warm-up
+                walls[name].append(wall)
+                if name == "durable":
+                    sync_s.append(t_sync)
+                    batch_bytes.append(disk_bytes(ddir) - before)
+        for name, (eng, rows) in engines.items():
+            if eng.overflowed_docs():
+                raise AssertionError(f"durable phase (a): {name} overflowed")
+        digests = [dd.ranked_digests(e, rows_)
+                   for e, rows_ in engines.values()]
+        if not np.array_equal(*digests):
+            raise AssertionError("durable phase (a): the durable engine "
+                                 "differs from the in-memory one")
+        mem = engines["memory"][0]
+        last_rec = mem.log.read((mem._col_part - 1) % dd.N_PARTITIONS)[-1]
+        dlog.close()
+        del engines, mem
+        torch.cuda.empty_cache()
+    on_card = dev.type == "cuda"   # the plain version launches nothing
+    if on_card and not (launches["durable_serving"]
+                        and launches["memory_serving"]):
+        raise AssertionError("durable phase (a): string_apply never ran")
+    n_timed = D * O * len(walls["durable"])
+    ops_s = {k: n_timed / sum(v) for k, v in walls.items()}
+    # one batch's append split by part, on the last batch's record: the
+    # width-coded encode, the chain word, the whole append (encode, chain
+    # word, the C side's frame CRC and write) and the fsync
+    split = {"encode_s": [], "chain_word_s": [], "append_s": [],
+             "sync_s": []}
+    for i in range(3):
+        t0 = time.perf_counter()
+        data = encode_columnar(last_rec)
+        t1 = time.perf_counter()
+        chain_step(b"D" + data, 0)
+        t2 = time.perf_counter()
+        scratch = NativePartitionedLog(os.path.join(root, f"s{i}"), 1)
+        t3 = time.perf_counter()
+        scratch.append(0, last_rec)
+        t4 = time.perf_counter()
+        scratch.sync()
+        t5 = time.perf_counter()
+        scratch.close()
+        for k, v in zip(split, (t1 - t0, t2 - t1, t4 - t3, t5 - t4)):
+            split[k].append(v)
+    del last_rec
+    a_s = time.perf_counter() - t_phase
+
+    # (b) a child serves on the card, is killed inside a batch's log
+    # append, is recovered
+    t0 = time.perf_counter()
+    bdir = os.path.join(root, "b")
+    ev = dd.kill_drill(bdir, D, S, O, DURABLE_SUMMARY_AFTER,
+                       DURABLE_KILL_BATCH, device=str(dev),
+                       kernel_libs=cuda_build.libraries())
+    child_s = time.perf_counter() - t0
+    if not ev["killed_mid_batch"] or ev["rc"] != -9 or \
+            ev["last_acked"] < DURABLE_SUMMARY_AFTER + 1:
+        raise AssertionError(f"durable phase (b): the kill missed: {ev}")
+    sk.launches = 0
+    t0 = time.perf_counter()
+    rec, rlog, truncated = dd.recover(bdir, ev["summary"], device=dev)
+    settle()
+    replay_s = time.perf_counter() - t0
+    launches["kill_replay"] = sk.launches
+    if on_card and not launches["kill_replay"]:
+        raise AssertionError("durable phase (b): the replay never launched "
+                             "string_apply")
+    on_disk = dd.batches_on_disk(rlog, D)
+    if on_disk not in (ev["last_acked"] + 1, ev["last_acked"] + 2):
+        raise AssertionError(f"durable phase (b): {on_disk} batches on "
+                             f"disk after acking 0..{ev['last_acked']}")
+    # the kill landed inside the killed batch's append: its frame was
+    # left torn (and the reopen cut it) or was already whole
+    if not (truncated > 0 or on_disk == ev["last_acked"] + 2):
+        raise AssertionError(f"durable phase (b): the kill left neither a "
+                             f"torn nor a whole frame: {ev['kill']}")
+    ref, rows = dd.make_engine(docs, S, PartitionedLog(dd.N_PARTITIONS), dev)
+    if rec._doc_rows != ref._doc_rows:
+        raise AssertionError("durable phase (b): doc rows differ")
+    for b in range(on_disk):
+        ref.ingest_planes(rows, **dd.config4_wave(D, O, b))
+    if not np.array_equal(dd.ranked_digests(rec, rows),
+                          dd.ranked_digests(ref, rows)):
+        raise AssertionError("durable phase (b): recovered digests differ "
+                             "from the acked batches'")
+    if any(rec.deli.doc_seq(d) != ref.deli.doc_seq(d) for d in docs):
+        raise AssertionError("durable phase (b): doc seqs differ")
+    sample = list(range(0, D, max(1, D // 64)))
+    if any(rec.read_text(docs[i]) != ref.read_text(docs[i])
+           for i in sample):
+        raise AssertionError("durable phase (b): texts differ")
+    sub = list(range(0, D, max(1, D // DURABLE_SUBSET)))[:DURABLE_SUBSET]
+    twin, trows = dd.make_engine([docs[i] for i in sub], S,
+                                 PartitionedLog(dd.N_PARTITIONS), "cpu")
+    for b in range(on_disk):
+        twin.ingest_planes(trows, **dd.subset_wave(
+            dd.config4_wave(D, O, b), sub))
+    if not np.array_equal(dd.ranked_digests(rec, rows[sub]),
+                          dd.ranked_digests(twin, trows)) or any(
+            rec.read_text(docs[i]) != twin.read_text(docs[i])
+            for i in sub[::8]):
+        raise AssertionError("durable phase (b): the recovered subset "
+                             "differs from the CPU twin")
+    rlog.close()
+    del rec, ref, twin
+    torch.cuda.empty_cache()
+
+    # (c) the JSONL spill at a small size: chain, bit flip, boundary cut
+    t0 = time.perf_counter()
+    cdir = os.path.join(root, "c")
+    n = DURABLE_SUBSET
+    cdocs = dd.doc_ids(n)
+    clog = PartitionedLog(dd.N_PARTITIONS, cdir, "c")
+    live, crows = dd.make_engine(cdocs, S, clog, dev)
+    summary = None
+    for b in range(DURABLE_SPILL_WAVES):
+        live.ingest_planes(crows, **dd.config4_wave(n, O, b))
+        if b == 0:
+            summary = live.summarize()
+    heads = [clog.chain_head(p) for p in range(dd.N_PARTITIONS)]
+    clog.close()
+    for tag in ("flip", "cut"):
+        shutil.copytree(cdir, os.path.join(root, f"c-{tag}"))
+    back = PartitionedLog.recover(dd.N_PARTITIONS, cdir, "c")
+    if [back.chain_head(p) for p in range(dd.N_PARTITIONS)] != heads:
+        raise AssertionError("durable phase (c): chain heads differ")
+    sk.launches = 0
+    loaded = StringServingEngine.load(summary, back, device=dev,
+                                      sequencer="native")
+    launches["spill_replay"] = sk.launches
+    if (on_card and not launches["spill_replay"]) or not np.array_equal(
+            dd.ranked_digests(loaded, crows), dd.ranked_digests(live, crows)):
+        raise AssertionError("durable phase (c): the spill's load differs")
+    sizes = [back.size(p) for p in range(dd.N_PARTITIONS)]
+    back.close()
+    big = int(np.argmax(sizes))
+    path = os.path.join(root, "c-flip", f"c-p{big}.jsonl")
+    flip = corrupt_bitflip(path, random.Random(16))
+    with open(path, "rb") as f:
+        want_index = f.read()[:flip["offset"]].count(b"\n")
+    try:
+        PartitionedLog.recover(dd.N_PARTITIONS, os.path.dirname(path), "c")
+        raise AssertionError("durable phase (c): a flipped bit recovered")
+    except OplogCorruptionError as e:
+        flip_refused = {"index": e.index, "reason": e.reason}
+    if flip_refused["index"] != want_index:
+        raise AssertionError(f"durable phase (c): bit flip at record "
+                             f"{want_index} refused at {flip_refused}")
+    cut_p = int(np.argmax(summary["log_offsets"]))
+    path = os.path.join(root, "c-cut", f"c-p{cut_p}.jsonl")
+    with open(path, "rb") as f:
+        lines = f.read().splitlines(True)
+    with open(path, "wb") as f:
+        f.write(b"".join(lines[:summary["log_offsets"][cut_p] - 1]))
+    cut = PartitionedLog.recover(dd.N_PARTITIONS, os.path.dirname(path), "c")
+    try:
+        StringServingEngine.load(summary, cut, device=dev,
+                                 sequencer="native")
+        raise AssertionError("durable phase (c): a truncated log loaded")
+    except OplogCorruptionError as e:
+        cut_refused = {"index": e.index, "reason": e.reason}
+    if cut_refused["reason"] != "log shorter than summary anchor":
+        raise AssertionError(f"durable phase (c): {cut_refused}")
+    cut.close()
+    c_s = time.perf_counter() - t0
+    del live, loaded
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    emit({"phase": "durable", "docs": D, "capacity": S, "ops_per_batch": D * O,
+          "tmpdir_filesystem": {"mount": mount, "type": fstype},
+          "fsync_is_durable": fstype not in ("tmpfs", "ramfs"),
+          "timed_batches": len(walls["durable"]),
+          "durable_ops_per_s": ops_s["durable"],
+          "memory_ops_per_s": ops_s["memory"],
+          "durable_over_memory": ops_s["durable"] / ops_s["memory"],
+          "batch_wall_s": walls, "sync_s": sync_s,
+          "bytes_per_batch": batch_bytes, "append_split": split,
+          "kill": {**ev, "batches_on_disk": on_disk,
+                   "torn_bytes_truncated": truncated,
+                   "replay_s": replay_s, "child_s": child_s,
+                   "replay_launches": launches["kill_replay"],
+                   "twin_docs": len(sub)},
+          "spill": {"docs": n, "waves": DURABLE_SPILL_WAVES,
+                    "records": sizes, "replay_launches":
+                    launches["spill_replay"], "bit_flip": flip,
+                    "bit_flip_refused": flip_refused,
+                    "boundary_cut_refused": cut_refused, "s": c_s},
+          "a_s": a_s, "total_s": time.perf_counter() - t_phase,
+          "card": smi})
+    return launches
+
+
 def parent_timing(parent, tree_inputs=None, axis_inputs=None,
                   mega_inputs=None):
     """K1-K7 of ``parent`` (another checkout, e.g. an archive
@@ -3790,7 +4111,8 @@ def main(argv=None) -> int:
           "build_s": build_s,
           "kernel_build_s": {n: cuda_build.build_info[n]["seconds"]
                              for n in cuda_build.SOURCES},
-          "native_build_s": cuda_build.build_info["libdeli.so"]["seconds"],
+          "native_build_s": {t: cuda_build.build_info[t]["seconds"]
+                             for t in ("libdeli.so", "liboplog.so")},
           "spill_store_bytes_max": max(k["spill_stores"]
                                        for r in reports.values() for k in r),
           "stack_frame_bytes_max": max(k["stack_frame"]
@@ -4077,6 +4399,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mesh_launches = mesh_phase(smi, dev)
     torch.cuda.empty_cache()
+    durable_launches = durable_phase(smi, dev)
+    torch.cuda.empty_cache()
     timing_pc = parent_timing(args.parent, keep_tree, keep_axis,
                               keep_mega) if args.parent else None
     if tmp:
@@ -4105,6 +4429,7 @@ def main(argv=None) -> int:
         "recovery_launches": phase_launches,
         "interval_launches": iv_launches,
         "interval_recovery_launches": iv_rec_launches,
+        "durable_launches": durable_launches,
         "specialisations": [
             {"spec": name, "S": S, "state": state, **t}
             for (name, S, state), t in timing.items()] + rebuild_rows,

@@ -43,3 +43,6 @@ class SequencedDocumentMessage:
     metadata: Optional[dict] = None
     address: Optional[str] = None
     timestamp: Optional[float] = None
+    # trace context of the submitting batch ({"tid", "sid"}), None when
+    # untraced; kept so a spilled message has the JAX package's fields
+    trace: Optional[dict] = None

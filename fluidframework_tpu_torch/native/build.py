@@ -1,9 +1,11 @@
-"""Build the native sequencer (g++ → shared library for ctypes).
+"""Build the native host components (g++ → shared libraries for ctypes):
+the sequencer (``libdeli.so``) and the durable op log (``liboplog.so``).
 
-``ensure_built()`` compiles ``sequencer.cpp`` into the package's git-ignored
-build directory at first use. The compile writes a temporary file and then
+``ensure_built()`` compiles a target into the package's git-ignored build
+directory at first use. The compile writes a temporary file and then
 ``os.replace``s it into place, so parallel test workers that build at the
-same moment never load a half-written library. A failed build raises.
+same moment never load a half-written library. A failed build raises:
+no caller falls back to another implementation.
 
 Usage: ``python -m fluidframework_tpu_torch.native.build``.
 """
@@ -17,7 +19,8 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(HERE), "_build")
 
-TARGETS = {"libdeli.so": ["sequencer.cpp"]}
+TARGETS = {"libdeli.so": ["sequencer.cpp"],
+           "liboplog.so": ["oplog.cpp"]}
 
 
 def ensure_built(target: str = "libdeli.so") -> str:

@@ -23,7 +23,7 @@ import tempfile
 import threading
 import time
 
-from ..native.build import ensure_built
+from ..native.build import TARGETS as NATIVE_TARGETS, ensure_built
 
 PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_ROOT, "csrc")
@@ -39,7 +39,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 #: per kernel name: {"seconds": its nvcc wall, "ptxas": the -Xptxas -v
-#: report}; "libdeli.so": {"seconds"} for the sequencer built beside them
+#: report}; "libdeli.so" / "liboplog.so": {"seconds"} for the native
+#: sequencer and durable log built beside them
 build_info: dict = {}
 _paths: dict = {}
 _lock = threading.Lock()
@@ -53,7 +54,8 @@ def _nvcc() -> str:
 
 def build_all() -> None:
     """Compile every kernel source not yet built by this process (one
-    ``nvcc`` each, all at once) and the native sequencer beside them."""
+    ``nvcc`` each, all at once) and the native sequencer and durable log
+    beside them (one ``g++`` each)."""
     with _lock:
         todo = [n for n in SOURCES if n not in _paths]
         if not todo:
@@ -78,23 +80,39 @@ def build_all() -> None:
                                 "ptxas": proc.stderr}
             _paths[name] = out
 
-        def build_deli():
+        def build_native(target):
             t0 = time.perf_counter()
             try:
-                ensure_built("libdeli.so")
+                ensure_built(target)
             except RuntimeError as e:
                 errors.append(str(e))
                 return
-            build_info["libdeli.so"] = {"seconds": time.perf_counter() - t0}
+            build_info[target] = {"seconds": time.perf_counter() - t0}
 
         threads = [threading.Thread(target=compile_one, args=(n,))
-                   for n in todo] + [threading.Thread(target=build_deli)]
+                   for n in todo] + [
+            threading.Thread(target=build_native, args=(t,))
+            for t in NATIVE_TARGETS]
         for th in threads:
             th.start()
         for th in threads:
             th.join()
         if errors:
             raise RuntimeError("\n".join(errors))
+
+
+def libraries() -> dict:
+    """{kernel name: library path} of the kernels this process built."""
+    with _lock:
+        return dict(_paths)
+
+
+def adopt(paths: dict) -> None:
+    """Take kernel libraries this checkout already built in another
+    process (``libraries()`` of a parent) instead of building them again:
+    a child process of a run starts without an ``nvcc`` pass."""
+    with _lock:
+        _paths.update(paths)
 
 
 def load(name: str) -> ctypes.CDLL:

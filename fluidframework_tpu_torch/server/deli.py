@@ -61,6 +61,12 @@ class DeliSequencer:
     def __init__(self, clock=None):
         self._docs: Dict[str, _DocState] = {}
         self.clock = clock if clock is not None else time.time
+        # writer epoch this sequencer's stream is stamped under: set by
+        # the owning engine from its log's fence word (at construction
+        # and on acquire_write_authority). Deliberately NOT part of
+        # checkpoint(): the fence word's source of truth is the log's
+        # persisted fence file, never a checkpoint that may be stale.
+        self.epoch = 0
 
     def _doc(self, doc_id: str) -> _DocState:
         if doc_id not in self._docs:

@@ -179,6 +179,8 @@ class NativeDeliAdapter:
     def __init__(self, clock=None, _native: Optional[NativeDeli] = None):
         self.raw = _native if _native is not None else NativeDeli()
         self.clock = clock if clock is not None else time.time
+        # writer epoch, as on DeliSequencer (not part of checkpoint())
+        self.epoch = 0
 
     def client_join(self, doc_id: str, client_id: int):
         seq = self.raw.client_join(doc_id, client_id)

@@ -59,6 +59,7 @@ from ..ops.string_store import TensorStringStore
 from ..ops import tree_apply
 from ..ops.tree_kernel import TreeOpKind
 from ..ops.tree_store import ANON_BASE, TensorTreeStore
+from ..utils.telemetry import REGISTRY
 from .deli import DeliSequencer, Nack, NackReason
 from .oplog import OplogCorruptionError, PartitionedLog, partition_of
 from .tree_wire import decode_records, encode_leaf_records, encode_tree_batch
@@ -260,6 +261,12 @@ class ServingEngineBase:
                  sequencer: str = "python"):
         self.deli = make_sequencer(sequencer)
         self.log = log if log is not None else PartitionedLog(n_partitions)
+        # the epoch this engine stamps on its appends: the log's CURRENT
+        # fence word. Constructing or loading an engine never bumps the
+        # fence (a reader must not depose the writer); takeover goes
+        # through acquire_write_authority()
+        self.writer_epoch: int = self.log.fence_epoch
+        self.deli.epoch = self.writer_epoch
         self.n_docs = n_docs
         self.batch_window = batch_window
         self.compact_every = compact_every
@@ -401,11 +408,26 @@ class ServingEngineBase:
         return np.minimum(ref_flat.astype(np.int64),
                           np.maximum(out_seq - 1, 0))
 
+    def _fenced_append(self, partition: int, record: Any) -> int:
+        """Every append of the engine: stamped with its writer epoch, so a
+        deposed engine (the fence bumped by another engine's
+        ``acquire_write_authority``, in this process or another on the
+        same directory) gets ``FencedWriterError`` here instead of
+        interleaving seqs into a stream it no longer owns."""
+        return self.log.append(partition, record, epoch=self.writer_epoch)
+
+    def acquire_write_authority(self) -> int:
+        """Takeover edge: bump the log's fence and adopt the new epoch;
+        every other live engine on this log becomes a fenced zombie."""
+        self.writer_epoch = self.log.bump_fence()
+        self.deli.epoch = self.writer_epoch
+        return self.writer_epoch
+
     def _append_columnar(self, record: ColumnarOps) -> None:
         """Whole-batch append (round-robin partition) + poison clear."""
         p = self._col_part
         self._col_part = (p + 1) % self.log.n_partitions
-        self.log.append(p, record)
+        self._fenced_append(p, record)
         self._ingest_mark_logged()
 
     def _ingest_mark_logged(self) -> None:
@@ -478,7 +500,7 @@ class ServingEngineBase:
         """Undo ``_admit`` when the sequencer nacks after admission."""
 
     def _log_append(self, doc_id: str, msg: SequencedDocumentMessage) -> None:
-        self.log.append(partition_of(doc_id, self.log.n_partitions), msg)
+        self._fenced_append(partition_of(doc_id, self.log.n_partitions), msg)
 
     def flush(self) -> int:
         """Apply the queued window on the device; drives the compaction
@@ -563,8 +585,11 @@ class ServingEngineBase:
         return {
             "deli": self.deli.checkpoint(),
             "log_offsets": sizes,
-            # the in-memory log keeps no checksum chain: no anchor words
-            "chain_heads": [None] * len(sizes),
+            # the chain word at each partition's summary offset: a load
+            # checks that the log still carries these exact bytes before
+            # it replays the tail. None on a memory-only log (no chain)
+            "chain_heads": [self.log.chain_at(p, s)
+                            for p, s in enumerate(sizes)],
             "doc_rows": dict(self._doc_rows),
             "min_seq": dict(self._min_seq),
             "dedup": self._dedup.snapshot(),
@@ -574,6 +599,7 @@ class ServingEngineBase:
     def _restore_base(self, summary: dict) -> None:
         # keep this engine's clock (a test may have injected one)
         self.deli = restore_sequencer(summary["deli"], clock=self.deli.clock)
+        self.deli.epoch = self.writer_epoch
         self._doc_rows = dict(summary["doc_rows"])
         used = set(self._doc_rows.values())
         self._next_row = max(used) + 1 if used else 0
@@ -594,15 +620,37 @@ class ServingEngineBase:
         self._members = members
 
     def _verify_tail_anchor(self, summary: dict) -> None:
-        """The log must still reach every partition's summary offset: a
-        shorter log lost records behind the summary, and replaying its
-        tail would serve a different history. (Chain words are not checked:
-        this log keeps none.)"""
-        for p, off in enumerate(summary.get("log_offsets") or []):
-            if self.log.size(p) < int(off):
+        """Anchor the tail replay against the summary's chain heads: the
+        log must (a) still reach every partition's summary offset — a
+        shorter log was truncated at a record boundary, which no scan of
+        the file alone can see — and (b) carry the exact chain word the
+        summary recorded there, so a spliced or regrown prefix fails
+        before a single record is replayed. (b) is skipped for a
+        partition whose head is None (the summary's log was memory-only)."""
+        offsets = summary.get("log_offsets")
+        if offsets is None:
+            return
+        heads = summary.get("chain_heads")
+        for p in range(self.log.n_partitions):
+            off = int(offsets[p])
+            if self.log.size(p) < off:
+                REGISTRY.inc("oplog_chain_verify_failures_total")
                 raise OplogCorruptionError(
                     f"log p{p} holds {self.log.size(p)} records but the "
-                    f"summary was cut at offset {int(off)}")
+                    f"summary was cut at offset {off}: durable stream "
+                    f"truncated behind the summary", index=off,
+                    reason="log shorter than summary anchor")
+            if heads is None or heads[p] is None:
+                continue
+            have = self.log.chain_at(p, off)
+            if have != int(heads[p]):
+                REGISTRY.inc("oplog_chain_verify_failures_total")
+                raise OplogCorruptionError(
+                    f"log p{p} chain word at offset {off} is "
+                    f"{'absent' if have is None else hex(have)}, summary "
+                    f"anchored {int(heads[p]):#010x}: log bytes diverged "
+                    f"from the summarized history", index=off,
+                    reason="chain anchor mismatch")
 
     def _replay_tail(self, summary: dict, control_hook=None) -> None:
         """Replay every tail message through the sequencer (so sequencing
@@ -1115,7 +1163,7 @@ class StringServingEngine(ServingEngineBase):
                 sl = slice(bounds[p], bounds[p + 1])
                 if sl.start == sl.stop:
                     continue
-                self.log.append(p, ColumnarOps(
+                self._fenced_append(p, ColumnarOps(
                     ids, row_sorted[sl], *(g[sl] for g in gathered),
                     text=w.text, timestamp=ts, texts=w.texts, props=w.props,
                     tidx=None if tidx_sorted is None else tidx_sorted[sl]))

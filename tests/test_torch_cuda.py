@@ -2,12 +2,16 @@
 specialisation ({no props, props} × {apply, apply+compact}), the map apply
 (dense and packed) and the cell merge (prefix and full, LWW and FWW)
 against their plain PyTorch versions on the same CUDA inputs, and the
-stores and engines on the card against the same on the CPU. Tolerance:
-exact (int32).
+stores and engines on the card against the same on the CPU, and config
+#4 on the durable op log (a sync a batch, a SIGKILLed child recovered
+from disk, the native build refusing to fall back). Tolerance: exact
+(int32).
 
 Run on a machine with a card: ``python -m pytest -m cuda
 tests/test_torch_cuda.py``. Without a card every test skips (the decision
 is taken inside the fixture, so every worker collects the same tests)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -2652,3 +2656,99 @@ def test_two_cards_equal_unsharded(cuda):
     assert launches == [2, 2, 2]
     assert [st.seq.device for st in e.store.sharded.shards] == devs
     assert np.array_equal(e.store.digests(), u.store.digests())
+
+
+# ------------------------------------------------ the durable op log
+
+def test_durable_serving_on_the_card(cuda, tmp_path):
+    """Config #4's shape at 1,024 docs on ``NativePartitionedLog`` with a
+    sync a batch, beside the in-memory log: string_apply launched every
+    batch, the two engines digest-equal, the log reopened and a summary
+    loaded on the card equal to the live engine."""
+    from fluidframework_tpu_torch.server.native_oplog import (
+        NativePartitionedLog,
+    )
+    from fluidframework_tpu_torch.server.oplog import PartitionedLog
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    from fluidframework_tpu_torch.testing import durable_drill as dd
+    D, S, O = 1024, 512, 64
+    docs = dd.doc_ids(D)
+    dlog = NativePartitionedLog(str(tmp_path), 8)
+    dur, rows = dd.make_engine(docs, S, dlog, cuda)
+    mem, _ = dd.make_engine(docs, S, PartitionedLog(8), cuda)
+    summary = None
+    for b in range(4):
+        w = dd.config4_wave(D, O, b)
+        sk.launches = 0
+        assert dur.ingest_planes(rows, **w)["nacked"] == 0
+        dlog.sync()
+        assert sk.launches >= 1
+        mem.ingest_planes(rows, **w)
+        if b == 1:
+            summary = dur.summarize()
+    assert np.array_equal(dd.ranked_digests(dur, rows),
+                          dd.ranked_digests(mem, rows))
+    dlog.close()
+    sk.launches = 0
+    loaded = StringServingEngine.load(
+        summary, NativePartitionedLog(str(tmp_path), 8), device=cuda,
+        sequencer="native")
+    assert sk.launches >= 1
+    assert np.array_equal(dd.ranked_digests(loaded, rows),
+                          dd.ranked_digests(mem, rows))
+    assert all(loaded.read_text(d) == mem.read_text(d) for d in docs[::64])
+
+
+def test_sigkill_drill_on_the_card(cuda, tmp_path):
+    """A child process serves on the card with a sync a batch, is killed
+    inside a batch's log append after its summary; the reopened
+    directory loads on the card (the tail through string_apply) to
+    exactly the batches on disk, and a subset equals the CPU path."""
+    from fluidframework_tpu_torch.ops import cuda_build
+    from fluidframework_tpu_torch.server.oplog import PartitionedLog
+    from fluidframework_tpu_torch.testing import durable_drill as dd
+    D, S, O = 1024, 512, 64
+    cuda_build.build_all()
+    ev = dd.kill_drill(str(tmp_path), D, S, O, summary_after=1, kill_batch=3,
+                       device="cuda", kernel_libs=cuda_build.libraries())
+    assert ev["killed_mid_batch"] and ev["rc"] == -9, ev
+    sk.launches = 0
+    rec, log, torn = dd.recover(str(tmp_path), ev["summary"], device=cuda)
+    assert sk.launches >= 1
+    m = dd.batches_on_disk(log, D)
+    assert m in (ev["last_acked"] + 1, ev["last_acked"] + 2), (m, ev)
+    # the kill landed inside the killed batch's append: its frame was
+    # torn (the reopen cut it) or already whole
+    assert torn > 0 or m == ev["last_acked"] + 2, (torn, m, ev)
+    docs = dd.doc_ids(D)
+    ref, rows = dd.make_engine(docs, S, PartitionedLog(8), cuda)
+    sub = list(range(0, D, 16))
+    twin, trows = dd.make_engine([docs[i] for i in sub], S,
+                                 PartitionedLog(8), "cpu")
+    for b in range(m):
+        w = dd.config4_wave(D, O, b)
+        ref.ingest_planes(rows, **w)
+        twin.ingest_planes(trows, **dd.subset_wave(w, sub))
+    assert np.array_equal(dd.ranked_digests(rec, rows),
+                          dd.ranked_digests(ref, rows))
+    assert np.array_equal(dd.ranked_digests(rec, rows[sub]),
+                          dd.ranked_digests(twin, trows))
+    assert all(rec.read_text(docs[i]) == twin.read_text(docs[i])
+               for i in sub)
+    log.close()
+
+
+def test_native_log_build_refuses_to_fall_back(cuda, tmp_path,
+                                               monkeypatch):
+    """On the card's machine the durable log builds from the checkout's
+    source, and without a compiler the build raises: no log serves in
+    its place."""
+    from fluidframework_tpu_torch.native import build
+    from fluidframework_tpu_torch.server import native_oplog
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "fresh"))
+    assert os.path.exists(build.ensure_built("liboplog.so"))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "none"))
+    monkeypatch.setenv("PATH", str(tmp_path / "no-bin"))
+    monkeypatch.setattr(native_oplog, "_lib", None)
+    with pytest.raises(RuntimeError, match="liboplog.so"):
+        native_oplog.NativePartitionedLog(str(tmp_path / "log"), 8)
