@@ -195,7 +195,23 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    live engine, one flipped bit (``faultpoints.corrupt_bitflip``) is
    refused at the record that holds it, and the summary anchor refuses a
    truncation at a record boundary. string_apply's launches on these
-   paths are ``durable_launches`` in the kernels line.
+   paths are ``durable_launches`` in the kernels line;
+14. door — config #4's 10,240 docs served from 10 TCP clients through the
+   columnar front door (``server/columnar_ingress.py``, the native frame
+   decode ``native/ingress.cpp``): 9 clients send one insert of ``"w{k}"``
+   at 0 a doc a wave, one sends inserts, removes and annotates, 24 waves
+   (245,760 ops), windows of 4,096 rows at 2 ms, pipeline depth 3, the
+   native sequencer, S=512. Every op is acked once with seq > 0, each doc's
+   text is its client's, string_apply launches at least once a window, the
+   door's decode tier is native, and the door engine's planes, payload
+   table and digests equal a second engine on the card fed the door's
+   windows directly through ``ingest_planes``; the first launch of each
+   specialisation is held against the plain version. Then 4 waves through
+   an ``AdmissionController`` whose tenant budget sheds ops, resubmitted
+   by the clients after the hint, every op acked once. The line reports
+   ops/s, windows, ``drain_stats()``, ``pipeline_stats()``, the stage
+   latency p50 / p99, string_apply's launches and device ms, the hot-doc
+   gauges and a capacity census; a second line the admission run.
 
 With ``--parent DIR`` (another checkout, e.g. an archive of the parent
 commit) a last phase, parent_timing, times K1-K7 of DIR and of this
@@ -221,7 +237,9 @@ load paths; the megadoc phase's kernel loop and engine, and its summary /
 recovery path beside them; the interval phase's serving and recovery paths
 as ``string_apply``'s ``interval_launches`` and
 ``interval_recovery_launches``; the durable phase's as its
-``durable_launches``), and as the last
+``durable_launches``; the door phase's as ``door_launches``, and
+``launches`` is the serving path's (``serving_launches``) and the door
+phase's together), and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase raises, so
 the exit code is non-zero. Without a card it exits 2 and prints no result.
 
@@ -612,6 +630,79 @@ def work_bound(nbytes, n_ops):
                                  else "operations")
 
 
+def string_bound(S, props, compact, work, d=D, o=O):
+    """B1's least time for the same work: bytes each read / written once
+    vs int32 operations (one per visible slot per op) at peak rate.
+    ``work``: (real ops, mean count the ops see) of each batch. Returns
+    (ms, "bytes" or "operations", bytes)."""
+    k = K if props else 0
+    nbytes = (2 * (7 + k) * d * S * 4 + 7 * d * o * 4 + 2 * 2 * d * 4
+              + (d * 4 if compact else 0))
+    n_ops = sum(n * int(c) + n for n, c in work)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / len(work) / INT_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def map_bound(kind, a0, op_bytes, n_keys):
+    """K1: the op input read once and the state planes written once where
+    the batch writes them: every slot of a row with a clear, and each
+    slot a set or delete touches. The function never reads the state (an
+    untouched slot keeps its value in place)."""
+    import torch
+    from fluidframework_tpu_torch.ops.schema import OpKind
+    keyed = ((kind == int(OpKind.MAP_SET))
+             | (kind == int(OpKind.MAP_DELETE)))
+    hit = ((a0.long()[:, :, None]
+            == torch.arange(n_keys, device=a0.device)) & keyed[:, :, None])
+    written = int((hit.any(1) | (kind == int(OpKind.MAP_CLEAR))
+                   .any(1, keepdim=True)).sum())
+    nbytes = op_bytes + 3 * 4 * written
+    b_ms, b_by = work_bound(nbytes, kind.numel() + written)
+    return {"bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "slots_written": written}
+
+
+def cell_bound(live_in, live_out, n):
+    """K2: the live cells read before and written after (the EMPTY tail
+    is EMPTY on both sides), the batch read once, count / overflow read
+    and written; a comparison sort of the batch and one merge. Returns
+    (ms, bound_by, bytes)."""
+    nbytes = 3 * 4 * (live_in + live_out + n) + 4 * 4
+    n_ops = live_in + n + n * max(n - 1, 1).bit_length()
+    return (*work_bound(nbytes, n_ops), nbytes)
+
+
+def axis_apply_bound(before, ops, after):
+    """K3: the live extent of the 7 planes read before and written after,
+    count / overflow, the ops by kind and the two (D, O) outputs; one
+    visible-slot pass an op. Returns (ms, bound_by, bytes, int ops)."""
+    D, _ = before.seq.shape
+    O = ops[0].shape[1]
+    real = (ops[0] != NOOP).sum(dim=1).long()
+    hi_in, hi_out = _live_extent(before), _live_extent(after)
+    nbytes = int(7 * 4 * (hi_in + hi_out).sum()) + 4 * 4 * D + \
+        _axis_op_bytes(ops[0]) + 2 * 4 * D * O
+    n_ops = int((real * (before.count.long() + after.count.long())
+                 ).sum()) // 2
+    return (*work_bound(nbytes, n_ops), nbytes, n_ops)
+
+
+def axis_resolve_bound(st, kind, pos, client, ref):
+    """K4: the resolves' inputs and the two outputs, the live planes read
+    once; the search walk each resolve needs. Returns (ms, bound_by,
+    bytes, int ops)."""
+    import torch
+    D, _ = st.seq.shape
+    O = kind.shape[1]
+    is_res = kind == RESOLVE
+    nbytes = _axis_op_bytes(torch.where(is_res, RESOLVE, NOOP)) + \
+        2 * 4 * D * O + 7 * 4 * int(st.count.long().sum()) + 4 * D
+    n_ops = _resolve_walk(st, kind, pos, client, ref)
+    return (*work_bound(nbytes, n_ops), nbytes, n_ops)
+
+
 def map_phase(smi, dev):
     """Phase 6: BASELINE config #2 at full width (1,024 maps × 64 key
     slots, 64 ops per doc per batch, set:delete:clear = 8:2:1). Returns the
@@ -657,22 +748,6 @@ def map_phase(smi, dev):
     # config #2 (the serving shape)
     rows_specs = []
 
-    def bound(kind, a0, op_bytes):
-        """The op input read once and the state planes written once where
-        this batch writes them: every slot of a row with a clear, and each
-        slot a set or delete touches. The function never reads the state
-        (an untouched slot keeps its value in place)."""
-        keyed = ((kind == int(OpKind.MAP_SET))
-                 | (kind == int(OpKind.MAP_DELETE)))
-        hit = ((a0.long()[:, :, None]
-                == torch.arange(K, device=a0.device)) & keyed[:, :, None])
-        written = int((hit.any(1) | (kind == int(OpKind.MAP_CLEAR))
-                       .any(1, keepdim=True)).sum())
-        nbytes = op_bytes + 3 * 4 * written
-        b_ms, b_by = work_bound(nbytes, kind.numel() + written)
-        return {"bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                "slots_written": written}
-
     for spec, (work, mode, args) in kernel_timing.map_inputs(
             mk, synthetic, dev, D, K, O, D_STRING).items():
         run = lambda: kernel_timing.map_call(  # noqa: E731
@@ -696,7 +771,8 @@ def map_phase(smi, dev):
             op_bytes = args[0].numel() * 4
         rows_specs.append({"spec": spec, "D": work.present.shape[0], "K": K,
                            "O": O, **t, "plain_ms": a.elapsed_time(z),
-                           **bound(kind, a0, op_bytes), "max_abs_err": e})
+                           **map_bound(kind, a0, op_bytes, K),
+                           "max_abs_err": e})
     packed = rows_specs[-1]
     if err:
         raise AssertionError(f"map kernel != plain: max abs err {err}")
@@ -920,13 +996,8 @@ def matrix_phase(smi, dev):
         t = {"ms": graph_ms(run, 10) - graph_ms(copy, 10),
              "call_ms": timed_events(run, 10) - timed_events(copy, 10)}
         e = check("after timing")
-        # the live cells read before and written after (the EMPTY tail
-        # is EMPTY on both sides), the batch read once, count / overflow
-        # read and written; a comparison sort of the batch and one merge
         live_in, live_out, n = int(state0.count), int(out.count), b[0].numel()
-        nbytes = 3 * 4 * (live_in + live_out + n) + 4 * 4
-        n_ops = live_in + n + n * max(n - 1, 1).bit_length()
-        b_ms, b_by = work_bound(nbytes, n_ops)
+        b_ms, b_by, nbytes = cell_bound(live_in, live_out, n)
         rows_specs.append({"spec": label, "T": T,
                            "L": T if L is None else L, "O": n, **t,
                            "plain_ms": a.elapsed_time(z), "bound_ms": b_ms,
@@ -1586,13 +1657,7 @@ def matrix_engine_phase(smi, dev, docs_a=MX_DOCS, grid_a=MX_DOC_GRID,
         e = max(diff(getattr(work, k), getattr(ref, k)) for k in mt.FIELDS)
         D, S = before.seq.shape
         O = ops[0].shape[1]
-        real = (ops[0] != NOOP).sum(dim=1).long()
-        hi_in, hi_out = _live_extent(before), _live_extent(ref)
-        nbytes = int(7 * 4 * (hi_in + hi_out).sum()) + 4 * 4 * D + \
-            _axis_op_bytes(ops[0]) + 2 * 4 * D * O
-        n_ops = int((real * (before.count.long() + ref.count.long())
-                     ).sum()) // 2
-        b_ms, b_by = work_bound(nbytes, n_ops)
+        b_ms, b_by, nbytes, n_ops = axis_apply_bound(before, ops, ref)
         rows["apply"].append({"spec": tag, "D": D, "S": S, "O": O, **t,
                               "plain_ms": plain_ms, "bound_ms": b_ms,
                               "bound_by": b_by, "bytes": nbytes,
@@ -1612,10 +1677,7 @@ def matrix_engine_phase(smi, dev, docs_a=MX_DOCS, grid_a=MX_DOC_GRID,
                 diff(off, torch.where(is_res, ro, -1)))
         D, S = st.seq.shape
         O = kind.shape[1]
-        nbytes = _axis_op_bytes(torch.where(is_res, RESOLVE, NOOP)) + \
-            2 * 4 * D * O + 7 * 4 * int(st.count.long().sum()) + 4 * D
-        n_ops = _resolve_walk(st, kind, pos, client, ref)
-        b_ms, b_by = work_bound(nbytes, n_ops)
+        b_ms, b_by, nbytes, n_ops = axis_resolve_bound(st, *ops)
         rows["resolve"].append({"spec": tag, "D": D, "S": S, "O": O, **t,
                                 "plain_ms": plain_ms, "bound_ms": b_ms,
                                 "bound_by": b_by, "bytes": nbytes,
@@ -1711,6 +1773,38 @@ SECTOR = 32                 # bytes: the least one scattered access moves
 # next_sib and the neighbour's prev_sib; a setValue writes one value; the
 # flag kinds need only the node_id plane
 TREE_KIND_SECTORS = {5: 14, 8: 1}
+
+
+def tree_apply_bound(before, planes, wire):
+    """Bytes a serial scan must move, counted per doc from its records'
+    base kinds. Every doc with a non-NOOP record reads its node_id plane
+    (each lookup and the free-slot search scan it) and reads and writes
+    its overflow flag. A doc with a remove or move reads and writes all
+    8 planes (the subtree walk). Any other such doc adds the parent,
+    field and prev_sib planes, read once, where an insert has no anchor
+    (the head search), and the 32-B sectors of TREE_KIND_SECTORS for
+    each record. The (9, D, O) records are read once, and the (D,) base
+    in wire mode. A dead anchor's head search is not charged, so the
+    count errs low. Operations: one N-wide pass per real record."""
+    import torch
+    kind = planes[0].long()
+    base_k = torch.where((kind >= 9) & (kind <= 12), kind - 4, kind)
+    active = (kind != 0).any(dim=1)
+    moves = ((base_k == 6) | (base_k == 7)).any(dim=1)
+    light = active & ~moves
+    head = light & ((base_k == 5) & (planes[3] == 0)).any(dim=1)
+    sectors = torch.zeros_like(kind)
+    for k, n in TREE_KIND_SECTORS.items():
+        sectors += (base_k == k).long() * n
+    n_sec = int((sectors.sum(dim=1) * light).sum())
+    Dn, Nn = before.node_id.shape
+    plane = 4 * Nn
+    nbytes = 8 * int(active.sum()) + plane * (
+        int(light.sum()) + 3 * int(head.sum()) + 16 * int(moves.sum())) \
+        + SECTOR * n_sec + planes.numel() * 4 + (4 * Dn if wire else 0)
+    real = int((kind != 0).sum())
+    return work_bound(nbytes, real * Nn), nbytes, int(active.sum()), \
+        real
 
 
 def tree_phase(smi, dev, keep_inputs=None):
@@ -2166,36 +2260,6 @@ def tree_phase(smi, dev, keep_inputs=None):
         torch.cuda.synchronize()
         return a.elapsed_time(z), out
 
-    def apply_bound(before, planes, wire):
-        """Bytes a serial scan must move, counted per doc from its records'
-        base kinds. Every doc with a non-NOOP record reads its node_id plane
-        (each lookup and the free-slot search scan it) and reads and writes
-        its overflow flag. A doc with a remove or move reads and writes all
-        8 planes (the subtree walk). Any other such doc adds the parent,
-        field and prev_sib planes, read once, where an insert has no anchor
-        (the head search), and the 32-B sectors of TREE_KIND_SECTORS for
-        each record. The (9, D, O) records are read once, and the (D,) base
-        in wire mode. A dead anchor's head search is not charged, so the
-        count errs low. Operations: one N-wide pass per real record."""
-        kind = planes[0].long()
-        base_k = torch.where((kind >= 9) & (kind <= 12), kind - 4, kind)
-        active = (kind != 0).any(dim=1)
-        moves = ((base_k == 6) | (base_k == 7)).any(dim=1)
-        light = active & ~moves
-        head = light & ((base_k == 5) & (planes[3] == 0)).any(dim=1)
-        sectors = torch.zeros_like(kind)
-        for k, n in TREE_KIND_SECTORS.items():
-            sectors += (base_k == k).long() * n
-        n_sec = int((sectors.sum(dim=1) * light).sum())
-        Dn, Nn = before.node_id.shape
-        plane = 4 * Nn
-        nbytes = 8 * int(active.sum()) + plane * (
-            int(light.sum()) + 3 * int(head.sum()) + 16 * int(moves.sum())) \
-            + SECTOR * n_sec + planes.numel() * 4 + (4 * Dn if wire else 0)
-        real = int((kind != 0).sum())
-        return work_bound(nbytes, real * Nn), nbytes, int(active.sum()), \
-            real
-
     def time_apply(tag, before, planes, base):
         work = before.clone()
 
@@ -2219,7 +2283,7 @@ def tree_phase(smi, dev, keep_inputs=None):
         run()
         torch.cuda.synchronize()
         e = state_err(work, want)
-        (b_ms, b_by), nbytes, active, real = apply_bound(
+        (b_ms, b_by), nbytes, active, real = tree_apply_bound(
             before, planes, base is not None)
         return {"spec": tag, "D": planes.shape[1],
                 "N": before.node_id.shape[1],
@@ -3414,6 +3478,7 @@ def mesh_phase(smi, dev, D=D, O=O, S=S_SERVE, twin_d=MESH_TWIN_D,
     # called tensors' device: the device ms of every call (one a shard on
     # a sharded path)
     call_ms: dict = {}
+    shard_inputs: dict = {}
     watching = [None]
 
     def watch(module, attr, kernel):
@@ -3426,6 +3491,10 @@ def mesh_phase(smi, dev, D=D, O=O, S=S_SERVE, twin_d=MESH_TWIN_D,
                 return fn(*a, **k)
             in_shard = getattr(sharded._TLS, "device", None) is not None
             label += ", a shard" if in_shard else ", the whole state"
+            keep = in_shard and (kernel, label) not in shard_inputs
+            if keep:   # the path's first shard call, for its bound
+                shard_inputs[(kernel, label)] = [attr, _clone_state(a[0]),
+                                                 a[1:], k, None]
             stream = torch.cuda.current_stream(t.device)
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
@@ -3433,6 +3502,8 @@ def mesh_phase(smi, dev, D=D, O=O, S=S_SERVE, twin_d=MESH_TWIN_D,
             out = fn(*a, **k)
             ev[1].record(stream)
             call_ms.setdefault((kernel, label), []).append(ev)
+            if keep:
+                shard_inputs[(kernel, label)][4] = _clone_state(a[0])
             return out
         setattr(module, attr, timed)
         return module, attr, fn
@@ -3687,8 +3758,14 @@ def mesh_phase(smi, dev, D=D, O=O, S=S_SERVE, twin_d=MESH_TWIN_D,
     per_call = {}
     for (kernel, label), evs in call_ms.items():
         ms = [a.elapsed_time(b) for a, b in evs]
-        per_call.setdefault(kernel, {})[label] = {
+        row = per_call.setdefault(kernel, {})[label] = {
             "calls": len(ms), "mean_ms": sum(ms) / len(ms), "max_ms": max(ms)}
+        if (kernel, label) in shard_inputs:
+            b_ms, b_by, nbytes = shard_bound(
+                kernel, *shard_inputs.pop((kernel, label)))
+            row.update(first_call_bound_ms=b_ms, bound_by=b_by,
+                       bytes=nbytes, x_bound=row["mean_ms"] / b_ms)
+    del shard_inputs
 
     # ---------------------------------------- (d) the collective-free check
     cf = sharded.assert_collective_free(card, D, S, O)
@@ -3706,6 +3783,50 @@ def mesh_phase(smi, dev, D=D, O=O, S=S_SERVE, twin_d=MESH_TWIN_D,
           "collective_free": cf,
           "total_s": time.perf_counter() - t_phase, "card": smi})
     return launches
+
+
+def _clone_state(st):
+    """A copy of a kernel's state dataclass (every tensor cloned); a
+    tensor argument is cloned as is."""
+    if hasattr(st, "fields"):
+        return type(st)(**{k: v.clone() for k, v in st.fields().items()})
+    return st.clone()
+
+
+def shard_bound(kernel, entry, before, args, kwargs, after):
+    """The least time for one kernel call, counted as the kernel's own
+    phase counts it (``string_bound`` ... ``tree_apply_bound``), on the
+    state before and after the call and its arguments. Returns (ms,
+    bound_by, bytes)."""
+    if kernel == "string_apply":
+        ops, ms = args[:7], kwargs.get("min_seq")
+        d, S = before.seq.shape
+        work = [(int((ops[0] != NOOP).sum()),
+                 float(before.count.float().mean()))]
+        return string_bound(S, kwargs.get("with_props", False),
+                            ms is not None, work, d=d, o=ops[0].shape[1])
+    if kernel == "map_apply":
+        from fluidframework_tpu_torch.ops import map_kernel as mk
+        n_docs, n_keys = before.present.shape
+        if entry == "map_columnar_apply_fused":
+            buf, R, O_, wide = args[:4]
+            kind, a0 = mk.map_unpack(buf, R, O_, n_docs, True, wide)[:2]
+            op_bytes = buf.numel() * 4
+        else:
+            kind, a0 = args[:2]
+            op_bytes = 4 * kind.numel() * 4
+        b = map_bound(kind, a0, op_bytes, n_keys)
+        return b["bound_ms"], b["bound_by"], b["bytes"]
+    if kernel == "cell_merge":
+        return cell_bound(int(before.count), int(after.count),
+                          args[0].numel())
+    if kernel == "axis_apply":
+        return axis_apply_bound(before, args, after)[:3]
+    if kernel == "axis_resolve":
+        return axis_resolve_bound(before, *args[:4])[:3]
+    (b_ms, b_by), nbytes, _, _ = tree_apply_bound(
+        before, args[0], len(args) > 1 and args[1] is not None)
+    return b_ms, b_by, nbytes
 
 
 DURABLE_ROUNDS = 2          # (a): fresh engines and log a round
@@ -4004,6 +4125,264 @@ def durable_phase(smi, dev, D=D, O=O, S=S_SERVE):
     return launches
 
 
+DOOR_CLIENTS = 10           # 9 ``B`` clients and one ``R`` client
+DOOR_WAVES = 24             # benches/columnar_ingress_storm.py's waves
+DOOR_ADM_WAVES = 4          # the admission run's waves
+# the admission run's tenant budget, ops/s: well under the storm's rate
+# on the card (32,600-44,100 ops/s), so every run sheds ops (at 50,000,
+# one run shed none)
+DOOR_ADM_RATE = 20_000.0
+DOOR_ADM_BURST = 2_000.0
+
+
+def door_window_work(count_before, count_after, kind, op_bytes, props,
+                     compact):
+    """The work B1 must do on one door window, for its bound: the op
+    planes (``op_bytes``) read once; for each row that carries a real op
+    (``kind`` != NOOP), the live extent of its 7 (+K) slot planes read
+    before (``count_before``) and written after (``count_after``), its
+    count and overflow read and written, and its compaction floor read
+    when the launch compacts. A row with no op is left as it was; a
+    compaction that would move such a row's slots is not charged, so
+    the count errs low. Operations: one pass over the row's live slots
+    an op. Returns (bytes, int32 operations)."""
+    k = K if props else 0
+    real = kind != NOOP
+    active = real.any(dim=1)
+    c0 = count_before.long()[active]
+    c1 = count_after.long()[active]
+    n_active = int(active.sum())
+    nbytes = (op_bytes + (7 + k) * 4 * int((c0 + c1).sum())
+              + 4 * 4 * n_active + (4 * n_active if compact else 0))
+    n_ops = int((real.sum(dim=1)[active].long() * (c0 + 1)).sum())
+    return nbytes, n_ops
+
+
+def door_phase(smi, dev, D=D, S=S_SERVE, n_clients=DOOR_CLIENTS,
+               waves=DOOR_WAVES, window_rows=None, adm_waves=DOOR_ADM_WAVES,
+               adm_rate=DOOR_ADM_RATE, adm_burst=DOOR_ADM_BURST):
+    """Phase 14: config #4's docs served from real TCP clients through
+    the columnar front door (``server/columnar_ingress.py``, the native
+    frame decode ``native/ingress.cpp``), B1 applying every window. (a)
+    ``n_clients`` clients of D / n_clients docs each (one ``R`` client of
+    inserts, removes and annotates, the rest ``B`` clients of one insert
+    of ``"w{k}"`` at 0 a doc a wave) send ``waves`` waves to a door of
+    ``window_rows``-row windows at 2 ms, pipeline depth 3, the native
+    sequencer, ``decode="native"``: every op acked once with seq > 0, each
+    ``B`` doc's text ``"w{waves-1}…w0"``, each ``R`` doc's its client's
+    shadow, B1 launched at least once a window, and the door engine's
+    planes, payload table and digests equal to a second engine on
+    ``dev`` fed the door's windows directly through ``ingest_planes``;
+    the first launch of each B1 specialisation the door made is held
+    against the plain version on its input; the bound is that of the
+    mean work of the specialisation's launches (``door_window_work``). ``window_rows`` None is the storm bench's
+    4,096 (``testing/door_storm.py``). (b) ``adm_waves`` waves of
+    the same clients through a door with an ``AdmissionController``
+    whose tenant budget sheds ops; the clients resubmit the throttled
+    cseqs after the hint and every op is acked exactly once. Returns
+    {"launches", "max_abs_err", "rows": B1 rows of the door's launch
+    shapes}."""
+    from fluidframework_tpu_torch.ops import merge_tree as mt
+    from fluidframework_tpu_torch.ops import string_kernel as sk
+    from fluidframework_tpu_torch.ops import string_store
+    from fluidframework_tpu_torch.server.admission import (
+        AdmissionController,
+    )
+    from fluidframework_tpu_torch.server.opsd import (
+        latency_breakdown, publish_hotdoc_gauges,
+    )
+    from fluidframework_tpu_torch.testing import door_storm as ds
+    from fluidframework_tpu_torch.testing import kernel_timing
+    from fluidframework_tpu_torch.utils import capacity, tracing
+    from fluidframework_tpu_torch.utils.telemetry import MetricsRegistry
+    import torch
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    per = D // n_clients
+
+    if window_rows is None:
+        window_rows = ds.WINDOW_ROWS
+    clone = _clone_state
+
+    # every B1 launch the door makes: CUDA events around it, and the
+    # first input of each specialisation kept for the plain version
+    fused = string_store.apply_string_batch_fused
+    events, kept, launched = [], {}, []
+
+    def watched(state, *ops, min_seq=None, with_props=False):
+        key = (with_props, min_seq is not None)
+        if key not in kept:
+            kept[key] = (clone(state), ops, min_seq)
+        c0 = state.count.clone()
+        if on_card:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        out = fused(state, *ops, min_seq=min_seq, with_props=with_props)
+        if on_card:
+            b.record()
+            events.append((a, b, key, ops[0].shape[1]))
+        # each launch's work, read after the phase: counts and kinds
+        launched.append((key, c0, out.count.clone(), ops[0].clone(),
+                         sum(t.numel() * t.element_size() for t in ops)))
+        return out
+
+    # (a) the storm
+    eng = ds.storm_engine(D, dev, capacity=S)
+    seen = ds.record_windows(eng)
+    capacity.LEDGER.register_store("door engine", eng.store)
+    door = ds.open_door(eng, window_rows)
+    string_store.apply_string_batch_fused = watched
+    try:
+        sk.launches = 0      # the door's path starts here
+        clients, wall = ds.storm(door, n_clients, waves)
+        pipe = door.pipeline_stats()
+    finally:
+        door.stop()
+        string_store.apply_string_batch_fused = fused
+    launches = sk.launches   # and ends here (every window has logged)
+    if on_card:
+        torch.cuda.synchronize()
+    n_ops = n_clients * per * waves
+    windows = door.windows_flushed
+    if windows != len(seen) or door.ops_ingested != n_ops:
+        raise AssertionError(f"door phase: {windows} windows, "
+                             f"{len(seen)} recorded, "
+                             f"{door.ops_ingested} ops")
+    if on_card and launches < windows:
+        raise AssertionError(f"door phase: {launches} B1 launches for "
+                             f"{windows} windows")
+    drain = door.drain_stats()
+    if drain["tier"] != "native":
+        raise AssertionError(f"door phase: decode tier {drain['tier']}")
+    device_ms = sum(a.elapsed_time(b) for a, b, *_ in events)
+    lat = latency_breakdown(door.metrics)
+    # the slowest sampled window's trace: its rx → ack span in the ring
+    worst = door.metrics.histograms["stage_e2e_ack_ms"].worst_exemplar
+    spans = [] if worst is None else tracing.TRACER.events(worst[1])
+    hot = MetricsRegistry()
+    publish_hotdoc_gauges([door.hotdocs], registry=hot)
+    census = capacity.LEDGER.census(top_k=4)
+
+    # the door's engine against one fed its windows directly
+    t0 = time.perf_counter()
+    direct = ds.storm_engine(D, dev, capacity=S)
+    ds.seat_like(direct, eng)
+    nacked = ds.replay(direct, seen)
+    diff = ds.state_diff(eng, direct)
+    if nacked or diff:
+        raise AssertionError(f"door phase: the direct engine nacked "
+                             f"{nacked}, differs in {diff}")
+    direct_s = time.perf_counter() - t0
+    del direct, seen
+
+    # each B1 specialisation the door launched, on its first input,
+    # against the plain version
+    max_err, rows = 0, []
+    for (props, compact), (st0, ops, ms) in sorted(kept.items()):
+        work = clone(st0)
+        sk.apply_string_batch_fused(work, *ops, min_seq=ms,
+                                    with_props=props)
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = mt.apply_string_batch(st0, *ops, with_props=props)
+        if compact:
+            ref = mt.compact_string_state(ref, ms, props)
+        if on_card:
+            torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = kernel_timing.max_abs_err(mt, work, ref, props, compact)
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"door phase: kernel != plain (props="
+                                 f"{props}, compact={compact}): {err}")
+        d_, o_ = ops[0].shape
+        mine = [x[1:] for x in launched if x[0] == (props, compact)]
+        spec = [door_window_work(*x, props, compact) for x in mine]
+        nbytes = sum(b for b, _ in spec) / len(spec)
+        b_ms, b_by = work_bound(nbytes, sum(n for _, n in spec) / len(spec))
+        real_ops = sum(int((x[2] != NOOP).sum()) for x in mine) / len(mine)
+        spec_ms = [a.elapsed_time(b) for a, b, k, _ in events
+                   if k == (props, compact)]
+        # CUDA events around each eager call on the executor's thread:
+        # call ms, not the CUDA-graph kernel time of the other rows' ms
+        rows.append({"spec": ("props" if props else "no-props")
+                     + ("+compact" if compact else ""),
+                     "D": d_, "S": S, "O": o_, "state": "door window",
+                     "ms": None,
+                     "call_ms": (sum(spec_ms) / len(spec_ms) if spec_ms
+                                 else None),
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": nbytes, "library_ms": None,
+                     "real_ops_mean": real_ops, "max_abs_err": err,
+                     "launches": len(spec_ms)})
+    del kept, launched
+
+    emit({"phase": "door", "docs": D, "capacity": S, "clients": n_clients,
+          "docs_a_client": per, "waves": waves, "ops": n_ops,
+          "ops_per_s": n_ops / wall, "wall_s": wall, "windows": windows,
+          "ops_per_window": n_ops / windows,
+          "window_rows": window_rows, "pipeline_depth": ds.DEPTH,
+          "drain": drain, "pipeline": pipe,
+          "stages": {k: {"p50_ms": v["p50_ms"], "p99_ms": v["p99_ms"],
+                         "mean_ms": v["mean_ms"]}
+                     for k, v in lat["stages"].items()},
+          "stage_e2e_ack_p99_ms": lat["e2e_p99_ms"],
+          "stage_e2e_ack_mean_ms": lat["e2e_mean_ms"],
+          "e2e_worst_exemplar": worst,
+          "worst_trace_spans": [{"name": e["name"], "dur_us": e["dur"]}
+                                for e in spans],
+          "b1_launches": launches, "b1_device_ms": device_ms,
+          "b1_op_widths": sorted({o for *_, o in events}),
+          "direct_engine_equal": True, "direct_replay_s": direct_s,
+          "hotdoc_gauges": hot.gauges,
+          "census": {"device": census["device"],
+                     "docs": census["docs"]["resident"],
+                     "idle": census["idle"],
+                     "coldest": census["coldest"],
+                     "census_ms": census["census_ms"]},
+          "card": smi})
+    del door, eng, clients
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) admission: a tenant budget sheds ops, clients resubmit
+    adm = AdmissionController()
+    adm.register_tenant("storm", adm_rate, burst=adm_burst)
+    eng = ds.storm_engine(D, dev, capacity=S)
+    door = ds.open_door(eng, window_rows, admission=adm)
+    try:
+        sk.launches = 0
+        clients, adm_wall = ds.storm(door, n_clients, adm_waves,
+                                     tenant="storm", seed=1)
+    finally:
+        door.stop()
+    adm_launches = sk.launches
+    throttled = sum(c.throttled for c in clients)
+    if not throttled or throttled != door.throttled_ops:
+        raise AssertionError(f"door phase (b): {throttled} throttled by "
+                             f"the clients, {door.throttled_ops} by the door")
+    if on_card and adm_launches < door.windows_flushed:
+        raise AssertionError("door phase (b): a window without B1")
+    snap = adm.snapshot()
+    emit({"phase": "door_admission", "waves": adm_waves,
+          "ops": n_clients * per * adm_waves,
+          "tenant_rate": adm_rate, "burst": adm_burst,
+          "throttled_ops": throttled, "admitted": snap["admitted_total"],
+          "shed": snap["shed_total"], "windows": door.windows_flushed,
+          "wall_s": adm_wall, "b1_launches": adm_launches,
+          "total_s": time.perf_counter() - t_phase, "card": smi})
+    del door, eng
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"launches": launches + adm_launches, "storm_launches": launches,
+            "admission_launches": adm_launches, "max_abs_err": max_err,
+            "rows": rows}
+
+
 def parent_timing(parent, tree_inputs=None, axis_inputs=None,
                   mega_inputs=None):
     """K1-K7 of ``parent`` (another checkout, e.g. an archive
@@ -4112,7 +4491,8 @@ def main(argv=None) -> int:
           "kernel_build_s": {n: cuda_build.build_info[n]["seconds"]
                              for n in cuda_build.SOURCES},
           "native_build_s": {t: cuda_build.build_info[t]["seconds"]
-                             for t in ("libdeli.so", "liboplog.so")},
+                             for t in ("libdeli.so", "liboplog.so",
+                                       "libingress.so")},
           "spill_store_bytes_max": max(k["spill_stores"]
                                        for r in reports.values() for k in r),
           "stack_frame_bytes_max": max(k["stack_frame"]
@@ -4202,18 +4582,7 @@ def main(argv=None) -> int:
                   "peak_count": peak})
 
     # ---------------------------------------------------------- 3. timing
-    def bound(S, props, compact, work, d=D, o=O):
-        """Least time for the same work: bytes each read/written once vs
-        int32 operations (one per visible slot per op) at peak rate.
-        ``work``: (real ops, mean count the ops see) of each batch."""
-        k = K if props else 0
-        nbytes = (2 * (7 + k) * d * S * 4 + 7 * d * o * 4 + 2 * 2 * d * 4
-                  + (d * 4 if compact else 0))
-        n_ops = sum(n * int(c) + n for n, c in work)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / len(work) / INT_OPS_PER_S * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                     else "operations"), nbytes
+    bound = string_bound
 
     def time_kernel(states, batches, props, compact, rounds=5):
         work = clone(states[0])
@@ -4401,6 +4770,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     durable_launches = durable_phase(smi, dev)
     torch.cuda.empty_cache()
+    door = door_phase(smi, dev)
+    max_err = max(max_err, door["max_abs_err"])
+    torch.cuda.empty_cache()
     timing_pc = parent_timing(args.parent, keep_tree, keep_axis,
                               keep_mega) if args.parent else None
     if tmp:
@@ -4419,7 +4791,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "fluidframework_tpu_torch/csrc/string_apply.cu",
         "replaces": "fluidframework_tpu/ops/pallas_string_kernel.py:208",
-        "launches": launches,
+        "launches": launches + door["launches"],
         "max_abs_err": max_err,
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
@@ -4430,9 +4802,13 @@ def main(argv=None) -> int:
         "interval_launches": iv_launches,
         "interval_recovery_launches": iv_rec_launches,
         "durable_launches": durable_launches,
+        "serving_launches": launches,
+        "door_launches": {k: door[k] for k in ("storm_launches",
+                                               "admission_launches")},
         "specialisations": [
             {"spec": name, "S": S, "state": state, **t}
-            for (name, S, state), t in timing.items()] + rebuild_rows,
+            for (name, S, state), t in timing.items()]
+        + rebuild_rows + door["rows"],
         "total_s": time.perf_counter() - t_start,
     }, map_entry, cell_entry, *axis_entries, *tree_entries, mega_entry]
     for entry in entries:   # the mesh phase's launches, shard by shard

@@ -26,6 +26,21 @@ class MessageType(enum.IntEnum):
     REJOIN = 8
 
 
+class ColumnarWireKind(enum.IntEnum):
+    """Op kind codes of the columnar front door's 16-byte op records
+    (``server/columnar_ingress.py``). These are WIRE codes: they coincide
+    with ``ops.schema.OpKind``'s plane codes today, and the separate enum
+    keeps the wire contract explicit.
+
+    INSERT inserts ``texts[tidx]`` at a0; REMOVE removes [a0, a1);
+    ANNOTATE applies the single-key ``props[tidx]`` dict over [a0, a1)
+    (rich ``R`` frames only; plain ``B`` frames reject it)."""
+
+    INSERT = 0
+    REMOVE = 1
+    ANNOTATE = 2
+
+
 @dataclasses.dataclass
 class SequencedDocumentMessage:
     """A sequenced op as broadcast to all clients (reference:

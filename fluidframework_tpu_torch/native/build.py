@@ -1,5 +1,6 @@
 """Build the native host components (g++ → shared libraries for ctypes):
-the sequencer (``libdeli.so``) and the durable op log (``liboplog.so``).
+the sequencer (``libdeli.so``), the durable op log (``liboplog.so``) and
+the columnar front door's frame decode (``libingress.so``).
 
 ``ensure_built()`` compiles a target into the package's git-ignored build
 directory at first use. The compile writes a temporary file and then
@@ -20,7 +21,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(HERE), "_build")
 
 TARGETS = {"libdeli.so": ["sequencer.cpp"],
-           "liboplog.so": ["oplog.cpp"]}
+           "liboplog.so": ["oplog.cpp"],
+           "libingress.so": ["ingress.cpp"]}
 
 
 def ensure_built(target: str = "libdeli.so") -> str:

@@ -39,8 +39,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 #: per kernel name: {"seconds": its nvcc wall, "ptxas": the -Xptxas -v
-#: report}; "libdeli.so" / "liboplog.so": {"seconds"} for the native
-#: sequencer and durable log built beside them
+#: report}; "libdeli.so" / "liboplog.so" / "libingress.so": {"seconds"}
+#: for the native sequencer, durable log and frame decode built beside
+#: them
 build_info: dict = {}
 _paths: dict = {}
 _lock = threading.Lock()
@@ -54,8 +55,8 @@ def _nvcc() -> str:
 
 def build_all() -> None:
     """Compile every kernel source not yet built by this process (one
-    ``nvcc`` each, all at once) and the native sequencer and durable log
-    beside them (one ``g++`` each)."""
+    ``nvcc`` each, all at once) and the native sequencer, durable log and
+    frame decode beside them (one ``g++`` each)."""
     with _lock:
         todo = [n for n in SOURCES if n not in _paths]
         if not todo:

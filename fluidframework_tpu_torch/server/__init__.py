@@ -1,2 +1,2 @@
-"""Serving side: sequencers, the partitioned log, the engine, pipelined
-ingest."""
+"""Serving side: sequencers, the partitioned log, the engines, pipelined
+ingest, and the columnar front door with its admission control."""

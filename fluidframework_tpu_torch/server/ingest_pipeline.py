@@ -64,10 +64,11 @@ class StageClock:
 class IngestTicket:
     """Handle for one submitted wave: resolves with ``ingest_planes``'s
     result dict after the wave's log append commits, or with the stage
-    exception."""
+    exception. ``add_done_callback`` runs on the resolving worker thread
+    (the columnar front door bounces acks back to its event loop)."""
 
     __slots__ = ("index", "_event", "_result", "_error", "wave", "t_done",
-                 "_dispatched")
+                 "_dispatched", "_callbacks", "_lock")
 
     def __init__(self, index: int):
         self.index = index
@@ -80,6 +81,20 @@ class IngestTicket:
         self._event = threading.Event()
         self._result: Optional[dict] = None
         self._error: Optional[BaseException] = None
+        self._callbacks: List[Callable[["IngestTicket"], None]] = []
+        self._lock = threading.Lock()
+
+    def error(self) -> Optional[BaseException]:
+        return self._error
+
+    def add_done_callback(self, fn: Callable[["IngestTicket"], None]
+                          ) -> None:
+        """Call ``fn(ticket)`` once the wave resolves (now, if it has)."""
+        with self._lock:
+            if not self._event.is_set():
+                self._callbacks.append(fn)
+                return
+        fn(self)
 
     def result(self, timeout: Optional[float] = None) -> dict:
         """Block until the wave's log append commits; raises the stage
@@ -92,9 +107,13 @@ class IngestTicket:
 
     def _resolve(self, result: Optional[dict] = None,
                  error: Optional[BaseException] = None) -> None:
-        self._result, self._error = result, error
-        self.t_done = time.perf_counter()
-        self._event.set()
+        with self._lock:
+            self._result, self._error = result, error
+            self.t_done = time.perf_counter()
+            self._event.set()
+            callbacks, self._callbacks = self._callbacks, []
+        for fn in callbacks:
+            fn(self)
 
 
 class PipelinedIngestExecutor:

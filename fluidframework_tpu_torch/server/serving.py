@@ -358,6 +358,18 @@ class ServingEngineBase:
         self._members.discard((doc_id, int(client_id)))
         return msg
 
+    def is_member(self, doc_id: str, client_id: int) -> bool:
+        """Whether this identity already holds a seat. A resuming client
+        must NOT re-join: ``client_join`` resets the sequencer's dedup
+        window, re-opening it to already-sequenced resubmits."""
+        return (doc_id, int(client_id)) in self._members
+
+    def last_client_seq(self, doc_id: str, client_id: int) -> int:
+        """Resync cursor: the highest clientSeq durably accepted from this
+        identity (the dedup ledger's view; the native sequencer does not
+        expose its live counter)."""
+        return self._dedup.last(doc_id, client_id)
+
     def note_acked_planes(self, docs, clients, client_seqs, seqs) -> None:
         """Ledger one acked columnar wave (the ack path's hook, after the
         log append): ``docs`` holds the wave's doc ids, one per plane row
@@ -702,12 +714,15 @@ class _IngestWave:
         "texts", "tidx", "props", "flat_client", "flat_client_seq",
         "flat_ref_seq", "handles", "prepacked", "pipelined", "out_seq",
         "out_min", "nacked", "n_ok", "kind_eff", "seq_rs", "seq_base",
-        "min_rs", "compact_due", "ms_arr", "ov_prev", "dup_acked")
+        "min_rs", "compact_due", "ms_arr", "ov_prev", "dup_acked", "marks")
 
     def __init__(self):
         self.prepacked = None
         self.pipelined = False
         self.ov_prev = None
+        # perf_counter() when each stage finished (pack1, seq1, disp1,
+        # log1): the columnar front door's latency timeline reads them
+        self.marks: dict = {}
 
 
 def mega_rebuild_layouts(doc_id: str, n: int, S: int, grow_limit: int,
@@ -948,7 +963,8 @@ class StringServingEngine(ServingEngineBase):
         ``texts`` + ``tidx``; single-key annotates need ``props``.
 
         Requires ``sequencer="native"``. Returns {"seq": (R, O) int64
-        (negative = nack code), "nacked": int, "dup_acked": int}."""
+        (negative = nack code), "nacked": int, "dup_acked": int, "marks":
+        the perf_counter() end of each stage}."""
         self._check_poisoned()
         w = self._ingest_prepare(rows, client, client_seq, ref_seq, kind,
                                  a0, a1, text, texts, tidx, props)
@@ -1032,6 +1048,7 @@ class StringServingEngine(ServingEngineBase):
             # holds the next pack and the dispatch stage packs inline
             w.prepacked = self.store.prepack_planes(
                 rows, kind, w.a0, w.a1, text, texts, tidx, props)
+        w.marks["pack1"] = time.perf_counter()
         return w
 
     def _ingest_sequence(self, w: _IngestWave) -> None:
@@ -1073,6 +1090,7 @@ class StringServingEngine(ServingEngineBase):
                     = np.fromiter((g(d, 0) for d in dr), np.int64,
                                   count=len(dr))
             w.ms_arr = ms_arr
+        w.marks["seq1"] = time.perf_counter()
 
     def _ingest_dispatch(self, w: _IngestWave) -> None:
         """Stage 3 — the asynchronous device merge (zamboni fused into the
@@ -1108,6 +1126,7 @@ class StringServingEngine(ServingEngineBase):
                 self._ov_pending = self._async_flags()
         else:
             self._flushes_since_compact += 1
+        w.marks["disp1"] = time.perf_counter()
 
     def _async_flags(self):
         """(host tensor, event): a clone of the overflow flags — the live
@@ -1178,8 +1197,9 @@ class StringServingEngine(ServingEngineBase):
                 else:
                     self.recover_overflowed()
         n_dup = int(w.dup_acked or 0)
+        w.marks["log1"] = time.perf_counter()
         return {"seq": w.seq_rs, "nacked": int(nacked.sum()) - n_dup,
-                "dup_acked": n_dup}
+                "dup_acked": n_dup, "marks": w.marks}
 
     # ----------------------------------------------------------- device side
 

@@ -1,3 +1,3 @@
-"""Host utilities the durable log calls: fault points, atomic file
-writes, the counter registry and the host-byte estimate of a log
-record."""
+"""Host utilities the durable log and the columnar front door call: fault
+points, atomic file writes, the metrics registry, span tracing, the
+capacity ledger and host-byte estimates, retry backoff."""

@@ -2752,3 +2752,56 @@ def test_native_log_build_refuses_to_fall_back(cuda, tmp_path,
     monkeypatch.setattr(native_oplog, "_lib", None)
     with pytest.raises(RuntimeError, match="liboplog.so"):
         native_oplog.NativePartitionedLog(str(tmp_path / "log"), 8)
+
+
+def test_door_on_card_equals_direct_engine(cuda):
+    """A two-client columnar door (a ``B`` client and an ``R`` client of
+    128 docs each) over a 256-doc engine on the card: every op acked once
+    with seq > 0, each doc's text its client's, B1 launched at least once
+    a window, and the planes, payload table and digests equal to a second
+    engine on the card fed the door's windows through ``ingest_planes``."""
+    from fluidframework_tpu_torch.server.columnar_ingress import (
+        ColumnarAlfred,
+    )
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    from fluidframework_tpu_torch.testing import door_storm as ds
+
+    def engine():
+        return StringServingEngine(n_docs=256, capacity=256,
+                                   batch_window=10 ** 9, compact_every=2,
+                                   sequencer="native", device=cuda)
+
+    eng = engine()
+    seen = ds.record_windows(eng)
+    door = ColumnarAlfred(eng, window_min_rows=64, window_ms=1.0,
+                          pipeline_depth=3).start_in_thread()
+    plan = ds.RichPlan(128, seed=3)
+    waves = 6
+    clients = [ds.StormClient(door.port, [f"b{i}" for i in range(128)],
+                              waves, ds.b_wave, timeout=120.0),
+               ds.StormClient(door.port, [f"r{i}" for i in range(128)],
+                              waves, plan.wave, timeout=120.0)]
+    sk.launches = 0
+    try:
+        ds.run_clients(clients, timeout=120.0)
+    finally:
+        door.stop()
+    launches = sk.launches
+    assert door.drain_stats()["tier"] == "native"
+    assert sum(len(c.acks) for c in clients) == 256 * waves
+    assert launches >= door.windows_flushed == len(seen) > 0
+    assert all(eng.read_text(f"b{i}") == ds.b_text(waves)
+               for i in range(128))
+    assert [eng.read_text(f"r{i}") for i in range(128)] == plan.shadow
+    direct = engine()
+    ds.seat_like(direct, eng)
+    assert ds.replay(direct, seen) == 0
+    assert ds.state_diff(eng, direct) == []
+    # the census charges the store's tensors and reads the card's allocator
+    from fluidframework_tpu_torch.utils.capacity import CapacityLedger
+    led = CapacityLedger()
+    led.register_store("door engine", eng.store)
+    c = led.census()
+    alloc = c["device"]["allocator"]
+    assert alloc["available"] and \
+        alloc["total_bytes"] >= c["device"]["total_bytes"] > 0
