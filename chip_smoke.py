@@ -211,7 +211,27 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    by the clients after the hint, every op acked once. The line reports
    ops/s, windows, ``drain_stats()``, ``pipeline_stats()``, the stage
    latency p50 / p99, string_apply's launches and device ms, the hot-doc
-   gauges and a capacity census; a second line the admission run.
+   gauges and a capacity census; a second line the admission run;
+15. readplane — the read plane (``server/read_plane.py``,
+   ``server/observer.py``) behind the same door storm, 24 waves and a
+   2-wave tail, every wave held at a gate until the one before it is
+   acked: a ``ReadPlane`` on the door's engine encodes one window a log
+   append, an ``ObserverHub`` behind an ``ObserverDoor`` fans it to 3
+   ``ResilientObserver``s over TCP (each socket lost twice inside a
+   window run while the storm flows, and killed once while idle) and 64
+   in-process sinks; a ``ReadReplica`` on the card, anchored after
+   the joins, is polled at every gate; generations are saved after waves
+   12 and 24. Every observer applies every op once with its doc seqs the
+   sequencer's, every sink gets the same bytes object a window, no string
+   window is a JSON frame, the replica equals the leader (payload handles
+   ranked by text), the generation diff plus the tail reads as a load of
+   the newer generation and as the live engine, the catch-up rung answers
+   ``diff_ok``, and B1's first launch in the replica and in the catch-up
+   equals the plain version. The line reports the windows, encode and
+   publish ms a window (1 and 64 subscribers), the hub's delivery p99
+   and the replica's drain-lag p99, reconnects and torn windows,
+   the replica's polls, ops/s and B1 launches, and the catch-up's diff ms
+   against a full replay from the older generation.
 
 With ``--parent DIR`` (another checkout, e.g. an archive of the parent
 commit) a last phase, parent_timing, times K1-K7 of DIR and of this
@@ -237,9 +257,11 @@ load paths; the megadoc phase's kernel loop and engine, and its summary /
 recovery path beside them; the interval phase's serving and recovery paths
 as ``string_apply``'s ``interval_launches`` and
 ``interval_recovery_launches``; the durable phase's as its
-``durable_launches``; the door phase's as ``door_launches``, and
-``launches`` is the serving path's (``serving_launches``) and the door
-phase's together), and as the last
+``durable_launches``; the door phase's as ``door_launches``; the
+readplane phase's as ``readplane_launches`` (the storm's, leader and
+replica, of which the replica's, and the catch-up's); and ``launches``
+is the serving path's (``serving_launches``), the door phase's and the
+readplane phase's together), and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase raises, so
 the exit code is non-zero. Without a card it exits 2 and prints no result.
 
@@ -4383,6 +4405,394 @@ def door_phase(smi, dev, D=D, S=S_SERVE, n_clients=DOOR_CLIENTS,
             "rows": rows}
 
 
+RP_TAIL = 2                 # waves after the second generation: the tail
+RP_OBSERVERS = 3            # ResilientObservers over TCP
+RP_TEARS = (3, 15)          # waves in which every observer's socket dies
+                            # inside a window run
+RP_KILLS = (9,)             # waves before which every idle socket dies
+RP_SINKS = 64               # in-process no-op subscribers
+RP_TRIALS = 3               # catch-up timing trials (median)
+RP_REPS = 3                 # encode / publish passes over the windows
+RP_WAIT_S = 300.0           # seconds an observer may take to catch up
+RP_RING = 4096              # windows the hub keeps (more than a storm makes)
+
+
+def _frames(payload):
+    """(type, payload) of each frame of a window run."""
+    import struct
+    out, off = [], 0
+    while off < len(payload):
+        ftype, n = struct.unpack_from("<BI", payload, off)
+        out.append((ftype, payload[off + 5:off + 5 + n]))
+        off += 5 + n + 4
+    return out
+
+
+def readplane_phase(smi, dev, D=D, S=S_SERVE, n_clients=DOOR_CLIENTS,
+                    waves=DOOR_WAVES, tail=RP_TAIL, tears=RP_TEARS,
+                    kills=RP_KILLS,
+                    n_observers=RP_OBSERVERS, n_sinks=RP_SINKS,
+                    window_rows=None, trials=RP_TRIALS):
+    """Phase 15: the read plane behind config #4's columnar door. The
+    door storm of the door phase (``n_clients`` TCP clients of D /
+    n_clients docs, windows of 4,096 rows at 2 ms, depth 3, the native
+    sequencer and decode), ``waves`` + ``tail`` waves, with a
+    ``ReadPlane`` on the door's engine (one window encoded a log append,
+    on the executor's log thread) and an ``ObserverHub`` (a ring of every
+    window) behind an ``ObserverDoor``. Readers: ``n_observers``
+    ``ResilientObserver``s over TCP, every socket lost inside a window
+    run of each wave of ``tears`` (``tear_window``: right after a frame
+    with more of the run to come) and killed before each wave of
+    ``kills`` once the observer has applied everything published;
+    ``n_sinks`` in-process sinks; a ``ReadReplica`` on ``dev`` anchored on
+    a summary taken after the joins and polled before every wave; a
+    ``SummaryGenerationStore`` in a temporary directory holding a
+    generation after wave ``waves // 2`` and one after wave ``waves``.
+    Checks: every observer applied every acked op once (no gap, no
+    duplicate, its doc seqs the sequencer's, one torn window a wave of
+    ``tears`` and a reconnect after each tear or kill);
+    every sink got the same bytes object a window; no string window fell
+    back to a JSON ``rec`` frame; the replica equals the leader after a
+    last poll (``door_storm.state_diff``, payload handles ranked by
+    text); the generation diff on ``dev`` plus the tail reads as a full
+    load of the second generation and as the live engine; the catch-up
+    rung answers ``diff_ok``; B1 launched in the replica's flushes and in
+    the catch-up's tail replay, the first launch of each held against the
+    plain version. Timed: the encode of a window and the hub's publish at
+    1 and ``n_sinks`` subscribers (host clock, ``RP_REPS`` passes; best
+    of 3), the hub's delivery p99 and the replica's drain-lag p99 (one
+    tracker each), the replica's polls, the diff catch-up against
+    a full replay from the first generation (host clock after a sync,
+    ``trials`` trials, median). Returns {"launches", "storm_launches",
+    "replica_launches", "catchup_launches", "max_abs_err"}."""
+    import random
+    import socket
+    import statistics
+
+    from fluidframework_tpu_torch.drivers.resilient import ResilientObserver
+    from fluidframework_tpu_torch.ops import merge_tree as mt
+    from fluidframework_tpu_torch.ops import string_kernel as sk
+    from fluidframework_tpu_torch.ops import string_store
+    from fluidframework_tpu_torch.runtime.summarizer import (
+        SummaryGenerationStore,
+    )
+    from fluidframework_tpu_torch.server import read_plane as rp
+    from fluidframework_tpu_torch.server.columnar_ingress import (
+        encode_json, read_frame,
+    )
+    from fluidframework_tpu_torch.server.observer import (
+        ObserverDoor, ObserverHub,
+    )
+    from fluidframework_tpu_torch.testing import door_storm as ds
+    from fluidframework_tpu_torch.testing import kernel_timing
+    from fluidframework_tpu_torch.testing.chaos import digest, engine_class
+    import torch
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    per = D // n_clients
+    n_waves = waves + tail
+    gen_waves = (waves // 2, waves)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # B1 launches by path: the replica's (its store's state), the rest of
+    # the storm's (the door's windows), the catch-up's; the first input of
+    # the replica's and of the catch-up's kept for the plain version
+    fused = string_store.apply_string_batch_fused
+    mode = {"path": "storm"}
+    counts = {"door": 0, "replica": 0, "catchup": 0, "full_load": 0}
+    kept = {}
+    rep = None
+
+    def watched(state, *ops, min_seq=None, with_props=False):
+        path = mode["path"]
+        if path == "storm" and rep is not None and \
+                state is rep.engine.store._state:
+            path = "replica"
+        elif path == "storm":
+            path = "door"
+        counts[path] += 1
+        if path in ("replica", "catchup") and path not in kept:
+            kept[path] = (_clone_state(state), tuple(o.clone() for o in ops),
+                          min_seq, with_props)
+        return fused(state, *ops, min_seq=min_seq, with_props=with_props)
+
+    # every window the plane encodes: its records, for the timing passes
+    encode = rp.encode_window
+    window_records = []
+
+    def encode_kept(records, wid):
+        window_records.append((records, wid))
+        return encode(records, wid)
+
+    eng = ds.storm_engine(D, dev, capacity=S)
+    hub_lag = rp.StalenessTracker()     # the hub's delivery delay
+    drain_lag = rp.StalenessTracker()   # the replica's drain lag
+    hub = ObserverHub(ring=RP_RING, tracker=hub_lag)
+    plane = rp.ReadPlane(eng, hub)
+    eng.attach_read_plane(plane)
+    tmp = tempfile.mkdtemp(prefix="readplane-")
+    gens = SummaryGenerationStore(os.path.join(tmp, "gens"))
+    odoor = ObserverDoor(hub, gen_store=gens).start_in_thread()
+    sinks = [[] for _ in range(n_sinks)]
+    for s in sinks:
+        hub.subscribe(s.append, name="sink")
+    observers = [ResilientObserver("127.0.0.1", odoor.port, name=f"o{i}",
+                                   rng=random.Random(i), base_delay=0.01)
+                 for i in range(n_observers)]
+    deadline = time.monotonic() + 30
+    while hub.stats()["subscribers"] < n_sinks + n_observers:
+        if time.monotonic() > deadline:
+            raise AssertionError("readplane phase: observers did not "
+                                 "subscribe")
+        time.sleep(0.005)
+    gen_ids, poll_s, summary_s = [], [], []
+
+    def between(k):
+        nonlocal rep
+        if k == 0:     # every client has joined: anchor the replica
+            # the replica runs its leader's compaction cadence
+            rep = rp.ReadReplica(eng, summary=eng.summarize(),
+                                 tracker=drain_lag, device=dev,
+                                 compact_every=1)
+        else:
+            t0 = time.perf_counter()
+            rep.poll()
+            sync()
+            poll_s.append(time.perf_counter() - t0)
+        if k in gen_waves:
+            t0 = time.perf_counter()
+            gen_ids.append(gens.save(eng.summarize(),
+                                     seq=sum(eng.log.size(p) for p in
+                                             range(eng.log.n_partitions))))
+            summary_s.append(time.perf_counter() - t0)
+        if k in tears:
+            # the socket dies inside one of this wave's window runs
+            for o in observers:
+                o.tear_window()
+        if k in kills:
+            # an idle socket: the observer holds everything published
+            published = hub.ops_published
+            for o in observers:
+                if not o.wait_ops(published, RP_WAIT_S):
+                    raise AssertionError(f"readplane phase: {o.name} "
+                                         f"stuck at {o.ops_applied}")
+                o.kill_socket()
+
+    door = ds.open_door(eng, window_rows or ds.WINDOW_ROWS)
+    string_store.apply_string_batch_fused = watched
+    rp.encode_window = encode_kept
+    try:
+        sk.launches = 0        # the storm's path starts here
+        clients, wall = ds.storm(door, n_clients, n_waves, between=between)
+        t0 = time.perf_counter()
+        rep.poll()             # the last waves
+        sync()
+        poll_s.append(time.perf_counter() - t0)
+        storm_launches = sk.launches   # and ends here
+    finally:
+        door.stop()
+        string_store.apply_string_batch_fused = fused
+        rp.encode_window = encode
+    n_ops = n_clients * per * n_waves
+    if plane.windows > RP_RING:
+        raise AssertionError(f"readplane phase: {plane.windows} windows "
+                             f"outgrew the ring of {RP_RING}")
+    if plane.ops_published != n_ops:
+        raise AssertionError(f"readplane phase: {plane.ops_published} ops "
+                             f"published, {n_ops} acked")
+    t0 = time.perf_counter()
+    for o in observers:
+        if not o.wait_ops(n_ops, RP_WAIT_S):
+            raise AssertionError(f"readplane phase: {o.name} applied "
+                                 f"{o.ops_applied} of {n_ops}")
+    drain_s = time.perf_counter() - t0
+    seqs = {d: eng.deli.doc_seq(d) for d in eng._doc_rows}
+    obs_rows = []
+    for o in observers:
+        row = {"name": o.name, "ops_applied": o.ops_applied,
+               "windows": o.windows_applied, "gaps": o.gaps,
+               "op_gaps": o.op_gaps, "dups": o.dups,
+               "window_dups": o.window_dups, "reconnects": o.reconnects,
+               "torn_windows": o.torn_windows, "gave_up": o.gave_up}
+        obs_rows.append(row)
+        if (o.ops_applied != n_ops or o.gaps or o.op_gaps or o.dups
+                or o.window_dups or o.gave_up
+                or o.torn_windows != len(tears)
+                or o.reconnects < len(tears) + len(kills)
+                or o.doc_seqs != seqs):
+            raise AssertionError(f"readplane phase: observer {row}")
+    # encode once: each sink holds the same bytes object a window
+    windows = plane.windows
+    if any(len(s) != windows for s in sinks) or any(
+            s[i] is not sinks[0][i] for s in sinks[1:]
+            for i in range(windows)):
+        raise AssertionError("readplane phase: a sink got other bytes")
+    json_recs = sum(1 for w in sinks[0] for t, p in _frames(w)
+                    if t == ord("J") and json.loads(bytes(p)).get("fmt")
+                    == "json")
+    if json_recs:
+        raise AssertionError(f"readplane phase: {json_recs} JSON rec "
+                             "frames for the string family")
+
+    # the catch-up rung, over the observer door
+    with socket.create_connection(("127.0.0.1", odoor.port),
+                                  timeout=30) as s:
+        s.sendall(encode_json({"t": "subscribe", "name": "joiner"}))
+        read_frame(s)
+        s.sendall(encode_json({"t": "catchup", "from_gen": gen_ids[0]}))
+        rung = json.loads(read_frame(s)[1])
+        s.sendall(encode_json({"t": "close"}))
+    if not rung.get("diff_ok"):
+        raise AssertionError(f"readplane phase: catch-up rung {rung}")
+    for o in observers:
+        o.close()
+    odoor.stop()
+
+    # the replica against the leader
+    diff = ds.state_diff(eng, rep.engine, ranked=True)
+    if diff:
+        raise AssertionError(f"readplane phase: the replica differs from "
+                             f"the leader in {diff}")
+    if on_card and not counts["replica"]:
+        raise AssertionError("readplane phase: the replica never launched "
+                             "B1")
+    # encode and publish, timed apart from the storm
+    t0 = time.perf_counter()
+    for _ in range(RP_REPS):
+        encoded = [encode(r, w) for r, w in window_records]
+    encode_ms = (time.perf_counter() - t0) * 1e3 / (RP_REPS * windows)
+    if [p for p, _ in encoded] != sinks[0]:
+        raise AssertionError("readplane phase: a re-encode differs")
+
+    def publish_ms(n_subs):
+        best = None
+        for _ in range(3):
+            h = ObserverHub(ring=8, tracker=rp.StalenessTracker())
+            for _ in range(n_subs):
+                h.subscribe(lambda _b: None)
+            t0 = time.perf_counter()
+            for _ in range(RP_REPS):
+                for p, n in encoded:
+                    h.publish(h.next_wid(), p, n)
+            t = (time.perf_counter() - t0) * 1e3 / (RP_REPS * windows)
+            best = t if best is None else min(best, t)
+        return best
+
+    pub_ms = {str(n): publish_ms(n) for n in (1, n_sinks)}
+    del sinks, encoded, window_records
+
+    # catch-up: the generation diff against a full load
+    (g0, _), (g1, _) = (gens.load_generation(g) for g in gen_ids)
+    live = digest(eng, "string", list(eng._doc_rows))
+    string_store.apply_string_batch_fused = watched
+    try:
+        mode["path"] = "catchup"
+        diff_ms, build_ms = [], []
+        sk.launches = 0        # the catch-up's path starts here
+        for _ in range(trials):
+            t0 = time.perf_counter()
+            d01 = rp.build_generation_diff("string", g0, g1, device=dev)
+            sync()
+            build_ms.append((time.perf_counter() - t0) * 1e3)
+            caught = rp.apply_generation_diff("string", d01, g0, eng.log,
+                                              device=dev)
+            sync()
+            diff_ms.append((time.perf_counter() - t0) * 1e3)
+        catchup_launches = sk.launches   # and ends here
+        mode["path"] = "full_load"
+        full_ms = []
+        for _ in range(trials):
+            t0 = time.perf_counter()
+            full = engine_class("string").load(g0, eng.log, device=dev)
+            sync()
+            full_ms.append((time.perf_counter() - t0) * 1e3)
+        del full
+        t0 = time.perf_counter()
+        newest = engine_class("string").load(g1, eng.log, device=dev)
+        sync()
+        newest_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        string_store.apply_string_batch_fused = fused
+        mode["path"] = "storm"
+    if on_card and not catchup_launches:
+        raise AssertionError("readplane phase: the catch-up's tail replay "
+                             "never launched B1")
+    docs = list(eng._doc_rows)
+    if not (digest(caught, "string", docs) == digest(newest, "string", docs)
+            == live):
+        raise AssertionError("readplane phase: the diff catch-up, the load "
+                             "of the newest generation and the live engine "
+                             "read differently")
+    dirty_rows = len(d01["store_delta"]["rows"])
+    del caught, newest, d01, g0, g1
+
+    # the first B1 launch of the replica and of the catch-up against the
+    # plain version on the same input
+    max_err = 0
+    for path in ("replica", "catchup"):
+        if path not in kept:
+            continue
+        st0, ops, ms, props = kept.pop(path)
+        work = _clone_state(st0)
+        sk.apply_string_batch_fused(work, *ops, min_seq=ms,
+                                    with_props=props)
+        ref = mt.apply_string_batch(st0, *ops, with_props=props)
+        if ms is not None:
+            ref = mt.compact_string_state(ref, ms, props)
+        sync()
+        err = kernel_timing.max_abs_err(mt, work, ref, props,
+                                        ms is not None)
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"readplane phase: B1 != plain on the "
+                                 f"{path}'s first launch: {err}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "readplane", "docs": D, "capacity": S,
+          "clients": n_clients, "waves": n_waves, "ops": n_ops,
+          "storm_wall_s": wall, "ops_per_s": n_ops / wall,
+          "gate_summary_s": summary_s,
+          "windows": windows, "ops_published": plane.ops_published,
+          "encode_ms_per_window": encode_ms,
+          "publish_ms_per_window": pub_ms,
+          "hub_delivery_p99_s": hub_lag.p99(),
+          "replica_drain_lag_p99_s": drain_lag.p99(),
+          "observers": obs_rows,
+          "observer_drain_s": drain_s,
+          "observer_reconnects": sum(o.reconnects for o in observers),
+          "observer_torn_windows": sum(o.torn_windows for o in observers),
+          "sinks": n_sinks, "ring": hub._ring.maxlen,
+          "replica": {"polls": rep.polls, "ops": rep.ops_applied,
+                      "poll_s_total": sum(poll_s),
+                      "ops_per_s": rep.ops_applied / sum(poll_s),
+                      "b1_launches": counts["replica"]},
+          "door_b1_launches": counts["door"],
+          "generations": gen_ids, "generation_waves": list(gen_waves),
+          "tail_waves": tail, "dirty_rows": dirty_rows,
+          "catchup_diff_ms": statistics.median(diff_ms),
+          "catchup_diff_ms_trials": diff_ms,
+          "diff_build_ms_trials": build_ms,
+          "full_replay_ms": statistics.median(full_ms),
+          "full_replay_ms_trials": full_ms,
+          "newest_load_ms": newest_ms,
+          "catchup_b1_launches": catchup_launches,
+          "full_load_b1_launches": counts["full_load"],
+          "catchup_rung": rung.get("diff_ok"),
+          "max_abs_err": max_err,
+          "total_s": time.perf_counter() - t_phase, "card": smi})
+    del rep, eng, plane, hub
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"launches": storm_launches + catchup_launches,
+            "storm_launches": storm_launches,
+            "replica_launches": counts["replica"],
+            "catchup_launches": catchup_launches, "max_abs_err": max_err}
+
+
 def parent_timing(parent, tree_inputs=None, axis_inputs=None,
                   mega_inputs=None):
     """K1-K7 of ``parent`` (another checkout, e.g. an archive
@@ -4773,6 +5183,9 @@ def main(argv=None) -> int:
     door = door_phase(smi, dev)
     max_err = max(max_err, door["max_abs_err"])
     torch.cuda.empty_cache()
+    readplane = readplane_phase(smi, dev)
+    max_err = max(max_err, readplane["max_abs_err"])
+    torch.cuda.empty_cache()
     timing_pc = parent_timing(args.parent, keep_tree, keep_axis,
                               keep_mega) if args.parent else None
     if tmp:
@@ -4791,7 +5204,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "fluidframework_tpu_torch/csrc/string_apply.cu",
         "replaces": "fluidframework_tpu/ops/pallas_string_kernel.py:208",
-        "launches": launches + door["launches"],
+        "launches": launches + door["launches"] + readplane["launches"],
         "max_abs_err": max_err,
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
@@ -4805,6 +5218,8 @@ def main(argv=None) -> int:
         "serving_launches": launches,
         "door_launches": {k: door[k] for k in ("storm_launches",
                                                "admission_launches")},
+        "readplane_launches": {k: readplane[k] for k in (
+            "storm_launches", "replica_launches", "catchup_launches")},
         "specialisations": [
             {"spec": name, "S": S, "state": state, **t}
             for (name, S, state), t in timing.items()]

@@ -12,17 +12,22 @@ Counterpart of ``fluidframework_tpu/parallel/replicated.py``:
 - a cross-replica digest check (max == min of each doc's digest over the
   replicas) asserts bit-identical convergence.
 
+The host tier of replication is :class:`OplogFollower`: a second engine
+that trails a leader through its durable log (the read plane's replicas
+ride it, ``server/read_plane.py``).
+
 The state is a ``ReplicatedState``: a (replica, docs) grid of
 ``StringState`` blocks, block (r, d) on device (r, d) of the mesh.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ..core.protocol import MessageType
 from ..ops.merge_tree import StringState, string_state_digest
 from ..ops.string_kernel import apply_string_batch_fused
 from .mesh import DOC_AXIS, REPLICA_AXIS, Mesh
@@ -118,3 +123,67 @@ def make_replicated_step(mesh: Mesh, with_props: bool = True,
         return state, out, agree
 
     return step
+
+
+class OplogFollower:
+    """A warm standby trailing a leader engine through its durable log.
+
+    The follower owns a second engine of the same family, loaded on
+    ``device`` from a leader summary (``summary``, else a fresh one) over
+    the leader's log (both replicas consume one stream; ``engine_kw`` go
+    to the engine's ``load``). :meth:`catch_up` reads every partition's
+    records past the follower's offsets (only those below the
+    partition's size at read time), expands columnar records to per-op
+    messages, sorts them by (doc, seq) (a partition scan is not in the
+    order of events) and replays them: the sequencer, the member set and
+    dedup ledger, then the device apply queue, in one flush. A per-doc
+    applied-seq cursor makes the replay idempotent: a record read twice
+    is skipped by its seq."""
+
+    def __init__(self, leader, summary: Optional[dict] = None,
+                 device="cuda", **engine_kw):
+        self.log = leader.log
+        summary = summary if summary is not None else leader.summarize()
+        self.engine = type(leader).load(summary, self.log, device=device,
+                                        **engine_kw)
+        # everything up to the summary's sequencer state was replayed by
+        # the load; new records land past these cursors
+        self._offsets = [self.log.size(p)
+                         for p in range(self.log.n_partitions)]
+        self._applied: dict = {}
+        for doc_id in list(self.engine._doc_rows):
+            self._applied[doc_id] = self.engine.deli.doc_seq(doc_id)
+        self.caught_up_ops = 0
+
+    def catch_up(self) -> int:
+        """Drain the leader's log tail into the follower; returns the
+        number of messages newly applied. Idempotent per (doc, seq)."""
+        tail = []
+        for p in range(self.log.n_partitions):
+            size = self.log.size(p)
+            if size <= self._offsets[p]:
+                continue
+            for rec in self.log.read(p, from_offset=self._offsets[p],
+                                     to_offset=size):
+                tail.extend(rec.expand() if hasattr(rec, "expand")
+                            else (rec,))
+            self._offsets[p] = size
+        tail.sort(key=lambda m: (m.doc_id, m.seq))
+        eng = self.engine
+        n = 0
+        for msg in tail:
+            if msg.seq <= self._applied.get(msg.doc_id, 0):
+                continue    # raced an already-replayed record: skip
+            eng.deli.replay(msg)
+            eng._absorb_resilience(msg)
+            if msg.type == MessageType.OP:
+                eng._enqueue(msg.doc_id, msg)
+                eng._min_seq[msg.doc_id] = max(
+                    eng._min_seq.get(msg.doc_id, 0), msg.min_seq)
+            self._applied[msg.doc_id] = msg.seq
+            n += 1
+        if n:
+            eng._queue.sort(key=lambda dm: dm[1].seq)
+            eng.flush()
+        self.caught_up_ops += n
+        return n

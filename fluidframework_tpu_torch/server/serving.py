@@ -306,6 +306,10 @@ class ServingEngineBase:
         self._row_part = np.zeros(n_docs, np.int32)
         # round-robin partition cursor for whole-batch columnar records
         self._col_part = 0
+        # the read plane (``server/read_plane.py``): attach_read_plane()
+        # hangs a pump here, and every flush or columnar wave that applied
+        # ops pumps one encoded observer window
+        self._read_plane = None
 
     def _check_poisoned(self) -> None:
         if self._poisoned:
@@ -516,13 +520,23 @@ class ServingEngineBase:
 
     def flush(self) -> int:
         """Apply the queued window on the device; drives the compaction
-        cadence. Returns the number of messages applied."""
+        cadence, then pumps the attached read plane. Returns the number of
+        messages applied."""
         n = self._flush_impl()
         if n:
             self._flushes_since_compact += 1
             if self._flushes_since_compact >= self.compact_every:
                 self.compact()
+            plane = self._read_plane
+            if plane is not None:
+                plane.pump()
         return n
+
+    def attach_read_plane(self, plane) -> None:
+        """Hang a ``read_plane.ReadPlane`` on this engine: every flush
+        (and every string columnar wave) that applied ops pumps one
+        encoded observer window. ``attach_read_plane(None)`` detaches."""
+        self._read_plane = plane
 
     def _flush_impl(self) -> int:
         raise NotImplementedError
@@ -1197,6 +1211,12 @@ class StringServingEngine(ServingEngineBase):
                 else:
                     self.recover_overflowed()
         n_dup = int(w.dup_acked or 0)
+        # the wave is durable: pump one observer window at ingest pace
+        # (this path never passes through flush()); on the pipelined
+        # path this runs on the executor's log thread
+        plane = self._read_plane
+        if plane is not None and w.n_ok:
+            plane.pump()
         w.marks["log1"] = time.perf_counter()
         return {"seq": w.seq_rs, "nacked": int(nacked.sum()) - n_dup,
                 "dup_acked": n_dup, "marks": w.marks}
@@ -3369,3 +3389,9 @@ class TreeServingEngine(ServingEngineBase):
         engine._replay_tail(summary)
         engine.flush()
         return engine
+
+
+def engine_class(family: str):
+    """The serving engine of ``family`` (string, map, matrix or tree)."""
+    return {"string": StringServingEngine, "map": MapServingEngine,
+            "matrix": MatrixServingEngine, "tree": TreeServingEngine}[family]

@@ -15,20 +15,24 @@ phase and the door's tests.
   door's hint, and checks that every op is acked exactly once with
   seq > 0.
 - :func:`storm_engine`, :func:`open_door` and :func:`storm` — the door
-  storm of ``chip_smoke.py``'s door phase (and of
+  storm of ``chip_smoke.py``'s door and readplane phases (and of
   ``testing/door_drain_split.py``): config #4's engine shape, the storm
   bench's door settings (``benches/columnar_ingress_storm.py``: windows
   of 4,096 rows at 2 ms, pipeline depth 3, native decode and sequencer),
-  ``B`` clients and one ``R`` client, every op, text and shadow checked.
+  ``B`` clients and one ``R`` client, every op, text and shadow checked;
+  with ``between`` a :class:`WaveGate` holds the clients at every wave
+  boundary while a hook runs.
 - :func:`record_windows` / :func:`replay` — capture the windows a door
   hands its engine and feed them to a second engine directly through
   ``ingest_planes``; :func:`state_diff` compares the two engines' planes,
-  payload tables and digests.
+  payload tables and digests (``ranked``: an engine that replayed the
+  log op by op against one fed columnar windows).
 """
 
 from __future__ import annotations
 
 import heapq
+import json
 import random
 import threading
 import time
@@ -40,6 +44,7 @@ import torch
 from ..server.columnar_ingress import (
     _OP_DTYPE, ColumnarAlfred, ColumnarClient,
 )
+from ..ops import merge_tree as mt
 from ..server.serving import StringServingEngine
 
 #: wire kind codes (``core.protocol.ColumnarWireKind``)
@@ -119,21 +124,53 @@ class RichPlan:
         return texts, records(rows, kind, a0, a1, tidx, k + 1), PROPS
 
 
+class WaveGate:
+    """Holds a storm's clients at every wave boundary: once every client
+    has joined and has its ops of waves < k acked, ``hook(k)`` runs once
+    (on the last client to arrive) before any client sends wave k, for k
+    = 0 .. n_waves - 1. A hook that raises breaks the gate for every
+    client; :attr:`error` keeps its exception."""
+
+    def __init__(self, n_clients: int, hook: Callable[[int], None],
+                 timeout: float = TIMEOUT):
+        self.hook = hook
+        self.error: Optional[BaseException] = None
+        self._k = -1
+        self._barrier = threading.Barrier(n_clients, action=self._action,
+                                          timeout=timeout)
+
+    def _action(self) -> None:
+        self._k += 1
+        try:
+            self.hook(self._k)
+        except BaseException as e:  # noqa: BLE001 — re-raised by storm()
+            self.error = e
+            raise
+
+    def wait(self) -> None:
+        self._barrier.wait()
+
+    def abort(self) -> None:
+        self._barrier.abort()
+
+
 class StormClient:
     """One client of a storm. ``waves(rows, k)`` builds wave ``k``'s
     (texts, ops, props) once the join has given the docs' rows.
     ``run()`` (on a thread of its own) joins, sends every wave, resends
     throttled ops after the door's ``retry_after_ms``, and returns once
     every op is acked; ``error`` holds the first failure, ``acks`` maps
-    (row, cseq) → seq."""
+    (row, cseq) → seq. With a ``gate`` the client waits for its acks of
+    every earlier wave, then at the gate, before each wave."""
 
     def __init__(self, port: int, docs: List[str], n_waves: int,
                  waves: Callable, host: str = "127.0.0.1",
                  tenant: Optional[str] = None, lockstep: bool = False,
-                 timeout: float = 60.0):
+                 timeout: float = 60.0, gate: Optional[WaveGate] = None):
         self.port, self.host = port, host
         self.docs, self.n_waves, self.waves = docs, n_waves, waves
         self.tenant, self.lockstep, self.timeout = tenant, lockstep, timeout
+        self.gate = gate
         self.acks: Dict[Tuple[int, int], int] = {}
         self.throttled = 0
         self.rows: Dict[str, int] = {}
@@ -190,6 +227,12 @@ class StormClient:
         try:
             rows = np.array([self.rows[d] for d in self.docs], np.int32)
             for k in range(self.n_waves):
+                if self.gate is not None:
+                    while len(self.acks) < k * len(self.docs):
+                        if self._acked_all.wait(0.002):
+                            raise RuntimeError("storm client stopped")
+                        self._resend_due()
+                    self.gate.wait()
                 frame = self.waves(rows, k)
                 self._remember(*frame)
                 self._acked_frame.clear()
@@ -203,6 +246,8 @@ class StormClient:
         except BaseException as e:  # noqa: BLE001 — reported by run()
             self.error = self.error or e
             self._acked_all.set()
+            if self.gate is not None:
+                self.gate.abort()
 
     def run(self) -> None:
         try:
@@ -241,6 +286,8 @@ class StormClient:
         except BaseException as e:  # noqa: BLE001 — reported to the caller
             self.error = self.error or e
             self._acked_all.set()
+            if self.gate is not None:
+                self.gate.abort()
 
 
 def run_clients(clients: List[StormClient], timeout: float) -> float:
@@ -295,14 +342,66 @@ def seat_like(engine, door_engine) -> None:
             raise AssertionError(f"{doc}: rows differ")
 
 
-def state_diff(a, b) -> List[str]:
+def state_diff(a, b, ranked: bool = False) -> List[str]:
     """Where two string engines' flat stores differ: state planes, the
-    payload table, digests (empty when identical)."""
-    out = [k for k, v in a.store.state.fields().items()
-           if not torch.equal(v.cpu(), getattr(b.store.state, k).cpu())]
-    if a.store._payloads != b.store._payloads:
-        out.append("payloads")
-    if not np.array_equal(a.store.digests(), b.store.digests()):
+    payload table, digests (empty when identical).
+
+    ``ranked`` compares an engine that replayed the log op by op (a log
+    follower, a tail replay) with one fed columnar windows: the first
+    interns a text once an op, and a property key and value at first use,
+    where the second interns a window's tables whole, and each compacts
+    on its own cadence. So each payload handle is compared by the (kind,
+    text) it names and each property plane by its key and values (ranks
+    among both engines' distinct entries), only the slots in ``[0,
+    count)`` of each row are compared, and the digests are taken over the
+    ranked handles."""
+    if not ranked:
+        out = [k for k, v in a.store.state.fields().items()
+               if not torch.equal(v.cpu(), getattr(b.store.state, k).cpu())]
+        if a.store._payloads != b.store._payloads:
+            out.append("payloads")
+        if not np.array_equal(a.store.digests(), b.store.digests()):
+            out.append("digests")
+        return out
+    sa, sb = a.store.state, b.store.state
+    count = sa.count.cpu()
+    if not torch.equal(count, sb.count.cpu()):
+        return ["count"]
+    rank = {p: i for i, p in enumerate(sorted(
+        set(a.store._payloads) | set(b.store._payloads)))}
+    keys = sorted(set(a.store._prop_planes) | set(b.store._prop_planes))
+    enc = [[json.dumps(v, sort_keys=True)
+            for v in e.store._prop_values.export()[1:]] for e in (a, b)]
+    vrank = {v: i + 1 for i, v in enumerate(sorted(set(enc[0] + enc[1])))}
+    S = sa.seq.shape[1]
+    live = torch.arange(S)[None, :] < count[:, None]
+    ranked_states, out = [], []
+    for eng, st, e in ((a, sa, enc[0]), (b, sb, enc[1])):
+        ranks = torch.tensor([rank[p] for p in eng.store._payloads],
+                             dtype=torch.int32)
+        f = {k: v.cpu() for k, v in st.fields().items()}
+        f["handle_op"] = torch.where(
+            live, ranks[f["handle_op"].long().clamp(0, len(ranks) - 1)], 0)
+        vmap = torch.tensor([0] + [vrank[v] for v in e], dtype=torch.int32)
+        pv = f["prop_val"].long().clamp(0, len(vmap) - 1)
+        planes = eng.store._prop_planes
+        f["prop_val"] = torch.stack(
+            [vmap[pv[:, :, planes[k]]] if k in planes
+             else torch.zeros(pv.shape[:2], dtype=torch.int32)
+             for k in keys], dim=2) if keys else pv[:, :, :0].int()
+        ranked_states.append(mt.StringState(**f))
+    fa, fb = (s.fields() for s in ranked_states)
+    for k, x in fa.items():
+        y = fb[k]
+        if x.dim() >= 2 and x.shape[1] == S:
+            m = live if x.dim() == 2 else live[:, :, None].expand_as(x)
+            same = torch.equal(x[m], y[m])
+        else:
+            same = torch.equal(x, y)
+        if not same:
+            out.append(k)
+    if not torch.equal(*(mt.string_state_digest(s)
+                         for s in ranked_states)):
         out.append("digests")
     return out
 
@@ -326,21 +425,31 @@ def open_door(engine, window_rows: int = WINDOW_ROWS,
 
 
 def storm(door, n_clients: int, n_waves: int, tenant: Optional[str] = None,
-          seed: int = 0, timeout: float = TIMEOUT):
+          seed: int = 0, timeout: float = TIMEOUT,
+          between: Optional[Callable[[int], None]] = None):
     """``n_clients`` clients of ``door.engine.n_docs // n_clients`` docs
     each send ``n_waves`` waves: the last an ``R`` client
     (:class:`RichPlan` seeded with ``seed``), the others ``B`` clients.
-    Raises unless every op is acked once, each ``B`` doc reads
-    :func:`b_text` and each ``R`` doc its plan's shadow. Returns
-    (clients, wall seconds)."""
+    ``between(k)`` (optional) runs before each wave k, once every client
+    has joined and every op of the waves before it is acked
+    (:class:`WaveGate`). Raises unless every op is acked once, each ``B``
+    doc reads :func:`b_text` and each ``R`` doc its plan's shadow.
+    Returns (clients, wall seconds)."""
     eng = door.engine
     per = eng.n_docs // n_clients
     plan = RichPlan(per, seed=seed)
+    gate = WaveGate(n_clients, between, timeout) if between else None
     clients = [StormClient(
         door.port, [f"c{c}-d{j}" for j in range(per)], n_waves,
         plan.wave if c == n_clients - 1 else b_wave,
-        tenant=tenant, timeout=timeout) for c in range(n_clients)]
-    wall = run_clients(clients, timeout=timeout)
+        tenant=tenant, timeout=timeout, gate=gate)
+        for c in range(n_clients)]
+    try:
+        wall = run_clients(clients, timeout=timeout)
+    except BaseException:
+        if gate is not None and gate.error is not None:
+            raise gate.error from None
+        raise
     acked = sum(len(c.acks) for c in clients)
     if acked != n_clients * per * n_waves:
         raise AssertionError(f"door storm: {acked} ops acked")

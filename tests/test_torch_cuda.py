@@ -2805,3 +2805,98 @@ def test_door_on_card_equals_direct_engine(cuda):
     alloc = c["device"]["allocator"]
     assert alloc["available"] and \
         alloc["total_bytes"] >= c["device"]["total_bytes"] > 0
+
+
+def _family_op(family, doc, i):
+    """Op ``i`` of a small per-doc stream of each family, valid on an
+    empty doc."""
+    if family == "string":
+        return {"mt": "insert", "kind": 0, "pos": 0, "text": f"s{i}"}
+    if family == "map":
+        return {"op": "set", "key": f"k{i % 5}", "value": i}
+    if family == "matrix":
+        if i < 2:
+            return {"mx": "insRow" if i == 0 else "insCol", "pos": 0,
+                    "count": 2, "opKey": [9, i]}
+        return {"mx": "setCell", "row": i % 2, "col": (i // 2) % 2,
+                "value": i}
+    return {"op": "insert", "parent": "root", "field": "c", "after": None,
+            "nodes": [{"id": f"{doc}-n{i}", "type": "t", "value": i}]}
+
+
+def _family_engine(family, device):
+    from fluidframework_tpu_torch.server import serving as S
+    kw = dict(n_docs=4, batch_window=8, n_partitions=4, device=device)
+    return {"string": lambda: S.StringServingEngine(capacity=512, **kw),
+            "map": lambda: S.MapServingEngine(n_keys=16, **kw),
+            "matrix": lambda: S.MatrixServingEngine(cell_capacity=4096,
+                                                    **kw),
+            "tree": lambda: S.TreeServingEngine(capacity=256, **kw)}[
+                family]()
+
+
+@pytest.mark.parametrize("family", ["string", "map", "matrix", "tree"])
+def test_catchup_diff_on_card_equals_cpu(cuda, family):
+    """Two generations of a CPU engine: the generation diff built and
+    applied on the card reads as the same catch-up on the CPU and as the
+    live engine; the string family's tail replay launches B1."""
+    from fluidframework_tpu_torch.server import read_plane as rp
+    from fluidframework_tpu_torch.testing.chaos import digest
+    docs = [f"d{i}" for i in range(4)]
+    eng = _family_engine(family, "cpu")
+    for d in docs:
+        eng.connect(d, 1)
+    cseq = {d: 0 for d in docs}
+    gens = []
+    for n in (12, 20, 8):
+        for _ in range(n):
+            for d in docs:
+                cseq[d] += 1
+                _m, nack = eng.submit(d, 1, cseq[d], 0,
+                                      _family_op(family, d, cseq[d] - 1))
+                assert nack is None
+        eng.flush()
+        gens.append(eng.summarize())
+    s_from, s_to = gens[0], gens[1]
+    want = digest(eng, family, docs)
+    cpu = rp.apply_generation_diff(
+        family, rp.build_generation_diff(family, s_from, s_to,
+                                         device="cpu"), s_from, eng.log,
+        device="cpu")
+    before = sk.launches
+    diff = rp.build_generation_diff(family, s_from, s_to, device=cuda)
+    card = rp.apply_generation_diff(family, diff, s_from, eng.log,
+                                    device=cuda)
+    torch.cuda.synchronize()
+    if family == "string":
+        assert sk.launches > before
+    assert digest(card, family, docs) == digest(cpu, family, docs) == want
+
+
+def test_read_replica_on_card_equals_its_leader(cuda):
+    """A replica on the card anchored before a tail of its card leader
+    drains it through B1 and reads as the leader, doc seqs included."""
+    from fluidframework_tpu_torch.server.read_plane import (
+        ReadReplica, StalenessTracker,
+    )
+    from fluidframework_tpu_torch.testing.chaos import digest
+    docs = [f"d{i}" for i in range(4)]
+    leader = _family_engine("string", cuda)
+    for d in docs:
+        leader.connect(d, 1)
+    for i in range(8):
+        leader.submit(docs[i % 4], 1, i // 4 + 1, 0,
+                      _family_op("string", docs[i % 4], i))
+    rep = ReadReplica(leader, summary=leader.summarize(),
+                      tracker=StalenessTracker(), device=cuda)
+    for i in range(8, 40):
+        leader.submit(docs[i % 4], 1, i // 4 + 1, 0,
+                      _family_op("string", docs[i % 4], i))
+    leader.flush()
+    before = sk.launches
+    assert rep.poll() == 32
+    assert sk.launches > before
+    assert digest(rep.engine, "string", docs) == \
+        digest(leader, "string", docs)
+    assert all(rep.engine.deli.doc_seq(d) == leader.deli.doc_seq(d)
+               for d in docs)

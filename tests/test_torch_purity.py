@@ -60,6 +60,36 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
                              device="cpu").store.state.node_id.is_cpu
 
 
+def test_read_plane_entry_points_need_a_card_unless_cpu_is_asked():
+    """The catch-up diff, its apply, the log follower and the read
+    replica build their stores and engines on the card by default."""
+    from fluidframework_tpu_torch.parallel.replicated import OplogFollower
+    from fluidframework_tpu_torch.server.read_plane import (
+        ReadReplica, apply_generation_diff, build_generation_diff,
+    )
+    from fluidframework_tpu_torch.server.serving import StringServingEngine
+    leader = StringServingEngine(n_docs=2, capacity=64, device="cpu")
+    leader.connect("a", 1)
+    s0 = leader.summarize()
+    leader.submit("a", 1, 1, 0, {"mt": "insert", "kind": 0, "pos": 0,
+                                 "text": "x"})
+    s1 = leader.summarize()
+    diff = build_generation_diff("string", s0, s1, device="cpu")
+    entries = [lambda: build_generation_diff("string", s0, s1),
+               lambda: apply_generation_diff("string", diff, s0, leader.log),
+               lambda: OplogFollower(leader, summary=s1),
+               lambda: ReadReplica(leader, summary=s1)]
+    for make in entries:
+        if torch.cuda.is_available():
+            make()
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make()
+    assert apply_generation_diff("string", diff, s0, leader.log,
+                                 device="cpu").read_text("a") == "x"
+    assert ReadReplica(leader, summary=s1, device="cpu").poll() == 0
+
+
 def test_kernel_wrapper_checks_its_inputs():
     """Shape and dtype are refused before any launch (on either device)."""
     from fluidframework_tpu_torch.ops.merge_tree import StringState
