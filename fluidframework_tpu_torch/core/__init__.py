@@ -1,7 +1,7 @@
 """Common definitions: sequence-number sentinels and protocol messages."""
 
 from .constants import NO_CLIENT, NOT_REMOVED, SEQ_UNASSIGNED, SEQ_UNIVERSAL
-from .protocol import MessageType, SequencedDocumentMessage
+from .protocol import MessageType, SequencedDocumentMessage, SignalMessage
 
 __all__ = [
     "SEQ_UNASSIGNED",
@@ -10,4 +10,5 @@ __all__ = [
     "NOT_REMOVED",
     "MessageType",
     "SequencedDocumentMessage",
+    "SignalMessage",
 ]

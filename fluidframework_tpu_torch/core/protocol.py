@@ -42,6 +42,17 @@ class ColumnarWireKind(enum.IntEnum):
 
 
 @dataclasses.dataclass
+class SignalMessage:
+    """An ephemeral, non-sequenced broadcast (reference: ISignalMessage):
+    it fans out to the connected clients at once, carries no seq and is
+    never stored."""
+
+    doc_id: str
+    client_id: int
+    contents: Any = None
+
+
+@dataclasses.dataclass
 class SequencedDocumentMessage:
     """A sequenced op as broadcast to all clients (reference:
     ISequencedDocumentMessage): ``seq`` is the per-document total order,
@@ -61,3 +72,6 @@ class SequencedDocumentMessage:
     # trace context of the submitting batch ({"tid", "sid"}), None when
     # untraced; kept so a spilled message has the JAX package's fields
     trace: Optional[dict] = None
+
+    def is_from(self, client_id: int) -> bool:
+        return self.client_id == client_id

@@ -12,16 +12,26 @@ from it (``server/observer.py``).
 Both packages write the same file names and manifest fields, and a
 summary of either package holds only builtins and numpy arrays, so each
 package loads the other's generations.
+
+``SummaryConfig`` / ``SummaryManager`` are the client-side summarization
+agent (the counterpart of the JAX module's): wired to a loaded container,
+the elected client uploads a summary and proposes it with a SUMMARIZE op
+once enough ops (or time) have passed since the last ack.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import os
 import pickle
-from typing import List, Optional, Tuple
+import time
+from typing import Callable, List, Optional, Tuple
 
+from ..core.protocol import MessageType, SequencedDocumentMessage
+from ..utils import tracing
 from ..utils.atomicfile import atomic_write_json, read_json
+from ..utils.faultpoints import SITE_SUMMARIZER_POST_UPLOAD, fault_point
 from ..utils.telemetry import REGISTRY
 
 
@@ -166,3 +176,168 @@ class SummaryGenerationStore:
                                      self.directory,
                                      self._BLOB.format(gen))})
         return problems
+
+
+#: consecutive nacked proposals before a manager gives up until an ack
+MAX_ATTEMPTS = 3
+
+
+@dataclasses.dataclass
+class SummaryConfig:
+    """Reference: ISummaryConfiguration (§5.6)."""
+
+    max_ops: int = 100            # ops since last ack that force a summary
+    min_ops: int = 1              # never summarize with fewer new ops
+    max_time_s: float = 60.0      # time since last ack that forces a summary
+    #: channel-handle reuse: unchanged channels upload a handle node
+    #: referencing the last ACKED summary (storage materializes it)
+    incremental: bool = True
+
+
+class SummaryManager:
+    """Per-container summarization agent. Wire one to a loaded container:
+    ``SummaryManager(container)``; it listens to the op stream, and on the
+    elected client runs the summarize protocol automatically. Works with
+    both the synchronous local driver (echo + ack are processed reentrantly
+    inside ``submit``) and an async stream (they arrive later)."""
+
+    def __init__(self, container,
+                 config: Optional[SummaryConfig] = None,
+                 clock: Optional[Callable[[], float]] = None):
+        self.container = container
+        self.config = config or SummaryConfig()
+        self.clock = clock or time.monotonic
+        self.last_ack_seq = container.base_seq
+        self.last_ack_time = self.clock()
+        self._in_flight = False
+        self._inflight_capture = None   # channel seqs of the upload
+        self.pending_proposal: Optional[int] = None  # seq of our SUMMARIZE op
+        self.failed_attempts = 0
+        self.summaries_acked = 0
+        self.summaries_nacked = 0
+        container.on("op", self._on_op)
+        # a proposal in flight when the connection drops is lost (the op
+        # never sequences for a dead client) — reset so the next elected
+        # window can try again
+        container.on("disconnected", self._on_disconnected)
+
+    def _on_disconnected(self, _reason: str) -> None:
+        self._in_flight = False
+        self.pending_proposal = None
+
+    # --------------------------------------------------------------- election
+
+    @property
+    def elected_client(self) -> Optional[int]:
+        """Oldest quorum member (join order) — reference:
+        OrderedClientElection."""
+        members = self.container.quorum.members
+        return next(iter(members), None)
+
+    @property
+    def is_elected(self) -> bool:
+        cid = self.container.client_id
+        return cid is not None and cid == self.elected_client
+
+    # -------------------------------------------------------------- op stream
+
+    def _on_op(self, msg: SequencedDocumentMessage) -> None:
+        if msg.type == MessageType.SUMMARIZE:
+            if self._in_flight and msg.is_from(self.container.client_id) \
+                    and self.pending_proposal is None:
+                self.pending_proposal = msg.seq
+            return
+        if msg.type == MessageType.SUMMARY_ACK:
+            self.last_ack_seq = msg.contents["summaryProposal"]
+            self.last_ack_time = self.clock()
+            if self._in_flight \
+                    and msg.contents["summaryProposal"] == \
+                    self.pending_proposal:
+                self._in_flight = False
+                self.pending_proposal = None
+                self.failed_attempts = 0
+                self.summaries_acked += 1
+                # unchanged channels may now reference this summary by
+                # handle (channel-handle reuse, SURVEY.md §2.16); the
+                # baseline is the capture taken at UPLOAD time, immune
+                # to out-of-band summarize() calls in between
+                self.container.runtime.on_summary_ack(
+                    self._inflight_capture)
+                self._inflight_capture = None
+            return
+        if msg.type == MessageType.SUMMARY_NACK:
+            if self._in_flight \
+                    and msg.contents.get("summaryProposal") == \
+                    self.pending_proposal:
+                self._in_flight = False
+                self.pending_proposal = None
+                self.failed_attempts += 1
+                self.summaries_nacked += 1
+            return
+        self.maybe_summarize()
+
+    # ------------------------------------------------------------- heuristics
+
+    def should_summarize(self) -> bool:
+        """RunningSummarizer heuristics (§3.4)."""
+        if not self.is_elected or not self.container.connected:
+            return False
+        if self._in_flight:
+            return False              # one in-flight proposal at a time
+        if self.failed_attempts >= MAX_ATTEMPTS:
+            return False              # give up until the next ack resets us
+        new_ops = self.container.protocol.seq - self.last_ack_seq
+        if new_ops < self.config.min_ops:
+            return False
+        if new_ops >= self.config.max_ops:
+            return True
+        return (self.clock() - self.last_ack_time) >= self.config.max_time_s
+
+    def maybe_summarize(self) -> bool:
+        if not self.should_summarize():
+            return False
+        self.summarize_now()
+        return True
+
+    # ---------------------------------------------------------------- the act
+
+    def summarize_now(self) -> int:
+        """Run one summarize attempt; returns the summary's base seq.
+        (Callable directly for on-demand summaries — reference:
+        summarizeOnDemand.)"""
+        container = self.container
+        seq = container.protocol.seq
+        with tracing.span("summarize", seq=seq) as sp:
+            with tracing.span("summarize.build"):
+                summary = {
+                    "protocol": container.protocol.snapshot(),
+                    # incremental is a no-op until the first ack
+                    # establishes the handle-reuse baseline (summarize
+                    # falls back to full)
+                    "runtime": container.runtime.summarize(
+                        incremental=self.config.incremental),
+                }
+            self._inflight_capture = \
+                container.runtime.take_summary_capture()
+            t0 = time.perf_counter()
+            handle = container.service.summary_storage.upload_summary(
+                summary, seq)
+            REGISTRY.inc("summary_uploads")
+            REGISTRY.observe("summary_upload_ms",
+                             (time.perf_counter() - t0) * 1000)
+            sp.annotate(handle=handle)
+            # crash here = summary uploaded but the SUMMARIZE proposal
+            # never sequenced: the upload is an orphan blob, no ack ever
+            # references it, and a restarted summarizer must re-propose
+            # from the last ACKED summary (never resume this one)
+            fault_point(SITE_SUMMARIZER_POST_UPLOAD, seq=seq,
+                        handle=handle)
+            # mark in-flight BEFORE submit: the synchronous local
+            # pipeline processes the echo (which records
+            # pending_proposal) and the ack reentrantly inside this call
+            self._in_flight = True
+            self.pending_proposal = None
+            REGISTRY.inc("summary_proposals")
+            container.submit({"handle": handle, "summarySeq": seq},
+                             MessageType.SUMMARIZE)
+        return seq

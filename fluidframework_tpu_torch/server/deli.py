@@ -14,6 +14,7 @@ import time
 from typing import Any, Dict, Optional, Tuple
 
 from ..core.protocol import MessageType, SequencedDocumentMessage
+from ..utils.atomicfile import atomic_write_json, read_json
 
 
 class NackReason(enum.IntEnum):
@@ -83,6 +84,23 @@ class DeliSequencer:
             doc_id=doc_id, client_id=client_id, client_seq=0,
             ref_seq=doc.seq - 1, seq=doc.seq, min_seq=doc.min_seq,
             type=MessageType.CLIENT_JOIN, contents={"clientId": client_id})
+
+    def is_member(self, doc_id: str, client_id: int) -> bool:
+        """Whether ``client_id`` holds a seat on ``doc_id`` (a resumed
+        session must not re-join a seated client: ``client_join`` resets
+        ``last_client_seq`` and would re-open the dedup window)."""
+        doc = self._docs.get(doc_id)
+        return doc is not None and client_id in doc.clients
+
+    def last_client_seq(self, doc_id: str, client_id: int) -> int:
+        """The highest clientSeq accepted from this client on this doc (0
+        when unknown): a resyncing client renumbers its pending ops past
+        it."""
+        doc = self._docs.get(doc_id)
+        if doc is None:
+            return 0
+        client = doc.clients.get(client_id)
+        return client.last_client_seq if client is not None else 0
 
     def client_leave(self, doc_id: str, client_id: int
                      ) -> Optional[SequencedDocumentMessage]:
@@ -160,6 +178,15 @@ class DeliSequencer:
                 doc.clients[int(cid)] = _ClientState(lcs, rs)
             deli._docs[doc_id] = doc
         return deli
+
+    def save_checkpoint(self, path: str) -> None:
+        """Durable checkpoint: tmp + fsync + rename, so a kill mid-write
+        never destroys the previous one."""
+        atomic_write_json(path, self.checkpoint())
+
+    @classmethod
+    def load_checkpoint(cls, path: str, clock=None) -> "DeliSequencer":
+        return cls.restore(read_json(path), clock=clock)
 
     def replay(self, msg: SequencedDocumentMessage) -> None:
         """Re-apply an already-sequenced message (log-tail replay after a

@@ -10,14 +10,47 @@ the serving engines' append and summary seams bump its counters
 throttled ops, gauges its paused readers, and observes the per-stage
 latency histograms of its windows (``server/opsd.py``), the end-to-end
 one with a trace exemplar, into :data:`REGISTRY` and into a registry of
-its own that ``opsd.latency_breakdown`` reads. Component attachment,
-the full snapshot and Prometheus rendering wait for the ops endpoint.
+its own that ``opsd.latency_breakdown`` reads.
+
+A component keeps a registry of its own (``MetricsCollector``) and
+``attach``-es it to :data:`REGISTRY` under a name and optional labels
+(the serving service's replica counters and its per-partition consume
+collectors). Structured events go through a :class:`TelemetryLogger` to
+a host-provided sink (``BufferSink`` collects them in memory). The full
+snapshot and Prometheus rendering wait for the ops endpoint.
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import Any, Dict, List, Optional
+import weakref
+from typing import Any, Callable, Dict, List, Optional
+
+# event category (reference: ITelemetryBaseEvent.category)
+WARNING = "warning"   # degraded-but-serving conditions (shed load, stalls)
+
+Sink = Callable[[dict], None]
+
+
+class TelemetryLogger:
+    """Namespaced structured logger (reference: ITelemetryLoggerExt).
+    Events are flat dicts ``{category, eventName, ...props}``; namespaces
+    chain with ``:``. With no sink an event goes nowhere."""
+
+    def __init__(self, sink: Optional[Sink] = None, namespace: str = ""):
+        self._sink = sink
+        self.namespace = namespace
+
+    def send(self, category: str, event_name: str, **props) -> None:
+        name = f"{self.namespace}:{event_name}" if self.namespace \
+            else event_name
+        if self._sink is not None:
+            self._sink({"category": category, "eventName": name, **props})
+
+    def send_warning(self, event_name: str, **props) -> None:
+        """Degradation events: the system still serves but sheds load or
+        runs slow (replica overflow); they must be visible."""
+        self.send(WARNING, event_name, **props)
 
 
 class Histogram:
@@ -96,6 +129,11 @@ class MetricsRegistry:
         self.counters: Dict[str, float] = {}
         self.gauges: Dict[str, float] = {}
         self.histograms: Dict[str, Histogram] = {}
+        # key -> weakref to an attached component registry (components
+        # come and go; the process registry must not keep them alive)
+        self._components: Dict[str, Any] = {}
+        # key -> label dict of a label-qualified attachment
+        self._component_labels: Dict[str, Dict[str, str]] = {}
 
     # ----------------------------------------------------------- recording
 
@@ -110,6 +148,51 @@ class MetricsRegistry:
         if name not in self.histograms:
             self.histograms[name] = Histogram(_buckets_for(name))
         self.histograms[name].observe(value_ms, exemplar=exemplar)
+
+    # ---------------------------------------------------------- components
+
+    @staticmethod
+    def component_key(name: str, labels: Optional[Dict[str, Any]]) -> str:
+        """``name`` bare, or ``name{k=v,...}`` with sorted label keys."""
+        if not labels:
+            return name
+        inner = ",".join(f"{k}={labels[k]}" for k in sorted(labels))
+        return f"{name}{{{inner}}}"
+
+    def attach(self, name: str, registry: "MetricsRegistry",
+               labels: Optional[Dict[str, Any]] = None) -> str:
+        """Register a component's own registry under ``name`` (qualified
+        by ``labels``). A key held by another live registry gets a
+        numeric suffix on the name (``name2``, ...). Returns the key."""
+        base, i = name, 1
+        while True:
+            key = self.component_key(name, labels)
+            ref = self._components.get(key)
+            if ref is None or ref() is None or ref() is registry:
+                break
+            i += 1
+            name = f"{base}{i}"
+        self._components[key] = weakref.ref(registry)
+        if labels:
+            self._component_labels[key] = {
+                k: str(v) for k, v in labels.items()}
+        return key
+
+    def components(self) -> Dict[str, "MetricsRegistry"]:
+        """The live attached registries by key (dead ones are dropped)."""
+        live = {}
+        for key, ref in list(self._components.items()):
+            reg = ref()
+            if reg is None:
+                del self._components[key]
+                self._component_labels.pop(key, None)
+            else:
+                live[key] = reg
+        return live
+
+    def component_labels(self, key: str) -> Dict[str, str]:
+        """Labels a component was attached with (empty for bare names)."""
+        return dict(self._component_labels.get(key, {}))
 
     # ------------------------------------------------------------ snapshot
 
@@ -126,5 +209,22 @@ class MetricsRegistry:
         return out
 
 
+#: a component's own collector is a registry
+MetricsCollector = MetricsRegistry
+
 #: the process-wide registry
 REGISTRY = MetricsRegistry()
+
+
+class BufferSink:
+    """Test / inspection sink: collects events in memory."""
+
+    def __init__(self):
+        self.events: List[dict] = []
+
+    def __call__(self, event: dict) -> None:
+        self.events.append(event)
+
+    def named(self, suffix: str) -> List[dict]:
+        return [e for e in self.events
+                if e["eventName"].endswith(suffix)]

@@ -8,8 +8,13 @@ around one window in 256 (``maybe_root_span``) and hands its context to
 the ack fan, which records the window's whole rx → ack span
 (``record_complete``), so the end-to-end latency histogram's exemplar
 names a real trace (``utils/telemetry.py``) whose spans :meth:`Tracer.events`
-reads back. The Chrome trace export and the wire codec of a context
-wait for the ops endpoint and the JSON door.
+reads back.
+
+The in-process service (``server/tinylicious.py``) carries a context
+across its log hops as a 2-key wire dict (:meth:`TraceContext.to_wire`,
+``current_wire()``): the raw-log record holds the submitter's context,
+and the Deli and apply spans parent on it (a span's ``parent`` may be
+that dict). The Chrome trace export waits for the ops endpoint.
 """
 
 from __future__ import annotations
@@ -23,13 +28,23 @@ from typing import Any, Dict, List, Optional
 
 
 class TraceContext:
-    """One node of a span tree: (trace_id, span_id)."""
+    """One node of a span tree: (trace_id, span_id). Serializes to a
+    2-key dict for log records."""
 
     __slots__ = ("trace_id", "span_id")
 
     def __init__(self, trace_id: str, span_id: int):
         self.trace_id = trace_id
         self.span_id = span_id
+
+    def to_wire(self) -> dict:
+        return {"tid": self.trace_id, "sid": self.span_id}
+
+    @staticmethod
+    def from_wire(d: Any) -> Optional["TraceContext"]:
+        if isinstance(d, dict) and "tid" in d and "sid" in d:
+            return TraceContext(d["tid"], d["sid"])
+        return None
 
     def __repr__(self) -> str:
         return f"TraceContext({self.trace_id}, {self.span_id})"
@@ -48,6 +63,11 @@ class Span:
         self.args = args
         self._ts_us: Optional[float] = None
         self._t0 = 0.0
+
+    def annotate(self, **args: Any) -> "Span":
+        """Attach args after entry (counters measured inside the span)."""
+        self.args.update(args)
+        return self
 
     def __enter__(self) -> "Span":
         self._ts_us = time.time() * 1e6
@@ -77,6 +97,9 @@ class _NullSpan:
 
     ctx = None
     args: Dict[str, Any] = {}
+
+    def annotate(self, **_args: Any) -> "_NullSpan":
+        return self
 
     def __enter__(self) -> "_NullSpan":
         return self
@@ -123,9 +146,12 @@ class Tracer:
         stack = self._stack()
         return stack[-1] if stack else None
 
-    def _child_of(self, parent: Optional[TraceContext]):
-        """(context, parent span id) of a new span under ``parent`` (None:
-        under the current span, or a new trace)."""
+    def _child_of(self, parent: Any):
+        """(context, parent span id) of a new span under ``parent``: a
+        :class:`TraceContext`, a wire dict, or None (under the current
+        span, or a new trace)."""
+        if parent is not None and not isinstance(parent, TraceContext):
+            parent = TraceContext.from_wire(parent)
         if parent is None:
             parent = self.current()
         if parent is None:
@@ -136,8 +162,7 @@ class Tracer:
 
     # ------------------------------------------------------------ spanning
 
-    def span(self, name: str, parent: Optional[TraceContext] = None,
-             **args: Any) -> Span:
+    def span(self, name: str, parent: Any = None, **args: Any) -> Span:
         """Open a span under ``parent`` (see ``_child_of``)."""
         ctx, parent_id = self._child_of(parent)
         return Span(self, name, ctx, parent_id, args)
@@ -160,7 +185,7 @@ class Tracer:
         self._events.append(event)
 
     def record_complete(self, name: str, dur_ms: float,
-                        parent: Optional[TraceContext] = None,
+                        parent: Any = None,
                         **args: Any) -> TraceContext:
         """Record an already-measured span ending now: one ring append.
         Returns its context."""
@@ -183,4 +208,15 @@ class Tracer:
 
 #: the process tracer
 TRACER = Tracer()
+
+
+def span(name: str, parent: Any = None, **args: Any) -> Span:
+    return TRACER.span(name, parent, **args)
+
+
+def current_wire() -> Optional[dict]:
+    """The current context as a wire dict, or None: what is stamped into
+    log records at a serialization boundary."""
+    ctx = TRACER.current()
+    return ctx.to_wire() if ctx is not None else None
 

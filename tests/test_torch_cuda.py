@@ -2900,3 +2900,62 @@ def test_read_replica_on_card_equals_its_leader(cuda):
         digest(leader, "string", docs)
     assert all(rep.engine.deli.doc_seq(d) == leader.deli.doc_seq(d)
                for d in docs)
+
+
+def test_serving_service_on_card_equals_cpu_twin(cuda):
+    """A seeded container session (4 rounds, compressed and chunked
+    pastes, the viewer's edits crossing the editor's turns) through
+    ``ServingLocalService`` on the card and with ``device="cpu"``: the
+    replica stores are equal under the parity contract after every apply
+    and every compaction, the session crosses B1's props switch and a
+    compaction, B1 launches once an op window of every flush, and every
+    server read equals both clients."""
+    from fluidframework_tpu_torch.server.serving_service import (
+        ServingLocalService,
+    )
+    from fluidframework_tpu_torch.testing.service_session import (
+        ServiceSession, doc_ids, fingerprinted,
+    )
+    prints, reads = [], []
+    for device in (cuda, torch.device("cpu")):
+        svc = ServingLocalService(n_docs=32, capacity=256, batch_window=16,
+                                  compact_every=3, device=device)
+        steps = fingerprinted(svc)
+        windows = []
+        apply = svc.store.apply_messages
+
+        def counted(msgs, apply=apply, store=svc.store):
+            apply(msgs)
+            windows.append(len(store.last_op_windows))
+
+        svc.store.apply_messages = counted
+        s = ServiceSession(svc, doc_ids(32))
+        before = sk.launches
+        s.run(4, seed=11, paste_round=2, paste_every=4, chunk_every=16)
+        svc.flush_replica()
+        if device.type == "cuda":
+            assert svc.store.state.seq.is_cuda
+            assert sk.launches - before == sum(windows) > 0
+        reads.append([svc.read_text(d, "text") for d in s.docs])
+        assert reads[-1] == [ta.get_text() for ta, _, _ in s.texts] == \
+            [tb.get_text() for _, tb, _ in s.texts]
+        assert not svc.dropped_channels() and not svc.nacks
+        prints.append(steps)
+    assert prints[0] == prints[1]
+    kinds = [(k, props) for k, props, _ in prints[0]]
+    assert ("apply", False) in kinds and ("apply", True) in kinds
+    assert ("compact", True) in kinds
+    assert reads[0] == reads[1]
+
+
+def test_chip_service_phase_on_card_at_small_size(cuda):
+    """``chip_smoke.py``'s service phase on the card at 512 docs: every
+    check of the phase (reads, props, launches a window, both B1 modes,
+    the first launch of each against the plain version, the card / CPU
+    twin of 256 docs crossing a compaction and the props switch) holds."""
+    import chip_smoke
+    out = chip_smoke.service_phase("test", "cuda", D=512, twin_docs=256,
+                                   prop_docs=64, paste_every=16,
+                                   chunk_every=128)
+    assert out["launches"] > 0 and out["twin_launches"] > 0
+    assert out["max_abs_err"] == 0

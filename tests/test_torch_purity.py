@@ -60,6 +60,28 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
                              device="cpu").store.state.node_id.is_cpu
 
 
+def test_serving_service_needs_a_card_unless_cpu_is_asked():
+    """The in-process service keeps its string replica on the card by
+    default; ``device="cpu"`` runs the plain version."""
+    from fluidframework_tpu_torch.server.serving_service import (
+        ServingLocalService,
+    )
+    if torch.cuda.is_available():
+        svc = ServingLocalService(n_docs=8, capacity=128)
+        assert svc.store.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ServingLocalService(n_docs=8, capacity=128)
+    svc = ServingLocalService(n_docs=8, capacity=128, device="cpu")
+    assert svc.store.state.seq.is_cpu
+    conn = svc.connect("d")
+    conn.submit({"address": "default", "contents": {
+        "address": "text", "contents": {
+            "mt": "insert", "pos": 0, "kind": 0, "text": "x",
+            "props": None, "clientSeq": 1}}})
+    assert svc.read_text("d", "text") == "x"
+
+
 def test_read_plane_entry_points_need_a_card_unless_cpu_is_asked():
     """The catch-up diff, its apply, the log follower and the read
     replica build their stores and engines on the card by default."""
